@@ -1,0 +1,41 @@
+"""Integer helpers (reference cuda_utils.cuh, pow2_utils.cuh)."""
+
+from __future__ import annotations
+
+from raft_tpu_torch.core.error import expects
+
+
+def ceildiv(a: int, b: int) -> int:
+    """Ceiling division (reference cuda_utils.cuh:109 ``raft::ceildiv``)."""
+    return -(-a // b)
+
+
+def align(v: int, alignment: int) -> int:
+    """Round ``v`` up to a multiple of ``alignment`` (``alignTo``)."""
+    return ceildiv(v, alignment) * alignment
+
+
+class Pow2:
+    """Arithmetic modulo a power of two (reference pow2_utils.cuh)."""
+
+    def __init__(self, value: int):
+        expects(value > 0 and value & (value - 1) == 0,
+                "Pow2: value must be a power of two, got %d", value)
+        self.value = value
+        self.mask = value - 1
+        self.log2 = value.bit_length() - 1
+
+    def div(self, x: int) -> int:
+        return x >> self.log2
+
+    def mod(self, x: int) -> int:
+        return x & self.mask
+
+    def round_down(self, x: int) -> int:
+        return x & ~self.mask
+
+    def round_up(self, x: int) -> int:
+        return (x + self.mask) & ~self.mask
+
+    def is_aligned(self, x: int) -> bool:
+        return (x & self.mask) == 0

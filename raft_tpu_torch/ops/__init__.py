@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Each wrapper follows the device of its tensors: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel (built from ``csrc/`` at
+first use by :mod:`raft_tpu_torch.ops._build`) or raises.  Each wrapper
+counts its launches in a ``launches`` attribute.
+
+- K1 :func:`~raft_tpu_torch.ops.knn_tile.fused_knn_tile`
+- K2 :func:`~raft_tpu_torch.ops.select_tile.select_tile`
+- K5 :func:`~raft_tpu_torch.ops.pairwise_tile.pairwise_tile`
+"""

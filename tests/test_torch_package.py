@@ -1,0 +1,142 @@
+"""Package rules of raft_tpu_torch: no JAX, explicit devices, kernel
+wrappers that follow their tensor's device and never fall back."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import raft_tpu_torch
+from raft_tpu_torch import RaftError
+from raft_tpu_torch.core.utils import Pow2, align, ceildiv
+from raft_tpu_torch.distance.distance_type import DistanceType
+from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
+from raft_tpu_torch.ops.pairwise_tile import pairwise_tile, pairwise_tile_plain
+from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import raft_tpu_torch, raft_tpu_torch.convert, sys; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
+            " or m == 'raft_tpu']; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                   check=True, timeout=120)
+
+
+def test_sources_import_no_jax():
+    banned = re.compile(r"\s*(from|import)\s+(jax|raft_tpu)(\.|\s|$)")
+    for path in list((ROOT / "raft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            assert not banned.match(line), (path, line)
+
+
+ENTRY_POINTS = [
+    lambda x, q: raft_tpu_torch.brute_force_knn(x, q, 3),
+    lambda x, q: raft_tpu_torch.knn_merge_parts(x[None, :, :3], np.zeros((1, 20, 3), np.int32), 3),
+    lambda x, q: raft_tpu_torch.fused_l2_knn(x, q, 3),
+    lambda x, q: raft_tpu_torch.select_k(x, 3),
+    lambda x, q: raft_tpu_torch.pairwise_distance(x, q),
+    lambda x, q: raft_tpu_torch.haversine_knn(x[:, :2], q[:, :2], 3),
+]
+
+
+@pytest.mark.parametrize("call", ENTRY_POINTS, ids=["brute_force_knn", "knn_merge_parts",
+                                                   "fused_l2_knn", "select_k",
+                                                   "pairwise_distance", "haversine_knn"])
+def test_default_device_raises_without_cuda(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((20, 4)).astype(np.float32)
+    q = rng.standard_normal((5, 4)).astype(np.float32)
+    with pytest.raises(RaftError, match="CUDA"):
+        call(x, q)
+
+
+def _no_build(monkeypatch):
+    def refuse(name):
+        raise AssertionError("kernel %s loaded for a CPU tensor" % name)
+    monkeypatch.setattr(_build, "load", refuse)
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    _no_build(monkeypatch)
+    before = (fused_knn_tile.launches, select_tile.launches, pairwise_tile.launches)
+    g = torch.Generator().manual_seed(0)
+    x, q = torch.randn(300, 8, generator=g), torch.randn(7, 8, generator=g)
+    for got, want in [(fused_knn_tile(x, q, 5), knn_tile_plain(x, q, 5)),
+                      (select_tile(x, 5), select_tile_plain(x, 5))]:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(pairwise_tile(q, x, DistanceType.L1),
+                               pairwise_tile_plain(q, x, DistanceType.L1), rtol=0, atol=0)
+    assert (fused_knn_tile.launches, select_tile.launches, pairwise_tile.launches) == before
+
+
+def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
+    # a tensor off the CPU goes to the kernel; when the kernel cannot be
+    # built the wrapper raises instead of running the plain version
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: shutil.which("false") or "/bin/false")
+    x = torch.empty((300, 8), device="meta")
+    q = torch.empty((7, 8), device="meta")
+    calls = [lambda: fused_knn_tile(x, q, 5), lambda: select_tile(x, 5),
+             lambda: pairwise_tile(q, x, DistanceType.L1)]
+    for call in calls:
+        with pytest.raises(RaftError, match="nvcc failed"):
+            call()
+    assert not list(tmp_path.glob("*.tmp")), "failed builds leave no partial file"
+
+
+def test_library_name_follows_the_sources(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    (csrc / "warp_select.cuh").write_text((csrc / "warp_select.cuh").read_text() + "\n// edit\n")
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert all(before[n] != after[n] for n in _build.KERNELS)
+    assert all(p.parent == _build.BUILD_DIR for p in after.values())
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs in full")
+    # no card here: the script must exit non-zero and print no result,
+    # from the repository and from a directory holding nothing else
+    for cwd, script in [(ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, shutil.copy(ROOT / "chip_smoke.py", tmp_path))]:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=_clean_env(),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_utils():
+    assert ceildiv(7, 3) == 3 and align(7, 4) == 8
+    p = Pow2(32)
+    assert (p.div(70), p.mod(70), p.round_down(70), p.round_up(70)) == (2, 6, 64, 96)
+    assert p.is_aligned(64) and not p.is_aligned(65)
+    with pytest.raises(raft_tpu_torch.LogicError):
+        Pow2(12)
+
+
+def test_distance_type_values_match_the_reference():
+    from raft_tpu.distance.distance_type import DistanceType as JD
+
+    assert {m.name: int(m) for m in DistanceType} == {m.name: int(m) for m in JD}
