@@ -4,14 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``raft_tpu_torch/ops/csrc`` with nvcc, holds
-each kernel against its plain PyTorch version on the card, drives the
-main path (exact brute-force kNN, 1M x 128 float32, 1024 queries, k=100)
-through ``brute_force_knn(device="cuda")`` in one partition and in four,
-and the L1 path (pairwise K5 + select K2) at 100k x 128; checks that each
-path launched its kernels, and times every kernel beside its plain
-version and a single-call PyTorch yardstick.  Any failure raises, and the
-script exits non-zero without the final line.  It needs a CUDA device and
-the repository beside it.
+each kernel against its plain PyTorch version on the card, and drives the
+paths through the public entry points with ``device="cuda"``:
+
+- exact brute-force kNN, 1M x 128 float32, 1024 queries, k=100
+  (``brute_force_knn``), in one partition and in four, and the L1 path
+  (pairwise K5 + select K2) at 100k x 128;
+- IVF-Flat at the size of the repository's ``serve_ann_1m`` workload:
+  ``ivf_flat_build`` of 1M x 128 rows from a Gaussian mixture into 1024
+  lists, k-means trained on 131,072 sampled rows (K4 assigns), then
+  ``ivf_flat_search`` of 1024 queries, k=100, nprobe=32 (K2 probes, K3
+  scans), held against the scan route, its recall@100 against brute force
+  reported, and a full probe held equal to brute force.
+
+It checks that each path launched its kernels, and times every kernel
+beside its plain version and, where one exists, a single-call PyTorch
+yardstick.  Any failure raises, and the script exits non-zero without the
+final line.  It needs a CUDA device and the repository beside it.
 
 Output: the card (``nvidia-smi``), versions, build seconds, one line per
 check, a ``paths`` JSON line (launches and end-to-end milliseconds per
@@ -32,6 +41,12 @@ SEED = 0
 N_INDEX, N_QUERIES, DIM, K = 1_000_000, 1024, 128, 100
 N_L1 = 100_000
 N_CHECK = 128              # main-path queries held against the plain version
+# IVF-Flat: bench.py serve_ann_1m (nlist 1024, train_rows 131,072), the
+# nprobe of its _bench_ivf, and the Gaussian mixture of its make_blobs
+# (256 blobs, spread 0.35)
+NLIST, NPROBE, TRAIN_ROWS = 1024, 32, 131_072
+N_BLOBS, BLOB_SPREAD = 256, 0.35
+N_FULL_PROBE = 64          # queries searched at nprobe = nlist
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -70,21 +85,47 @@ def bound(ops, nbytes):
 
 def check_knn(name, got_d, got_i, ref_d, ref_i, atol):
     """Distances within ``atol``; ids equal as per-row sets except at a
-    tie (within ``atol``) with the k-th reference distance.  Returns the
-    largest distance error."""
+    tie (within ``atol``) with the k-th reference distance; deficit slots
+    (id -1, distance +inf, where a row had fewer than k candidates) at the
+    same places.  Returns the largest distance error."""
     assert got_d.shape == ref_d.shape and got_i.dtype == torch.int32, name
-    assert torch.isfinite(got_d).all(), name
-    err = (got_d - ref_d).abs().max().item()
+    live = ref_i >= 0
+    assert torch.equal(got_i >= 0, live), "%s: deficit slots differ" % name
+    assert torch.isfinite(got_d[live]).all() and torch.isinf(got_d[~live]).all(), name
+    assert (got_i[~live] == -1).all(), name
+    srt = torch.sort(got_i, dim=1).values
+    assert not ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any(), "%s: duplicate ids" % name
+    err = (got_d[live] - ref_d[live]).abs().max().item() if live.any() else 0.0
     assert err <= atol, "%s: distance error %g > %g" % (name, err, atol)
-    same = (torch.sort(got_i, dim=1).values == torch.sort(ref_i, dim=1).values).all(dim=1)
+    same = (srt == torch.sort(ref_i, dim=1).values).all(dim=1)
     for row in torch.nonzero(~same).flatten().tolist():
         extra = set(got_i[row].tolist()) - set(ref_i[row].tolist())
-        kth = ref_d[row, -1].item()
+        kth = ref_d[row][live[row]][-1].item()
         for col, idx in enumerate(got_i[row].tolist()):
             if idx in extra:
                 assert abs(got_d[row, col].item() - kth) <= atol, (
                     "%s: row %d id %d is no tie at the k-th distance" % (name, row, idx))
     return err
+
+
+def check_nn(name, got_v, got_i, ref_v, ref_i, x, y, atol):
+    """1-NN values within ``atol``; an id that differs from the reference's
+    must be a tie (within ``atol``) at the minimum.  Returns the largest
+    value error."""
+    assert got_v.shape == ref_v.shape and got_i.dtype == torch.int32, name
+    err = (got_v - ref_v).abs().max().item()
+    assert err <= atol, "%s: value error %g > %g" % (name, err, atol)
+    bad = got_i != ref_i
+    if bad.any():
+        alt = ((x[bad] - y[got_i[bad].long()]) ** 2).sum(dim=1)
+        assert ((alt - ref_v[bad]).abs() <= atol).all(), "%s: an id is no tie" % name
+    return err
+
+
+def l2_atol(a, b):
+    """Tolerance of expanded-form squared L2 in float32: the rounding of
+    |a|^2 + |b|^2 at the largest norms."""
+    return 2e-6 * ((a * a).sum(-1).max() + (b * b).sum(-1).max()).item()
 
 
 def check_exact(name, got, ref):
@@ -98,16 +139,22 @@ def main():
     if not (ROOT / "raft_tpu_torch" / "ops" / "csrc").is_dir():
         sys.exit("chip_smoke: raft_tpu_torch not found beside %s" % __file__)
     sys.path.insert(0, str(ROOT))
-    from raft_tpu_torch import DistanceType, brute_force_knn
+    from raft_tpu_torch import (DistanceType, IVFFlatParams, brute_force_knn, ivf_flat_build,
+                                ivf_flat_search)
+    from raft_tpu_torch.distance.pairwise import expanded_sq_dists
     from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
     from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
+    from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
     from raft_tpu_torch.ops.pairwise_tile import (METRICS, pairwise_tile,
                                                   pairwise_tile_plain)
     from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
+    from raft_tpu_torch.spatial.ann import _probe_compact
 
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
-                "pairwise_tile": pairwise_tile}
+                "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
+                "ivf_tile": fused_ivf_scan}
 
     def reset():
         for w in wrappers.values():
@@ -133,7 +180,7 @@ def main():
     print("build: %.1f s wall, per kernel %s" % (
         time.perf_counter() - t0, {k: round(v, 1) for k, v in secs.items()}), flush=True)
 
-    errs = {"knn_tile": 0.0, "select_tile": 0.0, "pairwise_tile": 0.0}
+    errs = {name: 0.0 for name in wrappers}
 
     # 2. each kernel against its plain version
     for n, nq, d, k, dup in [(10_007, 77, 64, 1, False), (50_003, 300, 128, 100, False),
@@ -144,8 +191,7 @@ def main():
         got = fused_knn_tile(x, q, k)
         torch.cuda.synchronize()
         ref = knn_tile_plain(x, q, k)
-        # expanded-form distances: float32 rounding of |q|^2 + |x|^2
-        atol = 2e-6 * ((q * q).sum(1).max() + (x * x).sum(1).max()).item()
+        atol = l2_atol(q, x)
         err = check_knn("knn_tile n=%d nq=%d d=%d k=%d" % (len(x), nq, d, k),
                         *got, *ref, atol)
         print("check knn_tile n=%d nq=%d d=%d k=%d: max err %.3g (atol %.3g)"
@@ -174,6 +220,48 @@ def main():
         print("check pairwise_tile %dx%dx%d: %d metrics agree (rtol 1e-5, atol 1e-5)"
               % (m, n, d, len(METRICS)), flush=True)
 
+    for m, n, d, dup in [(1000, 1024, 128, False), (77, 1, 16, False),
+                         (1031, 3001, 300, False), (500, 2000, 33, True)]:
+        x, y = randn(m, d), randn(n, d)
+        if dup:                                  # exact ties: every row of y twice
+            y = torch.cat([y[: n // 2], y[: n // 2]])
+        got = fused_nn_tile(x, y)
+        torch.cuda.synchronize()
+        ref = nn_tile_plain(x, y)
+        atol = l2_atol(x, y)
+        err = check_nn("nn_tile m=%d n=%d d=%d" % (m, n, d), *got, *ref, x, y, atol)
+        errs["nn_tile"] = max(errs["nn_tile"], err)
+        print("check nn_tile m=%d n=%d d=%d%s: max err %.3g (atol %.3g)"
+              % (m, n, d, " dup" if dup else "", err, atol), flush=True)
+
+    # slot stores: S slots of cap rows, the last `vacant` rows of each
+    # vacant; scan lists with a short list, an empty one and pad steps
+    for S, cap, d, k, nq, steps, vacant, bf16 in [
+            (6, 24, 10, 5, 7, 4, 3, False), (40, 100, 128, 100, 300, 20, 7, False),
+            (40, 37, 300, 128, 65, 12, 0, False), (40, 37, 300, 128, 65, 12, 0, True),
+            (10, 50, 16, 1, 33, 5, 0, False), (64, 984, 128, 100, 256, 48, 50, True)]:
+        sv = torch.rand(S, cap, d, device=dev, generator=gen)
+        si = torch.arange(S * cap, dtype=torch.int32, device=dev).reshape(S, cap)
+        si[:, cap - vacant:] = -1
+        sv[:, cap - vacant:] = 0
+        q = torch.rand(nq, d, device=dev, generator=gen)
+        slots = torch.stack([torch.randperm(S, device=dev, generator=gen)[:steps]
+                             for _ in range(nq)]).to(torch.int32)
+        slots[0, 2:] = -1
+        slots[1] = -1
+        slots[2, 1::2] = -1
+        args = (q, sv, (sv * sv).sum(-1), si, slots, k)
+        got = fused_ivf_scan(*args, accum_bf16=bf16)
+        torch.cuda.synchronize()
+        ref = fused_ivf_scan_plain(*args, accum_bf16=bf16)
+        atol = l2_atol(q, sv)
+        name = "ivf_tile S=%d cap=%d d=%d k=%d nq=%d%s" % (S, cap, d, k, nq,
+                                                          " bf16" if bf16 else "")
+        err = check_knn(name, *got, *ref, atol)
+        errs["ivf_tile"] = max(errs["ivf_tile"], err)
+        print("check %s: max err %.3g (atol %.3g), %d deficit slots"
+              % (name, err, atol, int((ref[1] < 0).sum())), flush=True)
+
     # 3. the main path, through the public entry point
     index, queries = randn(N_INDEX, DIM), randn(N_QUERIES, DIM)
     paths = {}
@@ -188,7 +276,7 @@ def main():
     assert dist.shape == (N_QUERIES, K) and ids.dtype == torch.int32
     assert torch.isfinite(dist).all() and ids.min() >= 0 and ids.max() < N_INDEX
     ref_d, ref_i = knn_tile_plain(index, queries[:N_CHECK], K)
-    atol = 2e-6 * ((queries * queries).sum(1).max() + (index * index).sum(1).max()).item()
+    atol = l2_atol(queries, index)
     err = check_knn("bfknn 1M (squared)", dist[:N_CHECK] ** 2, ids[:N_CHECK],
                     ref_d, ref_i, atol)
     errs["knn_tile"] = max(errs["knn_tile"], err)
@@ -227,7 +315,65 @@ def main():
         paths[name]["ms"] = time_ms(fn, reps=3)
         paths[name]["qps"] = N_QUERIES / paths[name]["ms"] * 1e3
 
-    # 4. kernels at the main path's shapes: kernel, plain version, yardstick
+    # 4. the IVF-Flat paths, on a Gaussian mixture drawn on the card (the
+    # recipe of bench.py make_blobs): the index and 1024 queries
+    centers = randn(N_BLOBS, DIM) * 4.0
+    blob = torch.randint(0, N_BLOBS, (N_INDEX + N_QUERIES,), device=dev, generator=gen)
+    mixture = centers[blob] + randn(N_INDEX + N_QUERIES, DIM) * BLOB_SPREAD
+    X, ivf_q = mixture[:N_INDEX], mixture[N_INDEX:]
+    del blob
+
+    reset()
+    t0 = time.perf_counter()
+    ivf = ivf_flat_build(X, IVFFlatParams(nlist=NLIST, nprobe=NPROBE), D.L2SqrtExpanded,
+                         train_rows=TRAIN_ROWS, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    # K4 runs every k-means assignment: the first, then one per Lloyd iteration
+    paths["ivf_build_1M"] = {"launches": launched, "ms": build_ms,
+                             "kmeans_iters": launched["nn_tile"] - 1,
+                             "n_slots": ivf.slot_ids.shape[0], "cap": ivf.slot_ids.shape[1],
+                             "max_slots_per_list": ivf.cent_slots.shape[1]}
+    assert launched["nn_tile"] > 0, paths
+    stored = ivf.slot_ids[ivf.slot_ids >= 0]
+    assert int(ivf.list_sizes.sum()) == N_INDEX and stored.numel() == N_INDEX
+    assert torch.equal(torch.sort(stored).values,
+                       torch.arange(N_INDEX, dtype=torch.int32, device=dev))
+    print("ivf_build_1M: %.0f ms, launches %s, %d k-means iterations, %d slots of %d rows"
+          % (build_ms, launched, launched["nn_tile"] - 1, *ivf.slot_ids.shape), flush=True)
+
+    reset()
+    ivf_d, ivf_i = ivf_flat_search(ivf, ivf_q, K, device=dev)
+    torch.cuda.synchronize()
+    paths["ivf_search_1M"] = {"launches": counts()}
+    assert paths["ivf_search_1M"]["launches"]["ivf_tile"] > 0, paths
+    assert paths["ivf_search_1M"]["launches"]["select_tile"] > 0, paths
+    assert ivf_d.shape == (N_QUERIES, K) and ivf_i.dtype == torch.int32
+    assert torch.isfinite(ivf_d).all() and ivf_i.min() >= 0 and ivf_i.max() < N_INDEX
+    ivf_atol = l2_atol(ivf_q, X)
+    scan_d, scan_i = ivf_flat_search(ivf, ivf_q[:N_CHECK], K, scan_impl="scan", device=dev)
+    err = check_knn("ivf_search vs the scan route (squared)", ivf_d[:N_CHECK] ** 2,
+                    ivf_i[:N_CHECK], scan_d ** 2, scan_i, ivf_atol)
+    errs["ivf_tile"] = max(errs["ivf_tile"], err)
+    bf_d, bf_i = brute_force_knn(X, ivf_q[:N_CHECK], K, D.L2SqrtExpanded, device=dev)
+    recall = (ivf_i[:N_CHECK, :, None] == bf_i[:, None, :]).any(-1).float().mean().item()
+    assert recall > 0.5, recall
+    paths["ivf_search_1M"]["recall_at_100"] = recall
+    fp_d, fp_i = ivf_flat_search(ivf, ivf_q[:N_FULL_PROBE], K, nprobe=NLIST, device=dev)
+    fp_err = check_knn("ivf full probe vs brute force (squared)", fp_d ** 2, fp_i,
+                       bf_d[:N_FULL_PROBE] ** 2, bf_i[:N_FULL_PROBE], ivf_atol)
+    print("ivf_search_1M nq=%d k=%d nprobe=%d: launches %s, first %d queries agree with "
+          "the scan route (max err %.3g, atol %.3g), recall@%d %.4f against brute force; "
+          "nprobe=nlist equals brute force on %d queries (max err %.3g)"
+          % (N_QUERIES, K, NPROBE, paths["ivf_search_1M"]["launches"], N_CHECK, err, ivf_atol,
+             K, recall,
+             N_FULL_PROBE, fp_err), flush=True)
+    paths["ivf_search_1M"]["ms"] = time_ms(lambda: ivf_flat_search(ivf, ivf_q, K, device=dev),
+                                           reps=5)
+    paths["ivf_search_1M"]["qps"] = N_QUERIES / paths["ivf_search_1M"]["ms"] * 1e3
+
+    # 5. kernels at the main paths' shapes: kernel, plain version, yardstick
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
                 for name in wrappers}
     rows = []
@@ -279,6 +425,69 @@ def main():
         "plain_ms": time_ms(lambda: pairwise_tile_plain(queries, index_l1, D.L1), reps=2),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.cdist(queries, index_l1, p=1), reps=3)})
+    del keys
+
+    # K4 at the build's assignment: the training rows against the centroids
+    xs, cents = X[:TRAIN_ROWS], ivf.centroids
+    got, ref = fused_nn_tile(xs, cents), nn_tile_plain(xs, cents)
+    errs["nn_tile"] = max(errs["nn_tile"], check_nn("nn_tile at the build's shape", *got, *ref,
+                                                    xs, cents, l2_atol(xs, cents)))
+
+    def l2_min():
+        xn, cn = (xs * xs).sum(1), (cents * cents).sum(1)
+        return torch.min(xn[:, None] + cn[None, :] - 2.0 * (xs @ cents.T), dim=1)
+
+    m, n = xs.shape[0], cents.shape[0]
+    b, by = bound(2.0 * m * n * DIM, 4.0 * (m + n) * DIM + 8.0 * m)
+    rows.append({
+        "name": "nn_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/nn_tile.cu",
+        "replaces": "raft_tpu/ops/nn_tile.py:151",
+        "shape": "x %dx%d f32 against %d centroids" % (m, DIM, n),
+        "launches": launches["nn_tile"], "max_abs_err": errs["nn_tile"],
+        "ms": time_ms(lambda: fused_nn_tile(xs, cents), reps=10),
+        "plain_ms": time_ms(lambda: nn_tile_plain(xs, cents), reps=5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(l2_min, reps=5),
+        "library": "composition: expanded-L2 matmul + torch.min(dim=1)"})
+
+    # K2 at the search's probe: the query-to-centroid keys, k = nprobe
+    probe_keys = expanded_sq_dists(ivf_q, ivf.centroids)
+    got, ref = select_tile(probe_keys, NPROBE), select_tile_plain(probe_keys, NPROBE)
+    check_exact("select_tile probe values", got[0], ref[0])
+    check_exact("select_tile probe ids", got[1], ref[1])
+    print("check select_tile at the probe, keys %dx%d k=%d: exact"
+          % (*probe_keys.shape, NPROBE), flush=True)
+
+    # K3 at the search's scan lists
+    slots, _ = _probe_compact(ivf_q, ivf.centroids, ivf.cent_slots, NPROBE)
+    scan_args = (ivf_q, ivf.slot_vecs, ivf.slot_norms, ivf.slot_ids, slots, K)
+    got, ref = fused_ivf_scan(*scan_args), fused_ivf_scan_plain(*scan_args)
+    errs["ivf_tile"] = max(errs["ivf_tile"], check_knn("ivf_tile at the search's shape",
+                                                       *got, *ref, ivf_atol))
+    # the work these lists need: every stored row of each listed slot, once
+    # per query (operations); the distinct slots of the batch, each read
+    # once (least bytes), beside the bytes of reading them per query
+    rows_in_slot = (ivf.slot_ids >= 0).sum(dim=1)
+    live = slots >= 0
+    rows_scanned = int(rows_in_slot[slots[live].long()].sum())
+    rows_distinct = int(rows_in_slot[torch.unique(slots[live].long())].sum())
+    row_bytes = 4.0 * DIM + 8.0                  # vector, norm, id
+    io_bytes = 4.0 * N_QUERIES * DIM + 4.0 * slots.numel() + 8.0 * N_QUERIES * K
+    b, by = bound(2.0 * DIM * rows_scanned, rows_distinct * row_bytes + io_bytes)
+    rows.append({
+        "name": "ivf_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/ivf_tile.cu",
+        "replaces": "raft_tpu/ops/ivf_tile.py:230",
+        "shape": "%d queries x %d scan steps (%d live at most), slots of %d x %d f32, k=%d"
+                 % (N_QUERIES, slots.shape[1], int(live.sum(1).max()), ivf.slot_vecs.shape[1],
+                    DIM, K),
+        "launches": launches["ivf_tile"], "max_abs_err": errs["ivf_tile"],
+        "ms": time_ms(lambda: fused_ivf_scan(*scan_args), reps=5),
+        "plain_ms": time_ms(lambda: fused_ivf_scan_plain(*scan_args), reps=2),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": None, "library": "none: no single PyTorch call scans an IVF list",
+        "bf16_ms": time_ms(lambda: fused_ivf_scan(*scan_args, accum_bf16=True), reps=5),
+        "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
+        "per_query_bytes": rows_scanned * row_bytes + io_bytes})
 
     print(json.dumps({"card": card, "paths": paths}))
     print(json.dumps({"kernels": rows}))

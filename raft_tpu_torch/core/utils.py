@@ -1,4 +1,4 @@
-"""Integer helpers (reference cuda_utils.cuh, pow2_utils.cuh)."""
+"""Integer helpers (reference cuda_utils.cuh, integer_utils.h, pow2_utils.cuh)."""
 
 from __future__ import annotations
 
@@ -10,9 +10,19 @@ def ceildiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def round_up_safe(a: int, b: int) -> int:
+    """Round ``a`` up to a multiple of ``b`` (integer_utils.h)."""
+    return ceildiv(a, b) * b
+
+
+def round_down_safe(a: int, b: int) -> int:
+    """Round ``a`` down to a multiple of ``b`` (integer_utils.h)."""
+    return (a // b) * b
+
+
 def align(v: int, alignment: int) -> int:
     """Round ``v`` up to a multiple of ``alignment`` (``alignTo``)."""
-    return ceildiv(v, alignment) * alignment
+    return round_up_safe(v, alignment)
 
 
 class Pow2:

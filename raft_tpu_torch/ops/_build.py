@@ -29,7 +29,7 @@ from raft_tpu_torch.core.error import RaftError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kernels"
-KERNELS = ("knn_tile", "select_tile", "pairwise_tile")
+KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -15,11 +15,8 @@
 //
 //   * A block of 256 threads owns a tile of BQ = 64 queries and walks its
 //     share of the index in tiles of BN = 128 rows (the TPU grid's
-//     sequential index axis becomes this loop).  The depth is staged
-//     through shared memory DK = 32 at a time, transposed, and each thread
-//     accumulates a 4 x 8 register tile read as three float4 loads per
-//     depth step, so shared memory feeds the FMA units instead of
-//     limiting them.
+//     sequential index axis becomes this loop).  The product tile is the
+//     FFMA tile of l2_tile.cuh, which K4 shares.
 //   * The distance tile goes to shared memory and each warp folds 8 of its
 //     query rows into their running top-k (warp_select.cuh).  The buffers
 //     live in shared memory, not registers, so that the accumulators have
@@ -37,46 +34,24 @@
 // them outside the Pallas call.  Ragged edges (nq, n, d not multiples of
 // the tile) are masked here: loads past the edge read 0, and rows past the
 // end of the split never enter the top-k.
+#include "l2_tile.cuh"
 #include "warp_select.cuh"
 
 namespace raft_tpu_torch {
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBN = 128;
-constexpr int kDK = 32;
-constexpr int kThreads = 256;
+using namespace l2_tile;
+
 constexpr int kWarps = kThreads / 32;
 constexpr int kQPerWarp = kBQ / kWarps;
-constexpr int kQStride = kBQ + 4;  // rows padded, keeping float4 alignment
-constexpr int kXStride = kBN + 4;
 // shared memory: the depth chunks of the two tiles, reused for the
 // distance tile, then the top-k buffers and the thresholds
-constexpr int kLoadBytes = kDK * (kQStride + kXStride) * 4;
 constexpr int kDistBytes = kBQ * kXStride * 4;
 constexpr int kTileBytes = kLoadBytes > kDistBytes ? kLoadBytes : kDistBytes;
 
 template <int NR>
 constexpr int smem_bytes() {
   return kTileBytes + kBQ * 32 * NR * 8 + kBQ * 8;
-}
-
-// Copy rows [row0, row0 + rows) x columns [k0, k0 + kDK) of a row-major
-// (n_rows, d) matrix into dst[c][r] (transposed), zero past the edges.  A
-// warp takes 4 rows x 8 columns per step: 32-byte segments of global
-// memory, and 32 distinct banks for the transposed stores.
-template <int kRows, int kStride>
-__device__ __forceinline__ void load_chunk(float (*dst)[kStride], const float* src,
-                                           int row0, int row_end, int k0, int d,
-                                           int tid) {
-#pragma unroll
-  for (int e = tid; e < kRows * kDK; e += kThreads) {
-    int g = e >> 5, l = e & 31;
-    int c = (g & 3) * 8 + (l & 7);
-    int r = (g >> 2) * 4 + (l >> 3);
-    int row = row0 + r, col = k0 + c;
-    dst[c][r] = (row < row_end && col < d) ? src[(size_t)row * d + col] : 0.f;
-  }
 }
 
 template <int NR>
@@ -88,8 +63,6 @@ knn_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
   constexpr int kKP = 32 * NR;
   extern __shared__ float4 smem[];
   char* base = reinterpret_cast<char*>(smem);
-  auto qs = reinterpret_cast<float (*)[kQStride]>(base);
-  auto xs = reinterpret_cast<float (*)[kXStride]>(base + kDK * kQStride * 4);
   auto dist = reinterpret_cast<float (*)[kXStride]>(base);
   float* buf_k = reinterpret_cast<float*>(base + kTileBytes);
   int* buf_i = reinterpret_cast<int*>(buf_k + kBQ * kKP);
@@ -127,34 +100,12 @@ knn_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 
   for (int x0 = row_begin; x0 < row_end; x0 += kBN) {
     float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kDK) {
-      load_chunk<kBQ, kQStride>(qs, Q, q0, nq, k0, d, tid);
-      load_chunk<kBN, kXStride>(xs, X, x0, row_end, k0, d, tid);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kDK; ++kk) {
-        float4 a4 = *reinterpret_cast<const float4*>(&qs[kk][ty * 4]);
-        float4 b0 = *reinterpret_cast<const float4*>(&xs[kk][tx * 4]);
-        float4 b1 = *reinterpret_cast<const float4*>(&xs[kk][64 + tx * 4]);
-        float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    dot_tile(acc, base, Q, q0, nq, X, x0, row_end, d, tid);
 
     float xn_reg[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      int row = x0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      int row = x0 + tile_col(j, tx);
       xn_reg[j] = row < row_end ? xn[row] : 0.f;
     }
 #pragma unroll

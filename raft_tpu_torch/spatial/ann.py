@@ -1,0 +1,476 @@
+"""Approximate nearest neighbours: IVF-Flat.
+
+Port of the IVF-Flat half of ``raft_tpu/spatial/ann.py`` (reference
+spatial/knn/ann.hpp:45,71, ``approx_knn_build_index`` /
+``approx_knn_search``, which delegate to FAISS GPU).  IVF-PQ and IVF-SQ
+wait for a later slice; the dispatchers raise ``TypeError`` for them.
+
+**Build.** A k-means coarse quantizer (:mod:`raft_tpu_torch.spectral.kmeans`,
+whose assignment runs on K4 for nlist >= 256), optionally trained on a
+seeded row subsample (``train_rows``, the same rows as the JAX package
+draws), then one chunked nearest-centroid pass over all rows.  Lists are
+cut on the host into fixed-length *slots* of ``cap`` rows (cap = mean list
+size rounded up to 8): a hot list owns several slots, and storage stays
+below ``n_rows + nlist * cap`` whatever the skew.  The packing is the JAX
+package's numpy route; its native ``cpp/src/host_runtime.cpp`` binding
+waits.  Squared slot norms are stored with the index.  Each stage runs
+in a named ``torch.profiler`` range (``ivf_flat_build.*``, ``kmeans.*``),
+so a trace of one build times its stages.
+
+**Search.** Probe the ``nprobe`` nearest centroids (``select_k``, K2 on the
+card), concatenate the probed lists' slots, and move the valid ones to
+the front by a stable sort (``_probe_compact``).  Then one of two scans
+with one contract:
+
+- ``scan_impl="kernel"``: K3 (:func:`raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`),
+  the whole scan and its running top-k in one kernel; ``"kernel_bf16"``
+  rounds the multiplicands to bfloat16.  Legal for float32 queries and
+  store and k <= 128 (the metrics are all of the L2 family); an explicit
+  request outside that raises.
+- ``scan_impl="scan"``: one step per slot: gather the slot of every
+  query, expanded distances by a batched product, and ``select_k`` of the
+  running top-k followed by the step.
+
+``scan_impl=None`` takes the kernel on CUDA wherever it is legal, and the
+scan otherwise, which includes every CPU call.  The JAX package's own auto
+default is its ``"xla"`` scan (``core/tuning.py``, ``ivf_scan_impl``);
+the port defaults to the kernel, as ``fused_l2_knn`` does.  Results are
+(distances, int32 ids) best-first, square-rooted for the L2Sqrt metrics,
+with (+inf, -1) where fewer than k rows were scanned.  ``delta=(vectors,
+ids)`` merges an append-only segment, scanned by brute force, into the
+result; the base results come first, so ties keep the base copy.
+
+The JAX ``handle=``, ``donate_queries=``, ``select_impl=`` (approximate
+selects) and the compile-cache plumbing wait for the serving slice.
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from raft_tpu_torch.core.device import as_tensor, resolve_device
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.utils import round_up_safe
+from raft_tpu_torch.distance.distance_type import DistanceType
+from raft_tpu_torch.distance.pairwise import expanded_sq_dists
+from raft_tpu_torch.ops.ivf_tile import MAX_K, fused_ivf_scan
+from raft_tpu_torch.spatial.select_k import select_k
+from raft_tpu_torch.spectral.kmeans import kmeans
+
+D = DistanceType
+
+SCAN_IMPLS = ("kernel", "kernel_bf16", "scan")
+
+
+@dataclass
+class IVFFlatParams:
+    nlist: int
+    nprobe: int = 8
+
+
+class IVFFlatIndex(NamedTuple):
+    centroids: torch.Tensor      # (nlist, d)
+    slot_vecs: torch.Tensor      # (n_slots, cap, d) vectors, zero rows where vacant
+    slot_ids: torch.Tensor       # (n_slots, cap) int32 global row ids, -1 vacant
+    slot_centroid: torch.Tensor  # (n_slots,) int32 owning list of each slot
+    cent_slots: torch.Tensor     # (nlist, max_slots) int32 slots per list, -1 pad
+    list_sizes: torch.Tensor     # (nlist,) int32
+    metric: DistanceType
+    nprobe: int                  # default probe count from the build params
+    slot_norms: Optional[torch.Tensor] = None  # (n_slots, cap) squared norms
+
+
+# --------------------------------------------------------------------- #
+# coarse quantizer
+# --------------------------------------------------------------------- #
+def _assign_labels(X: torch.Tensor, centroids: torch.Tensor,
+                   chunk: int = 131072) -> torch.Tensor:
+    """Nearest-centroid assignment in row chunks: one (chunk, nlist)
+    expanded-L2 matmul + argmin per chunk, int32 labels."""
+    return torch.cat([torch.argmin(expanded_sq_dists(X[s:s + chunk], centroids), dim=1)
+                      for s in range(0, X.shape[0], chunk)]).to(torch.int32)
+
+
+def _coarse_assign(X: torch.Tensor, nlist: int, seed: int,
+                   train_rows: Optional[int] = None):
+    """k-means coarse quantizer + list assignment: (centroids, labels).
+
+    ``train_rows`` trains k-means on a seeded row subsample (the rows of
+    ``numpy.random.default_rng(seed).choice``, as in the JAX package) and
+    assigns all rows in one chunked pass; ``None`` trains on all rows.
+    """
+    m = X.shape[0]
+    if train_rows is not None and train_rows < m:
+        expects(train_rows >= nlist, "_coarse_assign: train_rows=%d < nlist=%d",
+                train_rows, nlist)
+        with record_function("ivf_flat_build.subsample"):
+            rows = np.sort(np.random.default_rng(seed).choice(m, train_rows, replace=False))
+            sample = X[torch.from_numpy(rows).to(X.device)]
+        res = kmeans(sample, nlist, seed=seed, max_iter=25, device=X.device)
+        with record_function("ivf_flat_build.assign_all_rows"):
+            return res.centroids, _assign_labels(X, res.centroids)
+    res = kmeans(X, nlist, seed=seed, max_iter=25, device=X.device)
+    return res.centroids, res.labels
+
+
+# --------------------------------------------------------------------- #
+# host packing (numpy)
+# --------------------------------------------------------------------- #
+def _pack_lists(labels: np.ndarray, nlist: int) -> Tuple[np.ndarray, int]:
+    """(nlist, max_len) row-id table, -1 padded, and max_len."""
+    counts = np.bincount(labels, minlength=nlist)
+    max_len = max(int(counts.max()), 1)
+    order = np.argsort(labels, kind="stable")
+    starts = np.zeros(nlist + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    # position of each sorted row within its list
+    within = np.arange(len(labels)) - starts[labels[order]]
+    table = np.full((nlist, max_len), -1, np.int64)
+    table[labels[order], within] = order
+    return table, max_len
+
+
+def _build_slots(labels: np.ndarray, nlist: int, cap: Optional[int] = None):
+    """Cut each list into ``cap``-row slots (module doc).
+
+    Returns (slot_rows (n_slots, cap) int32 row ids -1 padded,
+    slot_centroid (n_slots,) int32, cent_slots (nlist, max_slots) int32
+    slot ids -1 padded, cap, counts (nlist,)).
+    """
+    labels = np.asarray(labels)
+    counts = np.bincount(labels, minlength=nlist)
+    max_count = max(int(counts.max()), 1)
+    if cap is None:
+        mean = -(-len(labels) // nlist)
+        cap = min(max_count, max(8, round_up_safe(mean, 8)))
+    table, max_len = _pack_lists(labels, nlist)
+    slots_per = -(-counts // cap)       # empty lists get no slot
+    max_slots = max(int(slots_per.max()), 1)
+    n_slots = int(slots_per.sum())
+    tab = np.full((nlist, max_slots * cap), -1, np.int64)
+    tab[:, :max_len] = table
+    mask = np.arange(max_slots)[None, :] < slots_per[:, None]
+    slot_rows = tab.reshape(nlist, max_slots, cap)[mask]
+    slot_centroid = np.repeat(np.arange(nlist, dtype=np.int32), slots_per).astype(np.int32)
+    cent_slots = np.full((nlist, max_slots), -1, np.int32)
+    cent_slots[mask] = np.arange(n_slots, dtype=np.int32)
+    return slot_rows.astype(np.int32), slot_centroid, cent_slots, cap, counts
+
+
+def _extend_slot_layout(labels: np.ndarray, nlist: int, cap: int, slot_multiple: int):
+    """The slot layout of an extend: :func:`_build_slots` at the index's
+    ``cap``, then the slot count rounded up to ``slot_multiple`` and the
+    per-list table width to a multiple of 8, so that repeated extends
+    keep their shapes.  Padding slots hold ids -1 and no ``cent_slots``
+    entry points at them.  Returns (slot_rows, slot_cent, cent_slots,
+    counts)."""
+    expects(slot_multiple >= 1, "_extend_slot_layout: slot_multiple=%d", slot_multiple)
+    slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels, nlist, cap=cap)
+    n_slots = slot_rows.shape[0]
+    pad_slots = round_up_safe(max(n_slots, 1), slot_multiple) - n_slots
+    if pad_slots:
+        slot_rows = np.concatenate([slot_rows, np.full((pad_slots, cap), -1, slot_rows.dtype)])
+        slot_cent = np.concatenate([slot_cent, np.zeros(pad_slots, slot_cent.dtype)])
+    max_slots = cent_slots.shape[1]
+    pad_width = round_up_safe(max(max_slots, 1), 8) - max_slots
+    if pad_width:
+        cent_slots = np.concatenate(
+            [cent_slots, np.full((nlist, pad_width), -1, cent_slots.dtype)], axis=1)
+    return slot_rows, slot_cent, cent_slots, counts
+
+
+def _gather_slots(vecs: torch.Tensor, slot_rows: np.ndarray):
+    """(slot_vecs, slot_rows as a tensor, slot_norms): the rows of
+    ``vecs`` laid out in slots, zero where vacant."""
+    rows = torch.from_numpy(slot_rows).to(vecs.device)
+    slot_vecs = vecs[torch.clamp(rows, min=0).long()]
+    slot_vecs[rows < 0] = 0
+    return slot_vecs, rows, (slot_vecs * slot_vecs).sum(dim=-1)
+
+
+# --------------------------------------------------------------------- #
+# validation
+# --------------------------------------------------------------------- #
+_L2_METRICS = (D.L2Expanded, D.L2SqrtExpanded, D.L2Unexpanded, D.L2SqrtUnexpanded)
+_SQRT_METRICS = (D.L2SqrtExpanded, D.L2SqrtUnexpanded)
+
+
+def _check_metric(name, metric):
+    expects(metric in _L2_METRICS,
+            "%s: unsupported metric %d: the IVF quantizers are L2-only (the "
+            "reference FAISS path likewise restricts the metric set, "
+            "ann_quantized_faiss.cuh:94-118)", name, int(metric))
+
+
+# entry points that already warned about a clamped nprobe (once each)
+_NPROBE_CLAMP_WARNED = set()
+
+
+def _validate_nprobe(name: str, nprobe, nlist: int) -> int:
+    """A probe count of at least 1; above ``nlist`` it is clamped to
+    ``nlist`` with a warning, once per entry point."""
+    nprobe = int(nprobe)
+    expects(nprobe >= 1, "%s: nprobe must be >= 1, got %d", name, nprobe)
+    if nprobe > nlist:
+        if name not in _NPROBE_CLAMP_WARNED:
+            _NPROBE_CLAMP_WARNED.add(name)
+            warnings.warn("%s: nprobe=%d exceeds nlist=%d; clamping to nlist "
+                          "(reported once per entry point)" % (name, nprobe, nlist),
+                          stacklevel=3)
+        nprobe = nlist
+    return nprobe
+
+
+# --------------------------------------------------------------------- #
+# probe and scan
+# --------------------------------------------------------------------- #
+def _probe_compact(q, centroids, cent_slots, nprobe):
+    """Probe selection + valid-first compaction of the scan lists, shared
+    by both scans so that probe ties resolve alike.
+
+    Returns (slots (nq, nprobe * max_slots) int32 valid first and -1
+    padded, n_live a 0-d tensor: the most valid slots of any query).  The
+    JAX package also returns each slot's probe rank, which only its IVF-PQ
+    scan reads.
+    """
+    nq = q.shape[0]
+    nprobe = min(nprobe, cent_slots.shape[0])
+    _, probes = select_k(expanded_sq_dists(q, centroids), nprobe, select_min=True,
+                         device=q.device)
+    slots = cent_slots[probes.long()].reshape(nq, -1)
+    _, order = torch.sort((slots < 0).to(torch.int32), dim=1, stable=True)
+    slots = torch.gather(slots, 1, order)
+    return slots, (slots >= 0).sum(dim=1).max()
+
+
+def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric):
+    """Probe, then scan the probed slots one step at a time with a running
+    top-k.  ``step_dist(slx) -> (dist (nq, cap), ids (nq, cap))`` computes
+    one step given each query's slot ``slx``.  The loop runs as many steps
+    as the query with the most valid slots has."""
+    nq = q.shape[0]
+    slots, n_live = _probe_compact(q, centroids, cent_slots, nprobe)
+    dt = torch.promote_types(q.dtype, torch.float32)
+    run_d = torch.full((nq, k), float("inf"), dtype=dt, device=q.device)
+    run_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
+    for j in range(int(n_live)):
+        sl = slots[:, j]
+        valid = sl >= 0
+        dist, ids = step_dist(torch.where(valid, sl, 0))
+        ids = torch.where(valid[:, None], ids, -1)
+        dist = torch.where(ids >= 0, torch.clamp(dist, min=0.0), float("inf")).to(dt)
+        run_d, run_i = select_k(torch.cat([run_d, dist], dim=1), k, select_min=True,
+                                values=torch.cat([run_i, ids], dim=1), device=q.device)
+    if metric in _SQRT_METRICS:
+        run_d = torch.sqrt(run_d)
+    return run_d, run_i
+
+
+# --------------------------------------------------------------------- #
+# delta segment
+# --------------------------------------------------------------------- #
+def _delta_merge_impl(delta_vecs, delta_ids, base_d, base_i, q, k, sqrt):
+    """Brute-force scan of an append-only delta segment merged into a base
+    result.  ``delta_ids < 0`` marks unfilled rows (+inf, never chosen).
+    Base entries come first in the concatenation, so on exact ties the
+    stable selection keeps the base copy."""
+    qn = (q * q).sum(dim=1)
+    dn = (delta_vecs * delta_vecs).sum(dim=1)
+    dist = qn[:, None] + dn[None, :] - 2.0 * (q @ delta_vecs.T)
+    valid = delta_ids >= 0
+    dist = torch.where(valid[None, :], torch.clamp(dist, min=0.0), float("inf")).to(base_d.dtype)
+    if sqrt:
+        # the base results are already square-rooted
+        dist = torch.sqrt(dist)
+    ids = torch.where(valid, delta_ids, -1).to(torch.int32)[None, :].expand(dist.shape)
+    return select_k(torch.cat([base_d, dist], dim=1), k, select_min=True,
+                    values=torch.cat([base_i.to(torch.int32), ids], dim=1), device=q.device)
+
+
+def _merge_delta(out, delta, q, k, metric):
+    """Merge the delta segment ``delta = (vectors, ids)`` into a search
+    result."""
+    delta_vecs = as_tensor(delta[0], q.device)
+    delta_ids = as_tensor(delta[1], q.device, dtype=torch.int32)
+    expects(delta_vecs.ndim == 2 and delta_vecs.shape[1] == q.shape[1],
+            "ann delta segment: expected (rows, %d) vectors, got %r",
+            q.shape[1], tuple(delta_vecs.shape))
+    expects(tuple(delta_ids.shape) == (delta_vecs.shape[0],),
+            "ann delta segment: ids shape %r does not match %d rows",
+            tuple(delta_ids.shape), delta_vecs.shape[0])
+    return _delta_merge_impl(delta_vecs, delta_ids, out[0], out[1], q, k,
+                             metric in _SQRT_METRICS)
+
+
+# --------------------------------------------------------------------- #
+# IVF-Flat
+# --------------------------------------------------------------------- #
+def ivf_flat_build(X, params: IVFFlatParams, metric: DistanceType = D.L2Expanded,
+                   seed: int = 1234, train_rows: Optional[int] = None,
+                   device="cuda") -> IVFFlatIndex:
+    """Build an IVF-Flat index (reference approx_knn_build_index IVFFlat
+    path, ann_quantized_faiss.cuh:129-141).  ``X`` (a numpy array or
+    tensor) is moved to ``device``; ``train_rows`` opts into subsampled
+    k-means training (:func:`_coarse_assign`)."""
+    dev = resolve_device(device)
+    X = as_tensor(X, dev)
+    expects(X.ndim == 2, "ivf_flat_build: 2-D vectors required")
+    expects(params.nlist <= X.shape[0], "ivf_flat_build: nlist > n_vectors")
+    _check_metric("ivf_flat_build", metric)
+    centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
+    with record_function("ivf_flat_build.host_packing"):
+        slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
+                                                                   params.nlist)
+    with record_function("ivf_flat_build.gather_slots"):
+        slot_vecs, slot_ids, slot_norms = _gather_slots(X, slot_rows)
+        return IVFFlatIndex(centroids, slot_vecs, slot_ids,
+                            torch.from_numpy(slot_cent).to(dev),
+                            torch.from_numpy(cent_slots).to(dev),
+                            torch.from_numpy(counts.astype(np.int32)).to(dev), metric,
+                            params.nprobe, slot_norms=slot_norms)
+
+
+def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots, q, k,
+                          nprobe, metric, scan_impl=None):
+    expects(scan_impl in SCAN_IMPLS + (None,),
+            "ivf_flat_search: scan_impl must be one of %s, got %r", SCAN_IMPLS, scan_impl)
+    legal = (q.dtype == torch.float32 and slot_vecs.dtype == torch.float32 and k <= MAX_K
+             and metric in _L2_METRICS)
+    if scan_impl is None:
+        scan_impl = "kernel" if legal and q.device.type == "cuda" else "scan"
+    if scan_impl != "scan":
+        expects(legal, "ivf_flat_search: scan_impl=%r needs float32 queries and store, "
+                "k <= %d and an L2 metric (got %s, %s, k=%d)", scan_impl, MAX_K,
+                q.dtype, slot_vecs.dtype, k)
+        slots, _ = _probe_compact(q, centroids, cent_slots, nprobe)
+        dist, ids = fused_ivf_scan(q, slot_vecs, slot_norms.to(torch.float32), slot_ids,
+                                   slots, k, accum_bf16=scan_impl == "kernel_bf16")
+        if metric in _SQRT_METRICS:
+            dist = torch.sqrt(dist)
+        return dist, ids
+
+    qn = (q * q).sum(dim=1)
+
+    def step_dist(slx):
+        vecs = slot_vecs[slx]                                  # (nq, cap, d)
+        dot = torch.bmm(vecs, q[:, :, None].to(vecs.dtype))[:, :, 0]
+        return qn[:, None] + slot_norms[slx] - 2.0 * dot, slot_ids[slx]
+
+    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric)
+
+
+def _on_device(index: IVFFlatIndex, dev: torch.device):
+    """The index's arrays on ``dev`` (no copy where they are there)."""
+    norms = index.slot_norms
+    if norms is None:
+        norms = (index.slot_vecs * index.slot_vecs).sum(dim=-1)
+    return [as_tensor(a, dev) for a in (index.centroids, index.slot_vecs, norms,
+                                        index.slot_ids, index.cent_slots)]
+
+
+def ivf_flat_search(index: IVFFlatIndex, queries, k: int, nprobe: Optional[int] = None, *,
+                    delta=None, scan_impl: Optional[str] = None,
+                    device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Search an IVF-Flat index (reference approx_knn_search, ann.hpp:71).
+
+    ``nprobe`` defaults to the build params' value and is clamped to
+    nlist; ``delta=(vectors, ids)`` merges an append-only segment;
+    ``scan_impl`` is ``"kernel"``, ``"kernel_bf16"``, ``"scan"`` or None
+    (module doc).  Queries and the index are moved to ``device``.
+    Returns (n_queries, k) distances and int32 ids, best-first.
+    """
+    dev = resolve_device(device)
+    q = as_tensor(queries, dev)
+    expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
+            "ivf_flat_search: expected (n_queries, %d) queries, got %r",
+            int(index.centroids.shape[1]), tuple(q.shape))
+    nprobe = _validate_nprobe("ivf_flat_search", index.nprobe if nprobe is None else nprobe,
+                              int(index.centroids.shape[0]))
+    metric = DistanceType(int(index.metric))
+    out = _ivf_flat_search_impl(*_on_device(index, dev), q, k, nprobe, metric,
+                                scan_impl=scan_impl)
+    if delta is not None:
+        out = _merge_delta(out, delta, q, k, metric)
+    return out
+
+
+def ivf_flat_reconstruct(index: IVFFlatIndex) -> Tuple[np.ndarray, np.ndarray]:
+    """The stored (vectors, int64 ids), valid rows only, in slot order:
+    the exact inverse of the build's gather."""
+    ids = index.slot_ids.cpu().numpy().reshape(-1)
+    mask = ids >= 0
+    vecs = index.slot_vecs.cpu().numpy().reshape(-1, index.slot_vecs.shape[-1])
+    return vecs[mask], ids[mask].astype(np.int64)
+
+
+def ivf_flat_extend(index: IVFFlatIndex, vectors, ids, *, slot_multiple: int = 64,
+                    device="cuda") -> IVFFlatIndex:
+    """Fold new rows into an IVF-Flat index without re-running k-means:
+    each new vector joins its nearest existing centroid's list, and the
+    slots are rebuilt over old and new rows.
+
+    Centroids, metric, default nprobe and ``cap`` are kept; ``ids`` are
+    the new rows' global ids (keeping them distinct is the caller's
+    contract).  ``slot_multiple`` rounds the slot count (and the per-list
+    slot table width, to a multiple of 8) up, so that successive extends
+    keep their shapes; padding slots are never probed.
+    """
+    expects(slot_multiple >= 1, "ivf_flat_extend: slot_multiple=%d", slot_multiple)
+    dev = resolve_device(device)
+    new_vecs = as_tensor(vectors, dev)
+    expects(new_vecs.ndim == 2 and new_vecs.shape[1] == index.centroids.shape[1],
+            "ivf_flat_extend: expected (rows, %d) vectors, got %r",
+            int(index.centroids.shape[1]), tuple(new_vecs.shape))
+    new_ids = np.asarray(ids, np.int64).ravel()
+    expects(new_ids.shape[0] == new_vecs.shape[0], "ivf_flat_extend: %d ids for %d vectors",
+            new_ids.shape[0], new_vecs.shape[0])
+    centroids = as_tensor(index.centroids, dev)
+    nlist = int(centroids.shape[0])
+    cap = int(index.slot_vecs.shape[1])
+
+    old_vecs, old_ids = ivf_flat_reconstruct(index)
+    old_labels = np.repeat(index.slot_centroid.cpu().numpy(), cap)[
+        index.slot_ids.cpu().numpy().reshape(-1) >= 0].astype(np.int64)
+    all_vecs = torch.cat([torch.from_numpy(old_vecs).to(dev),
+                          new_vecs.to(index.slot_vecs.dtype)])
+    all_ids = np.concatenate([old_ids, new_ids])
+    labels = old_labels
+    if new_vecs.shape[0]:
+        new_labels = _assign_labels(new_vecs, centroids).cpu().numpy().astype(np.int64)
+        labels = np.concatenate([old_labels, new_labels])
+
+    slot_rows, slot_cent, cent_slots, counts = _extend_slot_layout(labels, nlist, cap,
+                                                                   slot_multiple)
+    slot_vecs, rows, slot_norms = _gather_slots(all_vecs, slot_rows)
+    id_table = torch.from_numpy(all_ids.astype(np.int32)).to(dev)
+    slot_ids = torch.where(rows >= 0, id_table[torch.clamp(rows, min=0).long()], -1)
+    return IVFFlatIndex(centroids, slot_vecs, slot_ids.to(torch.int32),
+                        torch.from_numpy(slot_cent).to(dev), torch.from_numpy(cent_slots).to(dev),
+                        torch.from_numpy(counts.astype(np.int32)).to(dev), index.metric,
+                        index.nprobe, slot_norms=slot_norms)
+
+
+# --------------------------------------------------------------------- #
+# dispatch (reference ann.hpp:45,71)
+# --------------------------------------------------------------------- #
+def approx_knn_build_index(X, params, metric: DistanceType = D.L2Expanded, seed: int = 1234,
+                           train_rows: Optional[int] = None, device="cuda"):
+    """Build the index that ``params`` names; IVF-Flat only in this port."""
+    if isinstance(params, IVFFlatParams):
+        return ivf_flat_build(X, params, metric, seed, train_rows=train_rows, device=device)
+    raise TypeError(f"unknown ANN params {type(params)}")
+
+
+def approx_knn_search(index, queries, k: int, nprobe: Optional[int] = None, *, delta=None,
+                      scan_impl: Optional[str] = None, device="cuda"):
+    """Search an index by its type (see :func:`ivf_flat_search`)."""
+    if isinstance(index, IVFFlatIndex):
+        return ivf_flat_search(index, queries, k, nprobe, delta=delta, scan_impl=scan_impl,
+                               device=device)
+    raise TypeError(f"unknown ANN index {type(index)}")

@@ -14,10 +14,12 @@ import torch
 
 import raft_tpu_torch
 from raft_tpu_torch import RaftError
-from raft_tpu_torch.core.utils import Pow2, align, ceildiv
+from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
 from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
+from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
 from raft_tpu_torch.ops.pairwise_tile import pairwise_tile, pairwise_tile_plain
 from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
 
@@ -45,19 +47,33 @@ def test_sources_import_no_jax():
             assert not banned.match(line), (path, line)
 
 
-ENTRY_POINTS = [
-    lambda x, q: raft_tpu_torch.brute_force_knn(x, q, 3),
-    lambda x, q: raft_tpu_torch.knn_merge_parts(x[None, :, :3], np.zeros((1, 20, 3), np.int32), 3),
-    lambda x, q: raft_tpu_torch.fused_l2_knn(x, q, 3),
-    lambda x, q: raft_tpu_torch.select_k(x, 3),
-    lambda x, q: raft_tpu_torch.pairwise_distance(x, q),
-    lambda x, q: raft_tpu_torch.haversine_knn(x[:, :2], q[:, :2], 3),
-]
+def _cpu_index(x):
+    return raft_tpu_torch.ivf_flat_build(x, raft_tpu_torch.IVFFlatParams(nlist=2), device="cpu")
 
 
-@pytest.mark.parametrize("call", ENTRY_POINTS, ids=["brute_force_knn", "knn_merge_parts",
-                                                   "fused_l2_knn", "select_k",
-                                                   "pairwise_distance", "haversine_knn"])
+ENTRY_POINTS = {
+    "brute_force_knn": lambda x, q: raft_tpu_torch.brute_force_knn(x, q, 3),
+    "knn_merge_parts": lambda x, q: raft_tpu_torch.knn_merge_parts(
+        x[None, :, :3], np.zeros((1, 20, 3), np.int32), 3),
+    "fused_l2_knn": lambda x, q: raft_tpu_torch.fused_l2_knn(x, q, 3),
+    "select_k": lambda x, q: raft_tpu_torch.select_k(x, 3),
+    "pairwise_distance": lambda x, q: raft_tpu_torch.pairwise_distance(x, q),
+    "haversine_knn": lambda x, q: raft_tpu_torch.haversine_knn(x[:, :2], q[:, :2], 3),
+    "fused_l2_nn": lambda x, q: raft_tpu_torch.fused_l2_nn(q, x),
+    "fused_l2_nn_min_reduce": lambda x, q: raft_tpu_torch.fused_l2_nn_min_reduce(q, x),
+    "kmeans": lambda x, q: raft_tpu_torch.kmeans(x, 2),
+    "ivf_flat_build": lambda x, q: raft_tpu_torch.ivf_flat_build(
+        x, raft_tpu_torch.IVFFlatParams(nlist=2)),
+    "ivf_flat_search": lambda x, q: raft_tpu_torch.ivf_flat_search(_cpu_index(x), q, 3),
+    "ivf_flat_extend": lambda x, q: raft_tpu_torch.ivf_flat_extend(
+        _cpu_index(x), q, np.arange(100, 105)),
+    "approx_knn_build_index": lambda x, q: raft_tpu_torch.approx_knn_build_index(
+        x, raft_tpu_torch.IVFFlatParams(nlist=2)),
+    "approx_knn_search": lambda x, q: raft_tpu_torch.approx_knn_search(_cpu_index(x), q, 3),
+}
+
+
+@pytest.mark.parametrize("call", list(ENTRY_POINTS.values()), ids=list(ENTRY_POINTS))
 def test_default_device_raises_without_cuda(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rng = np.random.default_rng(0)
@@ -73,18 +89,31 @@ def _no_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
 
 
+WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, fused_ivf_scan)
+
+
+def _ivf_args(g):
+    sv = torch.randn(5, 12, 8, generator=g)
+    si = torch.arange(60, dtype=torch.int32).reshape(5, 12)
+    slots = torch.tensor([[0, 3, -1], [4, 1, 2]], dtype=torch.int32).repeat(4, 1)[:7]
+    return sv, (sv * sv).sum(-1), si, slots
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     _no_build(monkeypatch)
-    before = (fused_knn_tile.launches, select_tile.launches, pairwise_tile.launches)
+    before = [w.launches for w in WRAPPERS]
     g = torch.Generator().manual_seed(0)
     x, q = torch.randn(300, 8, generator=g), torch.randn(7, 8, generator=g)
+    ivf = _ivf_args(g)
     for got, want in [(fused_knn_tile(x, q, 5), knn_tile_plain(x, q, 5)),
-                      (select_tile(x, 5), select_tile_plain(x, 5))]:
+                      (select_tile(x, 5), select_tile_plain(x, 5)),
+                      (fused_nn_tile(q, x), nn_tile_plain(q, x)),
+                      (fused_ivf_scan(q, *ivf, 5), fused_ivf_scan_plain(q, *ivf, 5))]:
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         assert torch.equal(got[1], want[1])
     torch.testing.assert_close(pairwise_tile(q, x, DistanceType.L1),
                                pairwise_tile_plain(q, x, DistanceType.L1), rtol=0, atol=0)
-    assert (fused_knn_tile.launches, select_tile.launches, pairwise_tile.launches) == before
+    assert [w.launches for w in WRAPPERS] == before
 
 
 def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
@@ -95,8 +124,13 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_nvcc", lambda: shutil.which("false") or "/bin/false")
     x = torch.empty((300, 8), device="meta")
     q = torch.empty((7, 8), device="meta")
+    sv = torch.empty((5, 12, 8), device="meta")
+    sn = torch.empty((5, 12), device="meta")
+    si = torch.empty((5, 12), dtype=torch.int32, device="meta")
+    slots = torch.empty((7, 3), dtype=torch.int32, device="meta")
     calls = [lambda: fused_knn_tile(x, q, 5), lambda: select_tile(x, 5),
-             lambda: pairwise_tile(q, x, DistanceType.L1)]
+             lambda: pairwise_tile(q, x, DistanceType.L1), lambda: fused_nn_tile(q, x),
+             lambda: fused_ivf_scan(q, sv, sn, si, slots, 5)]
     for call in calls:
         with pytest.raises(RaftError, match="nvcc failed"):
             call()
@@ -129,6 +163,8 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_utils():
     assert ceildiv(7, 3) == 3 and align(7, 4) == 8
+    assert round_up_safe(7, 4) == 8 and round_up_safe(8, 4) == 8
+    assert round_down_safe(7, 4) == 4 and round_down_safe(8, 4) == 8
     p = Pow2(32)
     assert (p.div(70), p.mod(70), p.round_down(70), p.round_up(70)) == (2, 6, 64, 96)
     assert p.is_aligned(64) and not p.is_aligned(65)
