@@ -10,12 +10,22 @@ paths through the public entry points with ``device="cuda"``:
 - exact brute-force kNN, 1M x 128 float32, 1024 queries, k=100
   (``brute_force_knn``), in one partition and in four, and the L1 path
   (pairwise K5 + select K2) at 100k x 128;
+- the two-phase fused kNN (``fused_knn_twophase``, K6 then K2) on the
+  same index and queries at ``block_n`` 2048, held against K1's result;
 - IVF-Flat at the size of the repository's ``serve_ann_1m`` workload:
   ``ivf_flat_build`` of 1M x 128 rows from a Gaussian mixture into 1024
   lists, k-means trained on 131,072 sampled rows (K4 assigns), then
   ``ivf_flat_search`` of 1024 queries, k=100, nprobe=32 (K2 probes, K3
   scans), held against the scan route, its recall@100 against brute force
-  reported, and a full probe held equal to brute force.
+  reported, and a full probe held equal to brute force;
+- the serving layer: ``KNNService`` over the 1M index (k=100,
+  L2SqrtExpanded, batches of up to 1024 rows) under 8 submitter threads,
+  every response held bitwise equal to the unbatched ``brute_force_knn``
+  of its rows, with no kernel build or load after warmup; and
+  ``PairwiseService`` over 10,000 x 128 rows with L1 (K5, every response
+  bitwise equal to the unbatched call) and L2SqrtExpanded (bitwise equal
+  to the call on its padded batch, sliced), and the L1 service again,
+  built on one side stream and fed from another.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -31,9 +41,11 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -47,6 +59,14 @@ N_CHECK = 128              # main-path queries held against the plain version
 NLIST, NPROBE, TRAIN_ROWS = 1024, 32, 131_072
 N_BLOBS, BLOB_SPREAD = 256, 0.35
 N_FULL_PROBE = 64          # queries searched at nprobe = nlist
+# K6: the JAX knn_1m_twophase rung (bench.py:644-650) uses block_n 2048;
+# the kernel checks cover the smallest rung too
+TWOPHASE_BLOCK_N = 2048
+# serving: 8 submitter threads x 32 requests of row counts drawn from
+# SERVE_ROWS by seed 0; PairwiseService over N_PAIRWISE rows
+SERVE_THREADS, SERVE_PER_THREAD, SERVE_ROWS = 8, 32, (1, 8, 64, 256)
+N_PAIRWISE = 10_000
+SPIN_CYCLES = 10_000_000   # card clock cycles spun before a side-stream payload is written
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -133,28 +153,76 @@ def check_exact(name, got, ref):
     assert torch.equal(got, ref), "%s: kernel and plain version differ" % name
 
 
+def serve_concurrently(svc, blocks, n_threads):
+    """Submit ``blocks`` to ``svc`` from ``n_threads`` threads (thread t
+    takes blocks t, t + n_threads, ...), wait for every future, drain.
+    Returns the futures in block order and the wall milliseconds from the
+    first submit to the last result."""
+    futs = [None] * len(blocks)
+    errors = []
+    start = threading.Barrier(n_threads + 1)
+
+    def submitter(t):
+        try:
+            start.wait(60)
+            for i in range(t, len(blocks), n_threads):
+                futs[i] = svc.submit(blocks[i])
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    start.wait(60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors
+    assert not any(th.is_alive() for th in threads)
+    for f in futs:
+        f.result(timeout=120)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert svc.drain(timeout=60)
+    return futs, wall_ms
+
+
+def batch_order(flight, name):
+    """The service's batches as lists of trace ids, riders in batch order:
+    the worker records one ``resolved`` event a rider, in rider order."""
+    batches = {}
+    for ev in flight.default_recorder().events(service=name, kind="resolved"):
+        batches.setdefault(ev.attrs["batch"], []).append(ev.trace_id)
+    return list(batches.values())
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if not (ROOT / "raft_tpu_torch" / "ops" / "csrc").is_dir():
         sys.exit("chip_smoke: raft_tpu_torch not found beside %s" % __file__)
     sys.path.insert(0, str(ROOT))
-    from raft_tpu_torch import (DistanceType, IVFFlatParams, brute_force_knn, ivf_flat_build,
-                                ivf_flat_search)
+    from raft_tpu_torch import (DistanceType, IVFFlatParams, KNNService, PairwiseService,
+                                brute_force_knn, ivf_flat_build, ivf_flat_search,
+                                pairwise_distance)
+    from raft_tpu_torch.core import flight
+    from raft_tpu_torch.core.metrics import default_registry
     from raft_tpu_torch.distance.pairwise import expanded_sq_dists
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
-    from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
+    from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
+                                             knn_twophase_plain, twophase_geometry,
+                                             twophase_tiles, twophase_tiles_plain)
     from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
     from raft_tpu_torch.ops.pairwise_tile import (METRICS, pairwise_tile,
                                                   pairwise_tile_plain)
     from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
+    from raft_tpu_torch.serve import pad_rows
     from raft_tpu_torch.spatial.ann import _probe_compact
 
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
                 "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
-                "ivf_tile": fused_ivf_scan}
+                "ivf_tile": fused_ivf_scan, "knn_twophase": twophase_tiles}
 
     def reset():
         for w in wrappers.values():
@@ -194,8 +262,29 @@ def main():
         atol = l2_atol(q, x)
         err = check_knn("knn_tile n=%d nq=%d d=%d k=%d" % (len(x), nq, d, k),
                         *got, *ref, atol)
+        errs["knn_tile"] = max(errs["knn_tile"], err)
         print("check knn_tile n=%d nq=%d d=%d k=%d: max err %.3g (atol %.3g)"
               % (len(x), nq, d, k, err, atol), flush=True)
+
+        # K6 at the same shapes, at the smallest block_n and the main path's
+        for block_n in (256, TWOPHASE_BLOCK_N):
+            bn, n_tiles = twophase_geometry(len(x), block_n)
+            part = twophase_tiles(x, q, bn)
+            torch.cuda.synchronize()
+            part_ref = twophase_tiles_plain(x, q, bn)
+            name = "knn_twophase n=%d nq=%d d=%d bn=%d" % (len(x), nq, d, bn)
+            assert part[0].shape == (nq, n_tiles * 128), name
+            assert torch.equal(part[1] < 0, part_ref[1] < 0), "%s: deficit slots differ" % name
+            live = part_ref[1] >= 0
+            perr = (part[0][live] - part_ref[0][live]).abs().max().item()
+            assert perr <= atol, "%s: tile distance error %g > %g" % (name, perr, atol)
+            got = fused_knn_twophase(x, q, k, block_n=block_n)
+            torch.cuda.synchronize()
+            err = check_knn(name + " k=%d" % k, *got,
+                            *knn_twophase_plain(x, q, k, block_n=block_n), atol)
+            errs["knn_twophase"] = max(errs["knn_twophase"], err, perr)
+            print("check %s k=%d%s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
+                  % (name, k, " dup" if dup else "", n_tiles, err, perr, atol), flush=True)
 
     for m, w, k in [(1000, 3333, 1), (517, 10_001, 100), (64, 129, 128)]:
         keys = randn(m, w)
@@ -309,9 +398,29 @@ def main():
     print("L1 path 100k x 128, nq=1024, k=100: launches %s, first %d queries agree "
           "(max err %.3g)" % (paths["bfknn_L1_100k"]["launches"], N_CHECK, err), flush=True)
 
+    reset()
+    tp_d, tp_i = fused_knn_twophase(index, queries, K, block_n=TWOPHASE_BLOCK_N)
+    torch.cuda.synchronize()
+    paths["knn_twophase_1M"] = {"launches": counts(), "block_n": TWOPHASE_BLOCK_N}
+    assert paths["knn_twophase_1M"]["launches"]["knn_twophase"] > 0, paths
+    assert paths["knn_twophase_1M"]["launches"]["select_tile"] > 0, paths
+    assert tp_d.shape == (N_QUERIES, K) and tp_i.dtype == torch.int32
+    assert torch.isfinite(tp_d).all() and tp_i.min() >= 0 and tp_i.max() < N_INDEX
+    k1_err = check_knn("knn_twophase 1M vs K1", tp_d, tp_i, *fused_knn_tile(index, queries, K),
+                       atol)
+    err = check_knn("knn_twophase 1M vs its plain version", tp_d[:N_CHECK], tp_i[:N_CHECK],
+                    *knn_twophase_plain(index, queries[:N_CHECK], K, TWOPHASE_BLOCK_N), atol)
+    errs["knn_twophase"] = max(errs["knn_twophase"], err)
+    print("two-phase path 1M x 128, nq=1024, k=100, block_n=%d: launches %s, agrees with K1 "
+          "(max err %.3g) and, on the first %d queries, with the plain version (max err %.3g)"
+          % (TWOPHASE_BLOCK_N, paths["knn_twophase_1M"]["launches"], k1_err, N_CHECK, err),
+          flush=True)
+
     for name, fn in [("bfknn_1M", lambda: brute_force_knn(index, queries, K, D.L2SqrtExpanded, device=dev)),
                      ("bfknn_1M_4parts", lambda: brute_force_knn(parts, queries, K, D.L2SqrtExpanded, device=dev)),
-                     ("bfknn_L1_100k", lambda: brute_force_knn(index_l1, queries, K, D.L1, device=dev))]:
+                     ("bfknn_L1_100k", lambda: brute_force_knn(index_l1, queries, K, D.L1, device=dev)),
+                     ("knn_twophase_1M", lambda: fused_knn_twophase(index, queries, K,
+                                                                    block_n=TWOPHASE_BLOCK_N))]:
         paths[name]["ms"] = time_ms(fn, reps=3)
         paths[name]["qps"] = N_QUERIES / paths[name]["ms"] * 1e3
 
@@ -373,7 +482,109 @@ def main():
                                            reps=5)
     paths["ivf_search_1M"]["qps"] = N_QUERIES / paths["ivf_search_1M"]["ms"] * 1e3
 
-    # 5. kernels at the main paths' shapes: kernel, plain version, yardstick
+    # 5. the serving layer over the 1M index: 8 submitter threads
+    draw = np.random.default_rng(SEED)
+    req_rows = [int(r) for r in draw.choice(SERVE_ROWS, size=SERVE_THREADS * SERVE_PER_THREAD)]
+    pool = randn(sum(req_rows), DIM)
+    starts = np.cumsum([0] + req_rows)
+    blocks = [pool[a:b] for a, b in zip(starts[:-1], starts[1:])]
+    svc = KNNService(index, k=K, metric=D.L2SqrtExpanded, max_batch_rows=N_QUERIES,
+                     device=dev, name="serve_knn_1M")
+    svc.warmup()
+    reset()
+    futs, wall_ms = serve_concurrently(svc, blocks, SERVE_THREADS)
+    torch.cuda.synchronize()
+    launched = counts()
+    after_warmup = svc.kernel_libraries_after_warmup()
+    svc.close()
+    assert launched["knn_tile"] > 0 and launched["select_tile"] > 0, launched
+    assert after_warmup == {"builds": 0, "loads": 0}, after_warmup
+    for q, f in zip(blocks, futs):
+        d, i = f.result(timeout=0)
+        d0, i0 = brute_force_knn(index, q, K, D.L2SqrtExpanded, device=dev)
+        assert torch.equal(d, d0) and torch.equal(i, i0), (
+            "serve_knn_1M: a %d-row response differs from the unbatched call" % len(q))
+    lat_ms = sorted(ev["latency_s"] * 1e3 for f in futs for ev in f.trace().timeline()
+                    if ev["kind"] == "resolved")
+    assert len(lat_ms) == len(futs)
+    batches = sum(s.value for lbl, s in
+                  default_registry().get("raft_tpu_serve_batches_total").series()
+                  if lbl["service"] == "serve_knn_1M")
+    paths["serve_knn_1M"] = {
+        "launches": launched, "requests": len(futs), "rows": sum(req_rows),
+        "batches": int(batches), "rows_per_batch": sum(req_rows) / batches,
+        "wall_ms": wall_ms, "rows_per_s": sum(req_rows) / wall_ms * 1e3,
+        "p50_ms": statistics.median(lat_ms),
+        "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+        "kernel_libraries_after_warmup": after_warmup}
+    print("serve_knn_1M: %s; every response bitwise equal to the unbatched call"
+          % json.dumps(paths["serve_knn_1M"]), flush=True)
+
+    y = randn(N_PAIRWISE, DIM)
+    paths["serve_pairwise"] = {}
+    for metric in (D.L1, D.L2SqrtExpanded):
+        blocks = [randn(r, DIM) for r in req_rows[:16]]
+        svc = PairwiseService(y, metric, max_batch_rows=N_QUERIES, device=dev,
+                              name="serve_pairwise_%s" % metric.name)
+        svc.warmup()
+        reset()
+        futs, wall_ms = serve_concurrently(svc, blocks, 4)
+        torch.cuda.synchronize()
+        launched = counts()
+        svc.close()
+        by_trace = {f.trace().trace_id: (b, f.result(timeout=0)) for b, f in zip(blocks, futs)}
+        err = 0.0
+        for riders in batch_order(flight, svc.name):
+            batch = torch.cat([by_trace[tid][0] for tid in riders])
+            whole = pairwise_distance(pad_rows(batch, svc.policy.bucket_for(len(batch))), y,
+                                      metric, device=dev)
+            at = 0
+            for tid in riders:
+                b, out = by_trace[tid]
+                assert torch.equal(out, whole[at:at + len(b)]), (
+                    "serve_pairwise %s: a response differs from its padded batch" % metric.name)
+                at += len(b)
+        for b, out in by_trace.values():
+            alone = pairwise_distance(b, y, metric, device=dev)
+            if metric == D.L1:      # K5's arithmetic is per pair
+                assert torch.equal(out, alone), "serve_pairwise L1: differs from the unbatched call"
+            else:
+                err = max(err, (out - alone).abs().max().item())
+                assert err <= l2_atol(b, y), (metric.name, err)
+        if metric == D.L1:
+            assert launched["pairwise_tile"] > 0, launched
+            paths["serve_pairwise"]["launches"] = launched
+        paths["serve_pairwise"][metric.name] = {"requests": len(futs), "wall_ms": wall_ms,
+                                                "max_err_vs_unbatched": err}
+
+    # the same L1 service built on a side stream and fed from another one,
+    # each payload written there only after a spin of the card: a worker
+    # that read it before the write would see zeros
+    build_stream, feed_stream = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    blocks = [randn(r, DIM) for r in req_rows[:16]]
+    with torch.cuda.stream(build_stream):
+        svc = PairwiseService(y, D.L1, max_batch_rows=N_QUERIES, device=dev,
+                              name="serve_pairwise_side_streams")
+    assert svc.worker.stream == build_stream
+    svc.warmup()
+    feed_stream.wait_stream(torch.cuda.current_stream(dev))
+    futs = []
+    with torch.cuda.stream(feed_stream):
+        for b in blocks:
+            q = torch.zeros_like(b)
+            torch.cuda._sleep(SPIN_CYCLES)
+            q.copy_(b)
+            futs.append(svc.submit(q))
+            del q
+    for b, f in zip(blocks, futs):
+        assert torch.equal(f.result(timeout=60), pairwise_distance(b, y, D.L1, device=dev)), (
+            "serve_pairwise on side streams: a response differs from the unbatched call")
+    svc.close()
+    paths["serve_pairwise"]["L1_side_streams"] = {"requests": len(futs)}
+    print("serve_pairwise %d x %d: %s" % (N_PAIRWISE, DIM, json.dumps(paths["serve_pairwise"])),
+          flush=True)
+
+    # 6. kernels at the main paths' shapes: kernel, plain version, yardstick
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
                 for name in wrappers}
     rows = []
@@ -488,6 +699,27 @@ def main():
         "bf16_ms": time_ms(lambda: fused_ivf_scan(*scan_args, accum_bf16=True), reps=5),
         "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
         "per_query_bytes": rows_scanned * row_bytes + io_bytes})
+
+    # K6 at the two-phase path's shape: the whole call and phase 1 alone
+    bn, n_tiles = twophase_geometry(N_INDEX, TWOPHASE_BLOCK_N)
+    b, by = bound(2.0 * N_QUERIES * N_INDEX * DIM,
+                  4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * K)
+    rows.append({
+        "name": "knn_twophase", "route": "cuda",
+        "source": "raft_tpu_torch/ops/csrc/knn_twophase.cu",
+        "replaces": "raft_tpu/ops/knn_tile.py:474",
+        "shape": "index 1000000x128 f32, 1024 queries, k=100, block_n %d (%d tiles)"
+                 % (bn, n_tiles),
+        "launches": launches["knn_twophase"], "max_abs_err": errs["knn_twophase"],
+        "ms": time_ms(lambda: fused_knn_twophase(index, queries, K, block_n=TWOPHASE_BLOCK_N),
+                      reps=5),
+        "phase1_ms": time_ms(lambda: twophase_tiles(index, queries, bn), reps=5),
+        "plain_ms": time_ms(lambda: knn_twophase_plain(index, queries, K, TWOPHASE_BLOCK_N),
+                            reps=2),
+        "bound_ms": b, "bound_by": by,
+        "phase1_bytes": 4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * n_tiles * 128,
+        "library_ms": time_ms(full_l2_topk, reps=3),
+        "library": "composition: expanded-L2 matmul + torch.topk, as K1's"})
 
     print(json.dumps({"card": card, "paths": paths}))
     print(json.dumps({"kernels": rows}))

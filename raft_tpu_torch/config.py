@@ -1,0 +1,175 @@
+"""One owner for the runtime knobs that this package reads.
+
+Port of ``raft_tpu/config.py``, cut to the knobs that the ported modules
+read, under the same knob names and the same ``RAFT_TPU_*`` environment
+variables.  Resolution order (first hit wins):
+
+1. an explicit function argument at the call site (never reaches here);
+2. an active :func:`override` context, innermost first;
+3. a value set by :func:`configure`;
+4. the knob's environment variable;
+5. the built-in default.
+
+Every knob here is read at construction time (a service, a recorder),
+so a change affects the next construction.  The JAX
+package's tuning-table layer and the impl-choice and block-shape knobs
+that it serves (``core/tuning.py``) are not ported.  Free-form numeric
+and list knobs read through the typed helpers (:func:`get_int`,
+:func:`get_float`, :func:`get_float_list`), so that a malformed value
+fails as a :class:`LogicError` naming the knob and its environment
+variable.
+
+Knobs
+-----
+serve_bucket_rungs / serve_max_wait_ms / serve_queue_cap
+    The serving layer's shape ladder (``"pow2"`` or a comma list), its
+    micro-batch window and its admission cap
+    (:mod:`raft_tpu_torch.serve.service`).
+serve_breaker_threshold / serve_breaker_window /
+serve_breaker_window_failures / serve_breaker_cooldown_ms
+    The default circuit breaker of every service (both trip conditions
+    0 = no breaker).
+serve_tenant_weights
+    ``"name:weight,..."`` weighted-fair tenants (empty = one queue).
+serve_slo_target_ms / serve_slo_objective / serve_slo_windows_s
+    The per-service SLO tracker (:mod:`raft_tpu_torch.core.flight`).
+flight_events
+    The flight recorder's ring size in events.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Tuple
+
+__all__ = ["configure", "override", "get", "knob_default", "get_int",
+           "get_float", "get_float_list"]
+
+# knob -> (env alias, default)
+_KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
+    "serve_bucket_rungs": ("RAFT_TPU_SERVE_BUCKET_RUNGS", "pow2"),
+    "serve_max_wait_ms": ("RAFT_TPU_SERVE_MAX_WAIT_MS", "2"),
+    "serve_queue_cap": ("RAFT_TPU_SERVE_QUEUE_CAP", "1024"),
+    "serve_breaker_threshold": ("RAFT_TPU_SERVE_BREAKER_THRESHOLD", "5"),
+    "serve_breaker_window": ("RAFT_TPU_SERVE_BREAKER_WINDOW", "16"),
+    "serve_breaker_window_failures": (
+        "RAFT_TPU_SERVE_BREAKER_WINDOW_FAILURES", "8"),
+    "serve_breaker_cooldown_ms": ("RAFT_TPU_SERVE_BREAKER_COOLDOWN_MS", "250"),
+    "serve_tenant_weights": ("RAFT_TPU_SERVE_TENANT_WEIGHTS", ""),
+    "flight_events": ("RAFT_TPU_FLIGHT_EVENTS", "4096"),
+    "serve_slo_target_ms": ("RAFT_TPU_SERVE_SLO_TARGET_MS", "100"),
+    "serve_slo_objective": ("RAFT_TPU_SERVE_SLO_OBJECTIVE", "0.99"),
+    "serve_slo_windows_s": ("RAFT_TPU_SERVE_SLO_WINDOWS_S", "60,300"),
+}
+
+# sentinel for "no layer claimed this knob" during resolution — distinct
+# from None, which an override frame may hold to mean "revert to
+# env/default inside this scope"
+_UNSET = object()
+
+_values: Dict[str, Optional[str]] = {}
+_tls = threading.local()
+
+
+def _frames():
+    return getattr(_tls, "frames", ())
+
+
+def _check(name: str) -> None:
+    if name not in _KNOBS:
+        raise ValueError(
+            f"raft_tpu_torch.config: unknown knob {name!r} "
+            f"(have: {', '.join(sorted(_KNOBS))})")
+
+
+def get(name: str) -> Optional[str]:
+    """Resolve a knob (module-doc order); the raw string."""
+    _check(name)
+    env, default = _KNOBS[name]
+    val = _UNSET
+    for frame in reversed(_frames()):
+        if name in frame:
+            val = frame[name]
+            break
+    if val is _UNSET and name in _values:
+        return _values[name]
+    if val is not _UNSET and val is not None:
+        return val
+    return os.environ.get(env, default)
+
+
+def knob_default(name: str) -> Optional[str]:
+    """The built-in default of ``name`` (the bottom resolution rung)."""
+    _check(name)
+    return _KNOBS[name][1]
+
+
+def _parse_error(name: str, raw, kind: str):
+    from raft_tpu_torch.core.error import LogicError
+
+    env = _KNOBS[name][0]
+    return LogicError(
+        f"raft_tpu_torch.config: {name}={raw!r} is not a valid {kind} "
+        f"(knob {name}, env var {env})")
+
+
+def get_int(name: str) -> int:
+    """:func:`get` + int parse; malformed → :class:`LogicError`."""
+    raw = get(name)
+    try:
+        return int(raw)
+    except (TypeError, ValueError):
+        raise _parse_error(name, raw, "integer") from None
+
+
+def get_float(name: str) -> float:
+    """:func:`get` + float parse; malformed → :class:`LogicError`."""
+    raw = get(name)
+    try:
+        return float(raw)
+    except (TypeError, ValueError):
+        raise _parse_error(name, raw, "number") from None
+
+
+def _split_list(raw) -> Tuple[str, ...]:
+    return tuple(tok.strip() for tok in str(raw).split(",") if tok.strip())
+
+
+def get_float_list(name: str) -> Tuple[float, ...]:
+    """:func:`get` + comma-separated float-list parse; malformed →
+    :class:`LogicError` naming the knob and env var."""
+    raw = get(name)
+    try:
+        return tuple(float(tok) for tok in _split_list(raw))
+    except (TypeError, ValueError):
+        raise _parse_error(name, raw, "comma-separated number list") from None
+
+
+def configure(**knobs: Optional[str]) -> None:
+    """Set knob values process-wide (None = revert to env/default)."""
+    for name, value in knobs.items():
+        _check(name)
+        if value is None:
+            _values.pop(name, None)
+        else:
+            _values[name] = value
+
+
+@contextmanager
+def override(**knobs: Optional[str]) -> Iterator[None]:
+    """Scoped knob values (thread-local; nestable, innermost wins).
+
+    ``override(knob=None)`` reverts the knob to its env/default inside
+    the scope — the scoped spelling of ``configure(knob=None)``."""
+    for name in knobs:
+        _check(name)
+    frames = list(_frames())
+    frames.append(dict(knobs))
+    _tls.frames = tuple(frames)
+    try:
+        yield
+    finally:
+        _tls.frames = tuple(frames[:-1])
+

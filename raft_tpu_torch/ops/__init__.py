@@ -10,4 +10,6 @@ counts its launches in a ``launches`` attribute.
 - K3 :func:`~raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`
 - K4 :func:`~raft_tpu_torch.ops.nn_tile.fused_nn_tile`
 - K5 :func:`~raft_tpu_torch.ops.pairwise_tile.pairwise_tile`
+- K6 :func:`~raft_tpu_torch.ops.knn_tile.twophase_tiles` (phase 1 of
+  :func:`~raft_tpu_torch.ops.knn_tile.fused_knn_twophase`)
 """

@@ -12,6 +12,12 @@ sources at once, one ``nvcc`` process each, all started together.
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on
 a code other than 0.
+
+The first :func:`load` of a library is serialised by a lock, so a
+serving worker thread and a caller that reach it together build and load
+it once.  :func:`stats` counts the libraries compiled and loaded in this
+process; a serving process checks that the count stays still after
+warmup.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -29,11 +36,14 @@ from raft_tpu_torch.core.error import RaftError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kernels"
-KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile")
+KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile",
+           "knn_twophase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_stats = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -87,6 +97,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                _stats["builds"] += 1
     if failed:
         raise RaftError("nvcc failed for " + "\n".join(failed),
                         collect_stack=False)
@@ -97,10 +108,21 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
+                _stats["loads"] += 1
     return lib
+
+
+def stats() -> Dict[str, int]:
+    """``{"builds": n, "loads": n}``: libraries compiled and loaded by
+    this process so far."""
+    with _load_lock:
+        return dict(_stats)
 
 
 def check(code: int, what: str) -> None:

@@ -1,4 +1,5 @@
-"""K1: fused squared-L2 distance + top-k, ``csrc/knn_tile.cu``.
+"""K1 and K6: fused squared-L2 distance + top-k, ``csrc/knn_tile.cu`` and
+``csrc/knn_twophase.cu``.
 
 Port of ``raft_tpu/ops/knn_tile.py:fused_knn_tile``: per query, the k
 smallest of ``max(qn + xn - 2 q.x, 0)`` over the index rows, ascending,
@@ -20,6 +21,20 @@ The JAX ``knn_tile_merge`` knob (``merge``/``fullsort``/``sorttile``/
 vector unit and has no counterpart: a warp's shuffle network is the one
 selection core (``csrc/warp_select.cuh``).  Block shapes are constants
 chosen for Hopper, not registry knobs.
+
+K6 (:func:`fused_knn_twophase`, port of
+``raft_tpu/ops/knn_tile.py:fused_knn_twophase``) computes the same
+result in two phases with no state across index tiles: per tile of
+``bn`` rows the kernel keeps the tile's 128 smallest with global ids
+(:func:`twophase_tiles`), then one exact select of k over the
+(nq, n_tiles * 128) candidates merges them (K2 plus a gather of the
+ids).  ``block_n`` keeps the JAX default (1024), ladder (256 to 4096)
+and rounding (:func:`twophase_geometry`); ``block_q`` and ``interpret``
+are TPU arguments with no counterpart.  The merge is pinned exact, as
+the JAX registry pins ``merge_select_impl="topk"``.  Ties resolve to the
+smaller id: each tile's candidates are sorted by (distance, id) and the
+tiles are laid out in id order, so the select's first-column rule keeps
+the smaller id.
 """
 
 from __future__ import annotations
@@ -32,7 +47,7 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops.select_tile import select_tile
+from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
 
 MAX_K = 128
 BLOCK_Q = 64      # queries per block (csrc/knn_tile.cu kBQ)
@@ -132,5 +147,146 @@ fused_knn_tile.launches = 0
 def _entry():
     fn = _build.load("knn_tile").knn_tile_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# --------------------------------------------------------------------- #
+# K6: the two-phase fused kNN
+# --------------------------------------------------------------------- #
+TWOPHASE_PAD = 128                       # the JAX kpad: candidates per tile
+BLOCK_N_LADDER = (256, 512, 1024, 2048, 4096)
+
+
+def twophase_geometry(n: int, block_n: int = 1024) -> Tuple[int, int]:
+    """``(bn, n_tiles)``: the index-tile rows and the tile count of the
+    JAX ``tile_geometry(..., unit=128)`` for an index of n rows."""
+    expects(block_n in BLOCK_N_LADDER,
+            "fused_knn_twophase: block_n=%r not in the ladder %s",
+            block_n, BLOCK_N_LADDER)
+    # every rung is a multiple of 128 and at least 2 * 128, so the JAX
+    # rounding max(block_n // 128, 2) * 128 leaves it unchanged
+    bn = min(block_n, ceildiv(n, TWOPHASE_PAD) * TWOPHASE_PAD)
+    return bn, ceildiv(n, bn)
+
+
+def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor,
+                         bn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch phase 1: per tile of ``bn`` index rows, the expanded
+    squared distances (one matmul), a stable ascending sort, and the
+    first 128 with global ids; a slot with no finite key is (+inf, -1)."""
+    index = index.to(torch.float32)
+    queries = queries.to(torch.float32)
+    n, nq, dev = index.shape[0], queries.shape[0], queries.device
+    qn = (queries * queries).sum(dim=1, keepdim=True)
+    inf = torch.tensor(float("inf"), device=dev)
+    parts_d, parts_i = [], []
+    for j0 in range(0, n, bn):
+        x = index[j0:j0 + bn]
+        xn = (x * x).sum(dim=1)
+        d = torch.clamp(qn + xn[None, :] - 2.0 * (queries @ x.T), min=0.0)
+        if x.shape[0] < TWOPHASE_PAD:      # the tile's masked columns
+            d = torch.cat([d, inf.expand(nq, TWOPHASE_PAD - x.shape[0])], dim=1)
+        vals, pos = torch.sort(d, dim=1, stable=True)
+        vals, pos = vals[:, :TWOPHASE_PAD], pos[:, :TWOPHASE_PAD]
+        live = vals < inf
+        parts_d.append(torch.where(live, vals, inf))
+        parts_i.append(torch.where(live, (pos + j0).to(torch.int32),
+                                   torch.full_like(pos, -1, dtype=torch.int32)))
+    return torch.cat(parts_d, dim=1), torch.cat(parts_i, dim=1)
+
+
+def twophase_tiles(index: torch.Tensor, queries: torch.Tensor,
+                   bn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of K6: (nq, n_tiles * 128) float32 candidates and int32
+    ids, tile by tile.  A CUDA tensor launches ``csrc/knn_twophase.cu``;
+    a CPU tensor takes :func:`twophase_tiles_plain`."""
+    expects(bn >= BLOCK_N and bn % BLOCK_N == 0,
+            "twophase_tiles: bn=%d is not a multiple of %d", bn, BLOCK_N)
+    if index.device.type == "cpu":
+        return twophase_tiles_plain(index, queries, bn)
+    fn = _twophase_entry()
+    dev = index.device
+    n, d = index.shape
+    nq = queries.shape[0]
+    width = ceildiv(n, bn) * TWOPHASE_PAD
+    part_d = torch.empty((nq, width), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, width), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return part_d, part_i
+    index = index.contiguous()
+    queries = queries.contiguous()
+    qn = (queries * queries).sum(dim=1)
+    xn = (index * index).sum(dim=1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
+                  xn.data_ptr(), nq, n, d, bn, part_d.data_ptr(),
+                  part_i.data_ptr(), stream)
+    _build.check(code, "twophase_tiles")
+    twophase_tiles.launches += 1
+    return part_d, part_i
+
+
+twophase_tiles.launches = 0
+
+
+def _check_twophase(index, queries, k, precision, merge_select_impl):
+    expects(index.ndim == 2 and queries.ndim == 2
+            and index.shape[1] == queries.shape[1],
+            "fused_knn_twophase: shape mismatch")
+    n = index.shape[0]
+    expects(0 < k <= n, "fused_knn_twophase: k=%d out of range for n=%d", k, n)
+    expects(k <= TWOPHASE_PAD,
+            "fused_knn_twophase: k <= %d (got %d)", TWOPHASE_PAD, k)
+    expects(index.dtype == torch.float32 and queries.dtype == torch.float32,
+            "fused_knn_twophase: float32 inputs required, got %s and %s",
+            index.dtype, queries.dtype)
+    expects(index.device == queries.device,
+            "fused_knn_twophase: index and queries on different devices")
+    expects(precision == "highest",
+            "fused_knn_twophase: precision=%r is not ported (the kernel "
+            "computes in full float32, 'highest')", precision)
+    expects(merge_select_impl == "topk",
+            "fused_knn_twophase: merge_select_impl=%r is not ported; the "
+            "merge is the exact select ('topk')", merge_select_impl)
+
+
+def _twophase_merge(part_d, part_i, k, n, select=select_tile):
+    out_d, pos = select(part_d, k)
+    out_i = torch.gather(part_i, 1, pos.long())
+    return out_d, torch.clamp(out_i, 0, n - 1)
+
+
+def knn_twophase_plain(index: torch.Tensor, queries: torch.Tensor, k: int,
+                       block_n: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_knn_twophase`: the plain
+    phase 1, then the plain select, on any device."""
+    n = index.shape[0]
+    bn, _ = twophase_geometry(n, block_n)
+    part_d, part_i = twophase_tiles_plain(index, queries, bn)
+    return _twophase_merge(part_d, part_i, k, n, select=select_tile_plain)
+
+
+def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
+                       block_n: int = 1024, precision: str = "highest",
+                       merge_select_impl: str = "topk"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest index rows per query under squared L2, in two phases.
+
+    index (n, d) and queries (nq, d) float32, k <= 128; returns (nq, k)
+    float32 ascending and (nq, k) int32.  CUDA tensors launch K6 for
+    phase 1 and K2 for the merge; CPU tensors take the plain versions.
+    """
+    _check_twophase(index, queries, k, precision, merge_select_impl)
+    n = index.shape[0]
+    bn, _ = twophase_geometry(n, block_n)
+    part_d, part_i = twophase_tiles(index, queries, bn)
+    return _twophase_merge(part_d, part_i, k, n)
+
+
+def _twophase_entry():
+    fn = _build.load("knn_twophase").knn_twophase_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,57 @@
+"""Serving layer: dynamic micro-batching query engine on one device.
+
+Port of ``raft_tpu/serve`` for the brute-force and pairwise paths.
+Concurrent callers submit small query blocks; a per-service worker
+coalesces them into one padded device call per shape bucket, so
+
+- the shapes the kernels and the caching allocator see are bounded,
+  and pre-warmed, by the bucket ladder
+  (:mod:`~raft_tpu_torch.serve.bucketing`),
+- device efficiency comes from batch fill rather than per-call
+  dispatch (:mod:`~raft_tpu_torch.serve.batcher`, which also holds the
+  weighted-fair tenants and EDF ordering),
+- overload is shed at admission and deadlines expire in-queue, and
+  batch N+1 launches while batch N still runs on the card
+  (:mod:`~raft_tpu_torch.serve.scheduler`),
+- facades own warmup / drain / close lifecycle and the optional
+  query-vector cache (:mod:`~raft_tpu_torch.serve.service`),
+- the serving failure contract — serve-seam fault injection and the
+  per-service circuit breaker — lives in
+  :mod:`~raft_tpu_torch.serve.resilience`.
+
+Every layer records into the flight recorder
+(:mod:`raft_tpu_torch.core.flight`): each admitted request carries a
+trace_id and ``ServeFuture.trace()`` returns its complete timeline.
+
+Not ported yet: ``ANNService``, replicas and sharded serving,
+``RecoveryManager`` and ``session.serve``, and the ops plane with its
+anomaly sentinel.
+"""
+
+from raft_tpu_torch.serve.batcher import MicroBatcher, ServeFuture  # noqa: F401
+from raft_tpu_torch.serve.bucketing import (  # noqa: F401
+    BucketPolicy,
+    coalesce,
+    pad_rows,
+    resolve_rungs,
+    split_rows,
+)
+from raft_tpu_torch.serve.resilience import (  # noqa: F401
+    BreakerState,
+    CircuitBreaker,
+    ServeFaultInjector,
+    inject_worker,
+)
+from raft_tpu_torch.serve.scheduler import ServeWorker  # noqa: F401
+from raft_tpu_torch.serve.service import (  # noqa: F401
+    KNNService,
+    PairwiseService,
+    Service,
+)
+
+__all__ = [
+    "BucketPolicy", "resolve_rungs", "pad_rows", "coalesce", "split_rows",
+    "MicroBatcher", "ServeFuture", "ServeWorker",
+    "Service", "KNNService", "PairwiseService",
+    "BreakerState", "CircuitBreaker", "ServeFaultInjector", "inject_worker",
+]

@@ -1,11 +1,13 @@
 """Package rules of raft_tpu_torch: no JAX, explicit devices, kernel
 wrappers that follow their tensor's device and never fall back."""
 
+import ctypes
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -18,7 +20,8 @@ from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, rou
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
-from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
+from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
+                                         twophase_tiles, twophase_tiles_plain)
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
 from raft_tpu_torch.ops.pairwise_tile import pairwise_tile, pairwise_tile_plain
 from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
@@ -36,6 +39,18 @@ def test_import_pulls_in_no_jax():
     code = ("import raft_tpu_torch, raft_tpu_torch.convert, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
             " or m == 'raft_tpu']; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                   check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["raft_tpu_torch.serve", "raft_tpu_torch.cache",
+                                    "raft_tpu_torch.comms.faults", "raft_tpu_torch.config",
+                                    "raft_tpu_torch.core.tracing",
+                                    "raft_tpu_torch.comms.resilience"])
+def test_serving_modules_pull_in_no_jax(module):
+    code = ("import importlib, sys; importlib.import_module(%r); "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
+            " or m == 'raft_tpu']; assert not bad, bad" % module)
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                    check=True, timeout=120)
 
@@ -70,6 +85,8 @@ ENTRY_POINTS = {
     "approx_knn_build_index": lambda x, q: raft_tpu_torch.approx_knn_build_index(
         x, raft_tpu_torch.IVFFlatParams(nlist=2)),
     "approx_knn_search": lambda x, q: raft_tpu_torch.approx_knn_search(_cpu_index(x), q, 3),
+    "KNNService": lambda x, q: raft_tpu_torch.KNNService(x, 3, start=False),
+    "PairwiseService": lambda x, q: raft_tpu_torch.PairwiseService(x, start=False),
 }
 
 
@@ -83,13 +100,28 @@ def test_default_device_raises_without_cuda(call, monkeypatch):
         call(x, q)
 
 
+@pytest.mark.parametrize("cls", [raft_tpu_torch.KNNService, raft_tpu_torch.PairwiseService],
+                         ids=lambda c: c.__name__)
+def test_services_run_on_the_cpu_when_asked(cls, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).standard_normal((20, 4)).astype(np.float32)
+    args = (x, 3) if cls is raft_tpu_torch.KNNService else (x,)
+    svc = cls(*args, device="cpu", start=False)
+    pinned = svc.index if hasattr(svc, "index") else svc.y
+    assert svc.device.type == "cpu" and pinned.device.type == "cpu"
+    fut = svc.submit(x[:2])
+    svc.close()
+    assert fut.exception(timeout=0) is None
+
+
 def _no_build(monkeypatch):
     def refuse(name):
         raise AssertionError("kernel %s loaded for a CPU tensor" % name)
     monkeypatch.setattr(_build, "load", refuse)
 
 
-WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, fused_ivf_scan)
+WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, fused_ivf_scan,
+            twophase_tiles)
 
 
 def _ivf_args(g):
@@ -108,7 +140,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     for got, want in [(fused_knn_tile(x, q, 5), knn_tile_plain(x, q, 5)),
                       (select_tile(x, 5), select_tile_plain(x, 5)),
                       (fused_nn_tile(q, x), nn_tile_plain(q, x)),
-                      (fused_ivf_scan(q, *ivf, 5), fused_ivf_scan_plain(q, *ivf, 5))]:
+                      (fused_ivf_scan(q, *ivf, 5), fused_ivf_scan_plain(q, *ivf, 5)),
+                      (twophase_tiles(x, q, 256), twophase_tiles_plain(x, q, 256))]:
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         assert torch.equal(got[1], want[1])
     torch.testing.assert_close(pairwise_tile(q, x, DistanceType.L1),
@@ -130,11 +163,49 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
     slots = torch.empty((7, 3), dtype=torch.int32, device="meta")
     calls = [lambda: fused_knn_tile(x, q, 5), lambda: select_tile(x, 5),
              lambda: pairwise_tile(q, x, DistanceType.L1), lambda: fused_nn_tile(q, x),
-             lambda: fused_ivf_scan(q, sv, sn, si, slots, 5)]
+             lambda: fused_ivf_scan(q, sv, sn, si, slots, 5),
+             lambda: twophase_tiles(x, q, 256), lambda: fused_knn_twophase(x, q, 5)]
     for call in calls:
         with pytest.raises(RaftError, match="nvcc failed"):
             call()
     assert not list(tmp_path.glob("*.tmp")), "failed builds leave no partial file"
+
+
+def test_first_load_builds_and_loads_once(monkeypatch, tmp_path):
+    # a serving worker and a caller reaching a library's first load
+    # together: one build, one load, the same library for both
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_stats", {"builds": 0, "loads": 0})
+    calls = {"build": 0, "cdll": 0}
+    entered = threading.Barrier(2)
+
+    def fake_build(names):
+        calls["build"] += 1
+        _build._stats["builds"] += 1
+        threading.Event().wait(0.2)     # a slow nvcc widens the race
+        return {n: 0.0 for n in names}
+
+    def fake_cdll(path):
+        calls["cdll"] += 1
+        return object()
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
+    got = []
+
+    def first_use():
+        entered.wait(5)
+        got.append(_build.load("knn_twophase"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == {"build": 1, "cdll": 1}
+    assert len(got) == 2 and got[0] is got[1]
+    assert _build.stats() == {"builds": 1, "loads": 1}
 
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):

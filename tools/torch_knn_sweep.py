@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Where K1's time goes on the card: the fused kNN kernel of
 raft_tpu_torch at the main-path size, swept over k and over the number
-of index splits, beside a plain float32 matmul of the same product.
+of index splits, beside a plain float32 matmul of the same product; and
+the two-phase kernel K6 at k=100 over block_n 1024, 2048 and 4096 beside
+K1 at the same shape, with its phase 1 (the per-tile top-128) and its
+merge (K2 over the candidates, plus the id gather) timed apart.
 
     python3 tools/torch_knn_sweep.py [--n 1000000] [--nq 1024] [--d 128]
 
@@ -76,6 +79,20 @@ def main():
     parts = torch.sort(parts.view(args.nq, splits, 100), dim=2).values.view(args.nq, -1)
     print(json.dumps({**base, "what": "merge_select_tile", "w": splits * 100, "k": 100,
                       "ms": time_ms(lambda: select_tile(parts, 100))}))
+    del parts
+    # K6 beside K1: does the carry-free tile (every tile's buffer starts
+    # cold) or K1's running buffer cost less on this card?
+    for block_n in (1024, 2048, 4096):
+        bn, n_tiles = knn_tile.twophase_geometry(args.n, block_n)
+        part_d, part_i = knn_tile.twophase_tiles(x, q, bn)
+        print(json.dumps({
+            **base, "what": "knn_twophase", "k": 100, "block_n": block_n, "bn": bn,
+            "n_tiles": n_tiles, "candidates": n_tiles * knn_tile.TWOPHASE_PAD,
+            "ms": time_ms(lambda: knn_tile.fused_knn_twophase(x, q, 100, block_n=block_n)),
+            "phase1_ms": time_ms(lambda: knn_tile.twophase_tiles(x, q, bn)),
+            "merge_ms": time_ms(lambda: knn_tile._twophase_merge(part_d, part_i, 100, args.n)),
+            "knn_tile_ms": time_ms(lambda: knn_tile.fused_knn_tile(x, q, 100))}))
+        del part_d, part_i
 
 
 if __name__ == "__main__":
