@@ -29,7 +29,10 @@ paths through the public entry points with ``device="cuda"``:
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
-yardstick.  Any failure raises, and the script exits non-zero without the
+yardstick.  K1 and K6 (3xTF32 on the tensor cores) are also held against
+their plain versions on offset data (100 + N(0, 1)), their rows carry the
+3xTF32 bound beside the float32 FFMA one, and the card's SM clock and
+power draw are read right after the K1 timing.  Any failure raises, and the script exits non-zero without the
 final line.  It needs a CUDA device and the repository beside it.
 
 Output: the card (``nvidia-smi``), versions, build seconds, one line per
@@ -67,13 +70,24 @@ TWOPHASE_BLOCK_N = 2048
 SERVE_THREADS, SERVE_PER_THREAD, SERVE_ROWS = 8, 32, (1, 8, 64, 256)
 N_PAIRWISE = 10_000
 SPIN_CYCLES = 10_000_000   # card clock cycles spun before a side-stream payload is written
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+OFFSET = 100.0             # offset data for K1 and K6: the expanded form cancels most
 
 
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def clocks_line():
+    """The card's SM clock and power draw right now (``nvidia-smi``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)
     return out.stdout.strip().splitlines()[0]
@@ -101,6 +115,15 @@ def bound(ops, nbytes):
     device-memory traffic, and which of the two bounds it."""
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_tf32x3(ops, nbytes):
+    """The same for a float32-faithful product in 3xTF32 on the tensor
+    cores: three TF32 operations for each float32 one."""
+    t_ops, t_bytes = 3.0 * ops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations, 3xTF32 on tensor cores"
+    return t_bytes, "bytes"
 
 
 def check_knn(name, got_d, got_i, ref_d, ref_i, atol):
@@ -250,10 +273,23 @@ def main():
 
     errs = {name: 0.0 for name in wrappers}
 
-    # 2. each kernel against its plain version
-    for n, nq, d, k, dup in [(10_007, 77, 64, 1, False), (50_003, 300, 128, 100, False),
-                             (3_001, 129, 300, 128, False), (4_000, 65, 128, 100, True)]:
-        x, q = randn(n, d), randn(nq, d)
+    # 2. each kernel against its plain version; K1 and K6 also on offset
+    # data (index and queries OFFSET + N(0, 1)), where the expanded form
+    # cancels most and 3xTF32 must keep float32's accuracy, and at every
+    # query tile: 64 (depth <= 128), 32 (300), 16 with the whole depth
+    # (1000) and in slabs (2000, 4096), and a depth off the multiple of 8
+    # (3, a zero-padded copy)
+    for n, nq, d, k, dup, off in [(10_007, 77, 64, 1, False, 0.0),
+                                  (50_003, 300, 128, 100, False, 0.0),
+                                  (3_001, 129, 300, 128, False, 0.0),
+                                  (4_000, 65, 128, 100, True, 0.0),
+                                  (4_000, 65, 16, 100, False, OFFSET),
+                                  (20_011, 33, 16, 64, False, OFFSET),
+                                  (5_003, 40, 3, 10, False, 0.0),
+                                  (6_007, 37, 1000, 100, False, 0.0),
+                                  (4_001, 21, 2000, 32, False, 0.0),
+                                  (3_003, 50, 4096, 100, False, 0.0)]:
+        x, q = randn(n, d) + off, randn(nq, d) + off
         if dup:                                  # exact ties: every row twice
             x = torch.cat([x[: n // 2], x[: n // 2]])
         got = fused_knn_tile(x, q, k)
@@ -263,8 +299,8 @@ def main():
         err = check_knn("knn_tile n=%d nq=%d d=%d k=%d" % (len(x), nq, d, k),
                         *got, *ref, atol)
         errs["knn_tile"] = max(errs["knn_tile"], err)
-        print("check knn_tile n=%d nq=%d d=%d k=%d: max err %.3g (atol %.3g)"
-              % (len(x), nq, d, k, err, atol), flush=True)
+        print("check knn_tile n=%d nq=%d d=%d k=%d%s: max err %.3g (atol %.3g)"
+              % (len(x), nq, d, k, " offset %g" % off if off else "", err, atol), flush=True)
 
         # K6 at the same shapes, at the smallest block_n and the main path's
         for block_n in (256, TWOPHASE_BLOCK_N):
@@ -283,8 +319,9 @@ def main():
             err = check_knn(name + " k=%d" % k, *got,
                             *knn_twophase_plain(x, q, k, block_n=block_n), atol)
             errs["knn_twophase"] = max(errs["knn_twophase"], err, perr)
-            print("check %s k=%d%s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
-                  % (name, k, " dup" if dup else "", n_tiles, err, perr, atol), flush=True)
+            print("check %s k=%d%s%s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
+                  % (name, k, " dup" if dup else "", " offset %g" % off if off else "",
+                     n_tiles, err, perr, atol), flush=True)
 
     for m, w, k in [(1000, 3333, 1), (517, 10_001, 100), (64, 129, 128)]:
         keys = randn(m, w)
@@ -594,16 +631,19 @@ def main():
         xn = (index * index).sum(1)
         return torch.topk(qn + xn - 2.0 * (queries @ index.T), K, dim=1, largest=False)
 
-    b, by = bound(2.0 * N_QUERIES * N_INDEX * DIM,
-                  4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * K)
+    knn_ops = 2.0 * N_QUERIES * N_INDEX * DIM
+    knn_bytes = 4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * K
+    b, by = bound_tf32x3(knn_ops, knn_bytes)
+    k1_ms = time_ms(lambda: fused_knn_tile(index, queries, K), reps=5)
+    k1_clocks = clocks_line()
     rows.append({
         "name": "knn_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/knn_tile.cu",
         "replaces": "raft_tpu/ops/knn_tile.py:563",
         "shape": "index 1000000x128 f32, 1024 queries, k=100",
         "launches": launches["knn_tile"], "max_abs_err": errs["knn_tile"],
-        "ms": time_ms(lambda: fused_knn_tile(index, queries, K), reps=5),
+        "ms": k1_ms, "clocks_sm_power_after": k1_clocks,
         "plain_ms": time_ms(lambda: knn_tile_plain(index, queries, K), reps=2),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(knn_ops, knn_bytes)[0],
         "library_ms": time_ms(full_l2_topk, reps=3)})
 
     keys = pairwise_tile(queries, index_l1, D.L1)
@@ -702,8 +742,7 @@ def main():
 
     # K6 at the two-phase path's shape: the whole call and phase 1 alone
     bn, n_tiles = twophase_geometry(N_INDEX, TWOPHASE_BLOCK_N)
-    b, by = bound(2.0 * N_QUERIES * N_INDEX * DIM,
-                  4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * K)
+    b, by = bound_tf32x3(knn_ops, knn_bytes)
     rows.append({
         "name": "knn_twophase", "route": "cuda",
         "source": "raft_tpu_torch/ops/csrc/knn_twophase.cu",
@@ -716,7 +755,7 @@ def main():
         "phase1_ms": time_ms(lambda: twophase_tiles(index, queries, bn), reps=5),
         "plain_ms": time_ms(lambda: knn_twophase_plain(index, queries, K, TWOPHASE_BLOCK_N),
                             reps=2),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(knn_ops, knn_bytes)[0],
         "phase1_bytes": 4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * n_tiles * 128,
         "library_ms": time_ms(full_l2_topk, reps=3),
         "library": "composition: expanded-L2 matmul + torch.topk, as K1's"})

@@ -9,6 +9,10 @@ stale library is never loaded.  The build happens at first use; nothing
 is compiled when a module is imported.  :func:`build` compiles several
 sources at once, one ``nvcc`` process each, all started together.
 
+Each compile runs with ``-Xptxas -v``; what the compiler printed (each
+kernel's registers, spills and shared memory) is kept beside the
+library, and :func:`ptxas_log` returns it.
+
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on
 a code other than 0.
@@ -39,7 +43,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kern
 KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile",
            "knn_twophase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -96,6 +100,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
                 failed.append("%s:\n%s" % (name, log))
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
                 _stats["builds"] += 1
     if failed:
@@ -116,6 +121,14 @@ def load(name: str) -> ctypes.CDLL:
                 _loaded[name] = lib
                 _stats["loads"] += 1
     return lib
+
+
+def ptxas_log(name: str) -> str:
+    """What the compiler printed when it built ``csrc/<name>.cu`` (built
+    first if needed): ``ptxas info`` lines with each kernel's registers,
+    spill stores and loads, and shared memory, and any warnings."""
+    build([name])
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def stats() -> Dict[str, int]:

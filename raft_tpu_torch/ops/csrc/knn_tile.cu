@@ -5,57 +5,55 @@
 // max(qn + xn - 2 q.x, 0) over the index rows, ascending, with int32 ids;
 // ties resolve to the smaller id.
 //
-// What bounds it on an H100: the distance tile is 2*nq*n*d float32
-// operations done in FFMA (the JAX contract is precision="highest", so no
-// TF32 tensor cores); at 1M x 128 with 1024 queries that is 2.6e11
-// operations against 67 TFLOP/s, some 4 ms, while the 512 MB index takes
-// 0.15 ms to read at 3.35 TB/s.  So the kernel is bound by operations, and
-// the design keeps the FMA units fed and keeps the selection off the
-// critical path:
+// What bounds it on an H100: the distance tile, 2*nq*n*d operations.  The
+// JAX contract is precision="highest", which one TF32 pass does not meet
+// but 3xTF32 on the tensor cores does (knn_tile.cuh): three TF32 products
+// per multiply-add, so at 1M x 128 with 1024 queries 3 x 2.6e11 operations
+// against 495 TFLOP/s, 1.6 ms, where the FFMA units would need 3.9 ms at
+// 67 TFLOP/s; the 512 MB index takes 0.15 ms to read at 3.35 TB/s.  So the
+// kernel is bound by operations, and the design keeps the tensor cores fed
+// and the selection off their path:
 //
-//   * A block of 256 threads owns a tile of BQ = 64 queries and walks its
-//     share of the index in tiles of BN = 128 rows (the TPU grid's
-//     sequential index axis becomes this loop).  The product tile is the
-//     FFMA tile of l2_tile.cuh, which K4 shares.
-//   * The distance tile goes to shared memory and each warp folds 8 of its
-//     query rows into their running top-k (warp_select.cuh).  The buffers
-//     live in shared memory, not registers, so that the accumulators have
-//     the registers and two blocks fit on an SM: one block's selection
-//     overlaps the other's products.  The threshold gate skips nearly
-//     every batch once the buffers are warm, and the rows that pass are
-//     staged in registers so that a merge takes many of them at once.
-//   * 1024 queries give only 16 query tiles for 132 SMs, so the index is
-//     also split across blocks (grid.y).  Each split writes its own top-k
-//     and select_tile.cu (K2) merges the partials: the twophase pattern of
+//   * The body is knn_tile.cuh (shared with K6): one warpgroup issues
+//     the wgmmas on index tiles that a producer warp brings in by TMA
+//     copies, and sixteen warps of their own fold the distance tiles into
+//     the running top-k (warp_select.cuh).
+//   * One block per SM (some 220 KB of shared memory each); 1024 queries
+//     are 16 query tiles, so the index is also split across blocks
+//     (grid.y, rows_per_split from ops/knn_tile.py:split_rows, 8 splits
+//     at 1M on 132 SMs, from the query tile that knn_block_q below
+//     reports).  Each split writes its own top-k and
+//     select_tile.cu (K2) merges the partials: the twophase pattern of
 //     raft_tpu/ops/knn_tile.py:474, which keeps this kernel free of any
 //     state shared between blocks.
 //
-// The kernel body is shared with K6 (knn_tile.cuh).  The norms qn and xn
-// come from the wrapper, as pad_with_norms computes them outside the
-// Pallas call.
+// The norms qn and xn come from the wrapper, as pad_with_norms computes
+// them outside the Pallas call.
 #include "knn_tile.cuh"
 
-// Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous.
-// out_d / out_i: (nq, n_splits, k), where n_splits = ceil(n / rows_per_split)
-// and rows_per_split is a multiple of 128.  Returns cudaGetLastError().
+// Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous,
+// 16-byte aligned, d a multiple of 8.  out_d / out_i: (nq, n_splits, k),
+// where n_splits = ceil(n / rows_per_split) and rows_per_split is a
+// multiple of 64.  Returns cudaGetLastError().
 extern "C" int knn_tile_launch(const void* Q, const void* X, const void* qn,
                                const void* xn, int nq, int n, int d, int k,
                                int rows_per_split, void* out_d, void* out_i,
                                void* stream) {
   using namespace raft_tpu_torch;
-  if (k < 1 || k > 128 || rows_per_split % kBN != 0 || nq < 1 || n < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int n_splits = (n + rows_per_split - 1) / rows_per_split;
-  dim3 grid((nq + kBQ - 1) / kBQ, n_splits);
-  cudaStream_t s = (cudaStream_t)stream;
-  auto q = (const float*)Q;
-  auto x = (const float*)X;
-  auto a = (const float*)qn;
-  auto b = (const float*)xn;
-  auto od = (float*)out_d;
-  auto oi = (int*)out_i;
-  if (k <= 32) return (int)launch<1, false>(grid, s, q, x, a, b, nq, n, d, k, rows_per_split, od, oi);
-  if (k <= 64) return (int)launch<2, false>(grid, s, q, x, a, b, nq, n, d, k, rows_per_split, od, oi);
-  return (int)launch<4, false>(grid, s, q, x, a, b, nq, n, d, k, rows_per_split, od, oi);
+  if (rows_per_split < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int n_splits = (n + rows_per_split - 1) / rows_per_split;
+  KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
+            nq, n, d, k, rows_per_split, 1, n_splits, (float*)out_d, (int*)out_i};
+  return (int)launch<false>(n_splits, (cudaStream_t)stream, a);
+}
+
+// The block geometry, for the wrapper and the tools, so that it is
+// decided here only: the queries a block takes at depth d (a multiple of
+// 8), and the dynamic shared memory of a block at that depth and k.
+extern "C" int knn_block_q(int d) { return raft_tpu_torch::block_q(d); }
+
+extern "C" int knn_smem_bytes(int d, int k) {
+  using namespace raft_tpu_torch;
+  const int kp = k <= 32 ? 32 : k <= 64 ? 64 : 128;
+  return smem_bytes(block_q(d), kp, d);
 }

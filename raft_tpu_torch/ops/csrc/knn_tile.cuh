@@ -1,178 +1,579 @@
 // The fused squared-L2 distance + top-k kernel shared by knn_tile.cu (K1)
-// and knn_twophase.cu (K6).
+// and knn_twophase.cu (K6), designed for Hopper (sm_90a).
 //
-// A block of 256 threads owns BQ = 64 queries and the index rows
-// [split * rows_per_split, (split + 1) * rows_per_split), walked in tiles
-// of BN = 128 rows: the FFMA product tile of l2_tile.cuh goes to shared
-// memory as squared distances max(qn + xn - 2 q.x, 0), and each warp folds
-// 8 of its query rows into their running top-k (warp_select.cuh), kept in
-// shared memory so that the accumulators have the registers and two
-// blocks fit on an SM.  Each (query, split) writes its k smallest, sorted,
-// at out[(q * n_splits + split) * k].  The two kernels differ only in how
-// a slot with no finite key is written:
+// Precision: the JAX contract is precision="highest", float32-faithful
+// products.  The distance tile runs on the tensor cores in 3xTF32: each
+// operand x splits into big = tf32(x) and small = tf32(x - big) (rounded
+// to nearest, ties away, as cvt.rna.tf32.f32 rounds; sm90.cuh), and each
+// k8 step issues three wgmmas into one
+// float32 accumulator, small*big and big*small first, then big*big.  The
+// dropped small*small term is about 2^-22 of the product, so the dot
+// products carry float32's error, not TF32's (one TF32 pass misses the
+// float32 tolerance by 50-100x; tests/test_torch_knn_tf32x3.py emulates
+// both).
 //
-//   * K1 (kTileParts = false) clamps its id into [0, n - 1], as the JAX
-//     kernel's output contract does; K2 merges the splits.
-//   * K6 (kTileParts = true) writes (+inf, -1), as the JAX two-phase
-//     kernel's tile_local_topk does; its splits are the JAX index tiles.
+// A block of six warpgroups owns a tile of N queries (64, 32 or 16 by
+// depth: block_q below) and walks a contiguous range of
+// index rows in tiles of kBN = 64, with each role in warps of its own:
 //
-// The norms qn and xn come from the wrapper.  Ragged edges (nq, n, d not
-// multiples of the tile) are masked: loads past the edge read 0, and rows
-// past the end of the split never enter the top-k.
+//   * warp 20 produces: one TMA copy (cp.async.bulk.tensor, a 2-D tensor
+//     map with the 128-byte swizzle) per box of 64 index rows x 32 of
+//     depth, into a ring of kStages boxes.  The swizzle spreads a warp's
+//     fragment loads over all 32 banks; rows and depth past the end of the
+//     index arrive as zeros.  Warps 21-23 only complete its warpgroup, since
+//     setmaxnreg takes a whole warpgroup, and leave.
+//   * warps 0-3, one warpgroup, multiply.  The index tile is wgmma's A:
+//     64 rows x 8 of depth per step, loaded from shared memory into
+//     registers (float4s) and split there into big and small, never
+//     written back.  The queries are B, split when the block starts and
+//     kept in shared memory in wgmma's canonical K-major layout (no
+//     swizzle): the whole depth where it fits (up to 1216 at N = 16), else
+//     one slab of it, which the multiply refills for each slab of each
+//     index tile while the accumulator carries over, so that any depth
+//     runs.  Each box's 12 wgmmas are one commit group; the next box's
+//     fragments load while it runs (two register sets, so the depth is
+//     walked in pairs of boxes), and only a tile's last box is waited for,
+//     before the epilogue writes max(qn + xn - 2 q.x, 0) to one of two
+//     distance tiles in shared memory (query-major, for the selection).
+//   * warps 4-19 select.  Each owns N / 16 query rows and folds the
+//     tile's 64 candidates of each into its running top-k with
+//     warp_select.cuh's core (gate, stage, bitonic merge), the buffers in
+//     shared memory.  The gate runs first for all
+//     of the warp's rows at once (independent loads and ballots); only a
+//     row with a candidate that passes takes the stage-and-merge path,
+//     whose state waits in shared memory between tiles, so that one copy
+//     of that path serves every row.
+//
+// The ring hands over through full/empty mbarriers (the tensor copies
+// complete on the full barrier's transaction count), the distance tiles
+// through two more pairs.  setmaxnreg gives the multiplying warpgroup the
+// registers that the producer and the selection do not use.
+//
+// The index range of a block is `parts_per_block` parts of
+// `rows_per_part` rows, each a multiple of kBN; the selection writes each
+// (query, part) top-k at out[(q * n_parts + part) * k] and resets its
+// buffers.  The two kernels differ in the parts and in how a slot with no
+// finite key is written:
+//
+//   * K1 (kTileParts = false): one part per block, a split of the index;
+//     the id is clamped into [0, n - 1], as the JAX kernel's output
+//     contract does; K2 merges the splits.
+//   * K6 (kTileParts = true): the parts are the JAX index tiles of bn rows;
+//     a slot with no finite key is (+inf, -1), as tile_local_topk writes
+//     it.
+//
+// The depth d is a multiple of 8 and the rows 16-byte aligned (the
+// wrapper pads a copy otherwise); the norms qn and xn come from the
+// wrapper.  Rows past the end of the block's range never enter the top-k;
+// query rows past nq are zero and never selected.
 #pragma once
 
-#include "l2_tile.cuh"
+#include "sm90.cuh"
 #include "warp_select.cuh"
 
 namespace raft_tpu_torch {
 namespace {
 
-using namespace l2_tile;
+constexpr int kBN = 64;                  // index rows per tile: wgmma's M
+constexpr int kBox = 32;                 // depth per TMA box: 128 bytes, the swizzle span
+constexpr int kBoxBytes = kBN * kBox * 4;
+constexpr int kStages = 5;               // boxes in the ring
+constexpr int kDistStride = kBN + 4;     // distance tile row, floats
+constexpr int kSelWarps = 16;
+constexpr int kMmaThreads = 128;
+constexpr int kThreads = kMmaThreads + kSelWarps * 32 + 128;  // + the producer's warpgroup
+// registers a thread of each role may use (setmaxnreg), and what the
+// launch must hand out for them: kThreads x the kernel's count
+constexpr int kMmaRegs = 168;
+constexpr int kSelRegs = 72;
+constexpr int kProducerRegs = 24;
+constexpr int kRegsNeeded = kMmaThreads * kMmaRegs + kSelWarps * 32 * kSelRegs + 128 * kProducerRegs;
+constexpr int kSmemLimit = 232448;       // 227 KB a block
+constexpr int kAlign = 1024;             // the 128-byte swizzle repeats every 1024 bytes
+constexpr int kBarBytes = 128;
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kQPerWarp = kBQ / kWarps;
-// shared memory: the depth chunks of the two tiles, reused for the
-// distance tile, then the top-k buffers and the thresholds
-constexpr int kDistBytes = kBQ * kXStride * 4;
-constexpr int kTileBytes = kLoadBytes > kDistBytes ? kLoadBytes : kDistBytes;
+// Boxes of depth the multiply walks: an even number, so that its loop
+// alternates between two register sets with no branch (the boxes past d
+// are zeros).
+__host__ __device__ constexpr int depth_boxes(int d) { return 2 * ((d + 2 * kBox - 1) / (2 * kBox)); }
 
-template <int NR>
-constexpr int smem_bytes() {
-  return kTileBytes + kBQ * 32 * NR * 8 + kBQ * 8;
+// Dynamic shared memory of a block besides the queries: alignment slack,
+// the ring, barriers, two distance tiles, the top-k buffers (N x kp
+// pairs), the selection's per-row state (32 staged pairs, their count, the
+// threshold pair) and the slack that 128-byte aligns the queries.
+__host__ __device__ constexpr int smem_fixed(int n_q, int kp) {
+  return kAlign + kStages * kBoxBytes + kBarBytes + 2 * n_q * kDistStride * 4 + n_q * kp * 8 +
+         n_q * (2 * 32 + 3) * 4 + 128;
 }
 
-template <int NR, bool kTileParts>
-__global__ void __launch_bounds__(kThreads, 2)
-knn_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
-                const float* __restrict__ qn, const float* __restrict__ xn,
-                int nq, int n, int d, int k, int rows_per_split,
+// Boxes of the queries' depth a block of n_q queries holds, their big and
+// small halves, at the widest buffer (k = 128): an even number, so that a
+// depth always gets the same slab whatever k.
+__host__ __device__ constexpr int slab_boxes(int n_q) {
+  return ((kSmemLimit - smem_fixed(n_q, 128)) / (2 * n_q * kBox * 4)) & ~1;
+}
+
+// Boxes of the queries' depth held at once: all of them, or one slab.
+__host__ __device__ constexpr int held_boxes(int n_q, int d) {
+  return depth_boxes(d) < slab_boxes(n_q) ? depth_boxes(d) : slab_boxes(n_q);
+}
+
+__host__ __device__ constexpr int smem_bytes(int n_q, int kp, int d) {
+  return smem_fixed(n_q, kp) + 2 * n_q * held_boxes(n_q, d) * kBox * 4;
+}
+
+// Queries per block: the widest tile of 64, 32 or 16 whose whole depth
+// fits beside the rest (to depths 128, 512 and 1216), else kDeepQ with the
+// depth in slabs of 512: the multiply refills the queries' halves for
+// each slab of each index tile.  The multiply's time goes mostly to
+// loading and splitting the index boxes, once for every N queries, so a
+// wide tile pays; but a refill stalls the multiply, so a tile that holds
+// its whole depth beats a wider one in slabs.
+constexpr int kDeepQ = 32;
+
+__host__ __device__ constexpr bool whole_depth(int n_q, int d) {
+  return depth_boxes(d) <= slab_boxes(n_q);
+}
+
+__host__ __device__ constexpr int block_q(int d) {
+  return whole_depth(64, d) ? 64 : whole_depth(32, d) ? 32 : whole_depth(16, d) ? 16 : kDeepQ;
+}
+static_assert(block_q(128) == 64 && block_q(512) == 32 && block_q(1216) == 16 &&
+              block_q(1224) == kDeepQ, "the tiles by depth");
+
+// A's registers for one box: four k8 steps of the m16n8k8 fragment, big
+// and small halves.
+struct Frag {
+  uint32_t big[4][4];
+  uint32_t small[4][4];
+};
+
+// Split the queries' depth boxes [box0, box0 + boxes) of the tile at q0
+// into B's halves, in wgmma's canonical K-major layout from the start of
+// q_big and q_small: thread i of `count` takes the float4 chunks i,
+// i + count, ...  A thread's float4 load of an index box row (chunk
+// 2 t4 + L in the multiply) holds, for k8 steps 2L and 2L + 1 of the box,
+// its A values at logical k = t4 and t4 + 4; so box column p (chunk
+// j = p / 4, element f = p % 4) is logical k = j / 2 + 4 (f & 1) of step
+// 4 box + 2 (j & 1) + f / 2.  Any order of k gives the same dot product,
+// as long as A and B share it.  B's logical k = 4h + e sits in core
+// matrix h, element e; columns past d are zero.
+template <int N>
+__device__ __forceinline__ void fill_queries(float* q_big, float* q_small,
+                                             const float* __restrict__ Q, int nq, int d, int q0,
+                                             int box0, int boxes, int i, int count) {
+  const int chunks = boxes * (kBox / 4);  // float4s of a row
+#pragma unroll 4
+  for (int e = i; e < N * chunks; e += count) {
+    const int r = e / chunks;
+    const int cl = (e - r * chunks) * 4;  // column in the slab
+    const int c = box0 * kBox + cl;       // column of Q
+    const int q = q0 + r;
+    // d is a multiple of 8: a chunk lies wholly inside the depth or past it
+    const float4 v = q < nq && c < d ? *reinterpret_cast<const float4*>(Q + (size_t)q * d + c)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    const int j = (cl & 31) >> 2;
+    const int base =
+        ((cl >> 5) * 4 + 2 * (j & 1)) * N * 8 + (r >> 3) * 64 + (r & 7) * 4 + (j >> 1);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      uint32_t big, small;
+      sm90::split_tf32(vs[f], big, small);
+      const int off = base + (f >> 1) * N * 8 + (f & 1) * 32;
+      q_big[off] = __uint_as_float(big);
+      q_small[off] = __uint_as_float(small);
+    }
+  }
+}
+
+template <int N, int NR, bool kTileParts>
+__global__ void __launch_bounds__(kThreads, 1)
+knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restrict__ Q,
+                const float* __restrict__ qn, const float* __restrict__ xn, int nq, int n,
+                int d, int k, int rows_per_part, int parts_per_block, int n_parts,
                 float* __restrict__ out_d, int* __restrict__ out_i) {
+  using namespace sm90;
   constexpr int kKP = 32 * NR;
-  extern __shared__ float4 smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  auto dist = reinterpret_cast<float (*)[kXStride]>(base);
-  float* buf_k = reinterpret_cast<float*>(base + kTileBytes);
-  int* buf_i = reinterpret_cast<int*>(buf_k + kBQ * kKP);
-  float* thr_k = reinterpret_cast<float*>(buf_i + kBQ * kKP);
-  int* thr_i = reinterpret_cast<int*>(thr_k + kBQ);
+  static_assert(N % kSelWarps == 0, "whole query rows a selection warp");
+  constexpr int kRowsPerWarp = N / kSelWarps;
+  extern __shared__ char smem_raw[];
+  char* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kBoxBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* dist_full = empty + kStages;
+  uint64_t* dist_empty = dist_full + 2;
+  float* dist = reinterpret_cast<float*>(smem + kStages * kBoxBytes + kBarBytes);
+  float* buf_k = dist + 2 * N * kDistStride;
+  int* buf_i = reinterpret_cast<int*>(buf_k + N * kKP);
+  float* st_k = reinterpret_cast<float*>(buf_i + N * kKP);  // staged pairs, a row of 32 each
+  int* st_i = reinterpret_cast<int*>(st_k + N * 32);
+  int* st_n = st_i + N * 32;
+  float* th_k = reinterpret_cast<float*>(st_n + N);
+  int* th_i = reinterpret_cast<int*>(th_k + N);
+  char* q_base = reinterpret_cast<char*>(th_i + N);
+  float* q_big = reinterpret_cast<float*>(q_base + ((128 - (smem_addr(q_base) & 127)) & 127));
+  const int n_boxes = depth_boxes(d);
+  const int held = held_boxes(N, d);  // the slab: n_boxes, or fewer at depth
+  float* q_small = q_big + held * kBox * N;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tx = tid & 15;  // index columns tx*4 + j and 64 + tx*4 + j
-  const int ty = tid >> 4;  // query rows ty*4 + i
-  const int q0 = blockIdx.x * kBQ;
-  const int split = blockIdx.y;
-  const int n_splits = gridDim.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(n, row_begin + rows_per_split);
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * N;
+  const int first_part = blockIdx.y * parts_per_block;
+  const int row_begin = first_part * rows_per_part;
+  const int row_end =
+      (int)min((long long)n, (long long)(first_part + parts_per_block) * rows_per_part);
+  const int n_tiles = (row_end - row_begin + kBN - 1) / kBN;
+  const int n_box_total = n_tiles * n_boxes;
 
-  for (int e = tid; e < kBQ * kKP; e += kThreads) {
-    buf_k[e] = CUDART_INF_F;
-    buf_i[e] = INT_MAX;
-  }
-  if (tid < kBQ) {
-    thr_k[tid] = CUDART_INF_F;
-    thr_i[tid] = INT_MAX;
-  }
-  float qn_reg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int q = q0 + ty * 4 + i;
-    qn_reg[i] = q < nq ? qn[q] : 0.f;
-  }
-  Stage stage[kQPerWarp];
-#pragma unroll
-  for (int qq = 0; qq < kQPerWarp; ++qq) stage[qq] = Stage{CUDART_INF_F, INT_MAX, 0};
-
-  for (int x0 = row_begin; x0 < row_end; x0 += kBN) {
-    float acc[4][8];
-    dot_tile(acc, base, Q, q0, nq, X, x0, row_end, d, tid);
-
-    float xn_reg[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int row = x0 + tile_col(j, tx);
-      xn_reg[j] = row < row_end ? xn[row] : 0.f;
+  if (tid == 0) {
+    // one arrival per warp: lane 0, after __syncwarp orders the lanes'
+    // shared-memory accesses before it
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kMmaThreads / 32);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = fmaxf(qn_reg[i] + xn_reg[j] - 2.f * acc[i][j], 0.f);
-      *reinterpret_cast<float4*>(&dist[ty * 4 + i][tx * 4]) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(&dist[ty * 4 + i][64 + tx * 4]) =
-          make_float4(v[4], v[5], v[6], v[7]);
+    for (int b = 0; b < 2; ++b) {
+      bar_init(&dist_full[b], kMmaThreads / 32);
+      bar_init(&dist_empty[b], kSelWarps);
     }
-    __syncthreads();
+    bar_init_fence();
+  }
+  // the query tile's first slab (its whole depth, but for the deepest)
+  fill_queries<N>(q_big, q_small, Q, nq, d, q0, 0, held, tid, kThreads);
+  fence_proxy_async();
+  __syncthreads();
 
+  if (warp < 4) {
+    // ---- multiply: one warpgroup -----------------------------------
+    setmaxnreg_inc<kMmaRegs>();
+    const int g8 = lane >> 2;  // fragment row (and row + 8); the row's swizzle
+    const int t4 = lane & 3;
+    float qn_r[N / 4];         // qn of tile columns 8j + 2 t4 + {0, 1}
 #pragma unroll
-    for (int qq = 0; qq < kQPerWarp; ++qq) {
-      int r = warp * kQPerWarp + qq;
-      if (q0 + r >= nq) continue;  // warp-uniform
-      SharedTopK<NR> buf{buf_k + r * kKP, buf_i + r * kKP};
-      float tk = thr_k[r];
-      int ti = thr_i[r];
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 8 * j + 2 * t4 + h;
+        qn_r[2 * j + h] = q < nq ? qn[q] : 0.f;
+      }
+    }
+    // core matrices 128 bytes apart along K, 8-row groups 256 bytes apart
+    const uint64_t desc_big = desc_kmajor(q_big, 128, 256);
+    const uint64_t desc_small = desc_kmajor(q_small, 128, 256);
+    const int row_lo = (warp * 16 + g8) * kBox;  // this thread's rows in a box
+    const int row_hi = row_lo + 8 * kBox;
+    float acc[N / 2];
+    Frag frag[2];
+    // The control flow around the wgmmas is uniform loops only: a branch
+    // the compiler cannot prove uniform makes it serialise them.
+    for (int t = 0; t < n_tiles; ++t) {
+      const int ra = row_begin + t * kBN + warp * 16 + g8;
+      const float xa = ra < row_end ? xn[ra] : 0.f;
+      const float xb = ra + 8 < row_end ? xn[ra + 8] : 0.f;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        acc[i] = 0.f;
+        fence_operand(acc[i]);
+      }
+      // box g of the block is depth box g % n_boxes of tile g / n_boxes;
+      // boxes alternate between the two register sets, and a box's group
+      // retires while the next one's fragments load.  The depth goes in
+      // slabs of `held` boxes: past the first slab of the first tile, each
+      // slab's query halves replace the last ones once the wgmmas that
+      // read those are done, and the accumulator carries over.
+      for (int c0 = 0; c0 < n_boxes; c0 += held) {
+        if (held < n_boxes && (t > 0 || c0 > 0)) {
+          wgmma_wait<0>();
+          mma_bar_sync();
+          fill_queries<N>(q_big, q_small, Q, nq, d, q0, c0, min(held, n_boxes - c0), tid,
+                          kMmaThreads);
+          fence_proxy_async();
+          mma_bar_sync();
+        }
+        const int c_end = min(n_boxes, c0 + held);
+        for (int c = c0; c < c_end; c += 2) {
+#pragma unroll
+          for (int S = 0; S < 2; ++S) {
+            const int g = t * n_boxes + c + S;
+            const int slot = g % kStages;
+            bar_wait(&full[slot], (g / kStages) & 1);
+            const float* b = ring + slot * (kBN * kBox);
+#pragma unroll
+            for (int L = 0; L < 2; ++L) {
+              const int chunk = ((2 * t4 + L) ^ g8) * 4;
+              const float4 lo = *reinterpret_cast<const float4*>(b + row_lo + chunk);
+              const float4 hi = *reinterpret_cast<const float4*>(b + row_hi + chunk);
+              uint32_t(&b0)[4] = frag[S].big[2 * L];
+              uint32_t(&s0)[4] = frag[S].small[2 * L];
+              uint32_t(&b1)[4] = frag[S].big[2 * L + 1];
+              uint32_t(&s1)[4] = frag[S].small[2 * L + 1];
+              split_tf32(lo.x, b0[0], s0[0]);  // row g8,     k t4
+              split_tf32(hi.x, b0[1], s0[1]);  // row g8 + 8, k t4
+              split_tf32(lo.y, b0[2], s0[2]);  // row g8,     k t4 + 4
+              split_tf32(hi.y, b0[3], s0[3]);  // row g8 + 8, k t4 + 4
+              split_tf32(lo.z, b1[0], s1[0]);
+              split_tf32(hi.z, b1[1], s1[1]);
+              split_tf32(lo.w, b1[2], s1[2]);
+              split_tf32(hi.w, b1[3], s1[3]);
+            }
+            __syncwarp();
+            bar_arrive_if(&empty[slot], lane == 0);
+            // the box's descriptors, settled before the fence like every
+            // other register the wgmmas read
+            uint64_t d_big[4], d_small[4];
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const uint64_t step = (uint64_t)(((c - c0 + S) * 4 + s) * N * 32) >> 4;
+              d_big[s] = desc_big + step;
+              d_small[s] = desc_small + step;
+              fence_operand(d_big[s]);
+              fence_operand(d_small[s]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              Wgmma<N>::mma(acc, frag[S].small[s], d_big[s]);
+              Wgmma<N>::mma(acc, frag[S].big[s], d_small[s]);
+              Wgmma<N>::mma(acc, frag[S].big[s], d_big[s]);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous box's group: its register set is free
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
+      // epilogue: accumulator (row 16 warp + g8 (+8), column 8j + 2 t4
+      // (+1)) to the query-major distance tile
+      const int buf = t & 1;
+      bar_wait(&dist_empty[buf], ((t >> 1) & 1) ^ 1);
+      float* dt = dist + buf * N * kDistStride + warp * 16 + g8;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        dt[col * kDistStride] = fmaxf(qn_r[2 * j] + xa - 2.f * acc[4 * j], 0.f);
+        dt[(col + 1) * kDistStride] = fmaxf(qn_r[2 * j + 1] + xa - 2.f * acc[4 * j + 1], 0.f);
+        dt[col * kDistStride + 8] = fmaxf(qn_r[2 * j] + xb - 2.f * acc[4 * j + 2], 0.f);
+        dt[(col + 1) * kDistStride + 8] = fmaxf(qn_r[2 * j + 1] + xb - 2.f * acc[4 * j + 3], 0.f);
+      }
+      __syncwarp();
+      bar_arrive_if(&dist_full[buf], lane == 0);
+    }
+  } else if (warp < 4 + kSelWarps) {
+    // ---- select: kSelWarps warps, kRowsPerWarp query rows each ------
+    setmaxnreg_dec<kSelRegs>();
+    const int r0 = (warp - 4) * kRowsPerWarp;
+    // rows of this warp with a query: bit qq for row r0 + qq
+    const int n_live = max(0, min(kRowsPerWarp, nq - q0 - r0));
+    const unsigned live = (1u << n_live) - 1;
+    bool fresh = true;  // the next tile starts a part
+    int part = first_part;
+    int part_end = (int)min((long long)n, (long long)(part + 1) * rows_per_part);
+    for (int t = 0; t < n_tiles; ++t) {
+      if (fresh) {
+        // cold buffers, nothing staged, no threshold
+        for (int r = r0; r < r0 + kRowsPerWarp; ++r) {
+#pragma unroll
+          for (int p = 0; p < NR; ++p) {
+            buf_k[r * kKP + p * 32 + lane] = CUDART_INF_F;
+            buf_i[r * kKP + p * 32 + lane] = INT_MAX;
+          }
+          if (lane == 0) {
+            st_n[r] = 0;
+            th_k[r] = CUDART_INF_F;
+            th_i[r] = INT_MAX;
+          }
+        }
+        __syncwarp();
+        fresh = false;
+      }
+      const int row0 = row_begin + t * kBN;
+      const int tile_end = min(row0 + kBN, row_end);
+      const int id0 = row0 + lane < tile_end ? row0 + lane : INT_MAX;
+      const int id1 = row0 + 32 + lane < tile_end ? row0 + 32 + lane : INT_MAX;
+      const int buf = t & 1;
+      bar_wait(&dist_full[buf], (t >> 1) & 1);
+      const float* dt = dist + buf * N * kDistStride;
+      // the gate, every row at once: which rows have a candidate that
+      // beats their k-th best
+      unsigned pass = 0;
+#pragma unroll
+      for (int qq = 0; qq < kRowsPerWarp; ++qq) {
+        const int r = r0 + qq;
+        const float tk = th_k[r];
+        const int ti = th_i[r];
+        const float k0 = id0 < INT_MAX ? dt[r * kDistStride + lane] : CUDART_INF_F;
+        const float k1 = id1 < INT_MAX ? dt[r * kDistStride + 32 + lane] : CUDART_INF_F;
+        const bool p = lex_less(k0, id0, tk, ti) || lex_less(k1, id1, tk, ti);
+        if (__any_sync(kFullMask, p)) pass |= 1u << qq;
+      }
+      pass &= live;
+      // stage and merge, one row at a time, its state from shared memory
 #pragma unroll 1
-      for (int b = 0; b < kBN; b += 32) {
-        int row = x0 + b + lane;
-        float key = CUDART_INF_F;
-        int id = INT_MAX;
-        if (row < row_end) {
-          key = dist[r][b + lane];
-          id = row;
+      while (pass != 0) {
+        const int r = r0 + __ffs(pass) - 1;
+        pass &= pass - 1;
+        SharedTopK<NR> top{buf_k + r * kKP, buf_i + r * kKP};
+        Stage st{st_k[r * 32 + lane], st_i[r * 32 + lane], st_n[r]};
+        float tk = th_k[r];
+        int ti = th_i[r];
+        offer(top, st, id0 < INT_MAX ? dt[r * kDistStride + lane] : CUDART_INF_F, id0, lane, k,
+              tk, ti);
+        offer(top, st, id1 < INT_MAX ? dt[r * kDistStride + 32 + lane] : CUDART_INF_F, id1,
+              lane, k, tk, ti);
+        st_k[r * 32 + lane] = st.key;
+        st_i[r * 32 + lane] = st.id;
+        __syncwarp();
+        if (lane == 0) {
+          st_n[r] = st.n;
+          th_k[r] = tk;
+          th_i[r] = ti;
         }
-        offer(buf, stage[qq], key, id, lane, k, tk, ti);
       }
-      if (lane == 0) {
-        thr_k[r] = tk;
-        thr_i[r] = ti;
+      __syncwarp();
+      bar_arrive_if(&dist_empty[buf], lane == 0);
+      if (row0 + kBN < part_end) continue;
+      // the part's last tile: write each row's k smallest, sorted
+#pragma unroll 1
+      for (int qq = 0; qq < n_live; ++qq) {
+        const int r = r0 + qq;
+        const int q = q0 + r;
+        SharedTopK<NR> top{buf_k + r * kKP, buf_i + r * kKP};
+        Stage st{st_k[r * 32 + lane], st_i[r * 32 + lane], st_n[r]};
+        float tk = th_k[r];
+        int ti = th_i[r];
+        flush(top, st, lane, k, tk, ti);
+        WarpTopK<NR> w;
+        w.load(top.key_s, top.id_s, lane);
+        const size_t off = ((size_t)q * n_parts + part) * k;
+        if (kTileParts) {
+#pragma unroll
+          for (int p = 0; p < NR; ++p) {
+            const int pos = p * 32 + lane;
+            if (pos < k) {
+              const bool fin = w.key[p] < CUDART_INF_F;
+              out_d[off + pos] = fin ? w.key[p] : CUDART_INF_F;
+              out_i[off + pos] = fin ? w.id[p] : -1;
+            }
+          }
+        } else {
+          w.store(out_d + off, out_i + off, k, lane, 0, n - 1);
+        }
       }
+      __syncwarp();
+      fresh = true;
+      ++part;
+      part_end = (int)min((long long)n, (long long)part_end + rows_per_part);
     }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int qq = 0; qq < kQPerWarp; ++qq) {
-    int r = warp * kQPerWarp + qq;
-    int q = q0 + r;
-    if (q >= nq) continue;
-    SharedTopK<NR> buf{buf_k + r * kKP, buf_i + r * kKP};
-    float tk = thr_k[r];
-    int ti = thr_i[r];
-    flush(buf, stage[qq], lane, k, tk, ti);
-    WarpTopK<NR> t;
-    t.load(buf.key_s, buf.id_s, lane);
-    size_t off = ((size_t)q * n_splits + split) * k;
-    if (kTileParts) {
-      // a slot with no finite key is (+inf, -1), as tile_local_topk
-      // writes it
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        int p = r * 32 + lane;
-        if (p < k) {
-          bool live = t.key[r] < CUDART_INF_F;
-          out_d[off + p] = live ? t.key[r] : CUDART_INF_F;
-          out_i[off + p] = live ? t.id[r] : -1;
-        }
-      }
-    } else {
-      t.store(out_d + off, out_i + off, k, lane, 0, n - 1);
+  } else {
+    // ---- produce: one thread ---------------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != 4 + kSelWarps || lane != 0) return;
+    for (int g = 0; g < n_box_total; ++g) {
+      const int t = g / n_boxes;
+      const int slot = g % kStages;
+      bar_wait(&empty[slot], ((g / kStages) & 1) ^ 1);
+      bar_arrive_tx(&full[slot], kBoxBytes);
+      tma_load_2d(ring + slot * (kBN * kBox), &x_map, (g - t * n_boxes) * kBox,
+                  row_begin + t * kBN, &full[slot]);
     }
   }
 }
 
-template <int NR, bool kTileParts>
-cudaError_t launch(dim3 grid, cudaStream_t s, const float* q, const float* x,
-                   const float* a, const float* b, int nq, int n, int d, int k,
-                   int rows_per_split, float* od, int* oi) {
-  constexpr int bytes = smem_bytes<NR>();
-  cudaError_t err = cudaFuncSetAttribute(knn_tile_kernel<NR, kTileParts>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+struct KnnArgs {
+  const float* q;
+  const float* x;
+  const float* qn;
+  const float* xn;
+  int nq, n, d, k, rows_per_part, parts_per_block, n_parts;
+  float* out_d;
+  int* out_i;
+};
+
+// The index as a 2-D tensor map: (n, d) row-major float32, boxes of 64
+// rows x 32 floats with the 128-byte swizzle, zeros past the edges.
+// cuTensorMapEncodeTiled comes through the runtime's driver entry point,
+// so that the library needs no link to libcuda.
+inline cudaError_t make_index_map(CUtensorMap* map, const KnnArgs& a) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)a.d, (cuuint64_t)a.n};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.d * 4};
+  const cuuint32_t box[2] = {kBox, kBN};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a.x), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int N, int NR, bool kTileParts>
+cudaError_t launch_tile(int grid_y, cudaStream_t s, const KnnArgs& a) {
+  auto kernel = knn_tile_kernel<N, NR, kTileParts>;
+  // setmaxnreg only moves registers between the warps of a block: the
+  // launch must hand out what the roles take, or the multiplying
+  // warpgroup would wait for registers forever
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  knn_tile_kernel<NR, kTileParts><<<grid, kThreads, bytes, s>>>(
-      q, x, a, b, nq, n, d, k, rows_per_split, od, oi);
+  if (attr.numRegs * kThreads < kRegsNeeded) return cudaErrorInvalidConfiguration;
+  const int bytes = smem_bytes(N, 32 * NR, a.d);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map;
+  err = make_index_map(&map, a);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.nq + N - 1) / N, grid_y);
+  kernel<<<grid, kThreads, bytes, s>>>(map, a.q, a.qn, a.xn, a.nq, a.n, a.d, a.k,
+                                        a.rows_per_part, a.parts_per_block, a.n_parts,
+                                        a.out_d, a.out_i);
   return cudaGetLastError();
+}
+
+// The buffer width for k: K6 keeps 128 a tile, K1 the least of 32, 64, 128.
+template <int N, bool kTileParts>
+cudaError_t launch_nr(int grid_y, cudaStream_t s, const KnnArgs& a) {
+  if constexpr (kTileParts) {
+    if (a.k != 128) return cudaErrorInvalidValue;
+    return launch_tile<N, 4, true>(grid_y, s, a);
+  } else {
+    if (a.k <= 32) return launch_tile<N, 1, false>(grid_y, s, a);
+    if (a.k <= 64) return launch_tile<N, 2, false>(grid_y, s, a);
+    return launch_tile<N, 4, false>(grid_y, s, a);
+  }
+}
+
+// The tile of N queries for the depth, then the buffer width.
+template <bool kTileParts>
+cudaError_t launch(int grid_y, cudaStream_t s, const KnnArgs& a) {
+  if (a.d < 8 || a.d % 8 != 0 || a.k < 1 || a.k > 128 || a.rows_per_part % kBN != 0 ||
+      a.nq < 1 || a.n < 1 || grid_y < 1 || reinterpret_cast<uintptr_t>(a.x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.q) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (block_q(a.d)) {
+    case 64: return launch_nr<64, kTileParts>(grid_y, s, a);
+    case 32: return launch_nr<32, kTileParts>(grid_y, s, a);
+    default: return launch_nr<16, kTileParts>(grid_y, s, a);
+  }
 }
 
 }  // namespace

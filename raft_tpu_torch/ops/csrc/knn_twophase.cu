@@ -11,39 +11,61 @@
 // gather of the ids, in the wrapper.
 //
 // What bounds it on an H100: the same distance work as K1, 2*nq*n*d
-// float32 operations in FFMA ("highest" rules out TF32): at 1M x 128 with
-// 1024 queries, 2.6e11 operations, 3.9 ms at 67 TFLOP/s, against 0.5 GB
-// of index read and 0.5 GB of candidates written at bn = 2048 (0.3 ms at
-// 3.35 TB/s).  So it is bound by operations.  Its own cost is selection:
-// the JAX kernel's point is that no state crosses index tiles, so every
-// tile's buffer starts cold and takes at least 128 of its bn candidates
-// (about 128 * (1 + ln(bn / 128)) on random data) where K1's warm buffer
-// takes a few.
+// operations in 3xTF32 on the tensor cores (the float32-faithful form of
+// the JAX precision="highest" contract, knn_tile.cuh): at 1M x 128 with
+// 1024 queries, 3 x 2.6e11 TF32 operations, 1.6 ms at 495 TFLOP/s, against
+// 0.5 GB of index read and 0.5 GB of candidates written at bn = 2048 (0.3
+// ms at 3.35 TB/s).  Its own cost is selection: no state crosses index
+// tiles, so every tile's buffer starts cold and takes at least 128 of its
+// bn candidates (about 128 * (1 + ln(bn / 128)) on random data) where K1's
+// warm buffer takes a few.
 //
-// Design: the kernel body is K1's (knn_tile.cuh) with one (64-query
-// block, index tile) per block — grid ceil(nq / 64) x n_tiles, 16 x 489 at
-// the 1M, bn = 2048 shape — so the TPU grid's two parallel axes become the
-// CUDA grid and a block carries nothing between tiles.  A warp per query
-// row keeps the tile's top-128 in the 128-wide shared-memory buffer of
-// warp_select.cuh (64 rows x 128 x 8 bytes = 64 KB, plus the 33 KB
-// distance tile: two blocks an SM), and writes the sorted buffer straight
-// to the part buffers.
+// Design: K1's body (knn_tile.cuh), whose selection warps run beside the
+// tensor cores, with the JAX tiles as its parts: a block owns a query tile
+// and a run of whole JAX tiles, writes each tile's sorted top-128 to the
+// part buffers when its last 64-row sub-tile has passed, and starts the
+// next tile with cold buffers.  The grid is sized to the card (one block
+// per SM: 16 query tiles x 8 runs of 62 tiles at the 1M, bn = 2048 shape),
+// not one block per JAX tile, so that a block's pipeline fills once.
 #include "knn_tile.cuh"
 
-// Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous.
-// out_d / out_i: (nq, n_tiles, 128), n_tiles = ceil(n / bn), bn a
-// multiple of 128.  Returns cudaGetLastError().
+namespace raft_tpu_torch {
+namespace {
+
+constexpr int kBlocksPerSm = 1;
+
+// Blocks along the index for `units` tiles when `q_tiles` query tiles
+// share `sms` SMs: (tiles per block, blocks).  ops/knn_tile.py:index_blocks
+// mirrors it.
+void index_blocks(int q_tiles, int units, int sms, int* per_block, int* blocks) {
+  int want = kBlocksPerSm * sms / q_tiles;
+  want = want < 1 ? 1 : want > units ? units : want;
+  *per_block = (units + want - 1) / want;
+  *blocks = (units + *per_block - 1) / *per_block;
+}
+
+}  // namespace
+}  // namespace raft_tpu_torch
+
+// Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous,
+// 16-byte aligned, d a multiple of 8.  out_d / out_i: (nq, n_tiles, 128),
+// n_tiles = ceil(n / bn), bn a multiple of 64.  Returns
+// cudaGetLastError().
 extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
                                    const void* xn, int nq, int n, int d, int bn,
                                    void* out_d, void* out_i, void* stream) {
   using namespace raft_tpu_torch;
   constexpr int kPad = 128;  // the JAX kpad: every tile keeps 128
-  if (bn < kBN || bn % kBN != 0 || nq < 1 || n < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int n_tiles = (n + bn - 1) / bn;
-  dim3 grid((nq + kBQ - 1) / kBQ, n_tiles);
-  return (int)launch<4, true>(grid, (cudaStream_t)stream, (const float*)Q,
-                              (const float*)X, (const float*)qn, (const float*)xn,
-                              nq, n, d, kPad, bn, (float*)out_d, (int*)out_i);
+  const int n_q = block_q(d);
+  if (bn < kBN || n < 1 || nq < 1) return (int)cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (n + bn - 1) / bn;
+  int per_block, blocks;
+  index_blocks((nq + n_q - 1) / n_q, n_tiles, sms, &per_block, &blocks);
+  KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
+            nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i};
+  return (int)launch<true>(blocks, (cudaStream_t)stream, a);
 }

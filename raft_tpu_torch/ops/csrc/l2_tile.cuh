@@ -1,12 +1,15 @@
-// The float32 FFMA product tile shared by knn_tile.cu (K1) and
-// nn_tile.cu (K4): a block of kThreads = 256 threads computes the
+// The float32 FFMA product tile of nn_tile.cu (K4): a block of
+// kThreads = 256 threads computes the
 // kBQ x kBN = 64 x 128 tile of dot products between rows [q0, q0 + 64) of
 // one row-major (rows, d) matrix and rows [x0, x0 + 128) of another.  The
 // depth is staged through shared memory kDK = 32 at a time, transposed, and
 // each thread accumulates a 4 x 8 register tile (rows ty*4 + i, columns
 // tile_col(j, tx)) read as three float4 loads per depth step, so that
 // shared memory feeds the FMA units instead of limiting them.  Full float32
-// products: the JAX precision="highest" contract rules out TF32.
+// products.  The JAX precision="highest" contract rules out one TF32 pass,
+// but not 3xTF32 (two TF32 halves per operand, three products summed in
+// float32, which keeps float32's accuracy): K1 and K6 compute that way on
+// the tensor cores (knn_tile.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

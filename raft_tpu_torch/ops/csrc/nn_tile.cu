@@ -9,13 +9,15 @@
 //
 // What bounds it on an H100: at the IVF build's assignment, x 131,072 x 128
 // against y 1,024 x 128, the tile is 2*m*n*d = 3.4e10 float32 operations in
-// FFMA (the JAX contract is precision="highest": no TF32), 0.51 ms at
-// 67 TFLOP/s, against 68 MB to read, 0.02 ms.  So it is bound by
-// operations, and the design is K1's FFMA tile without K1's selection:
+// FFMA, 0.51 ms at 67 TFLOP/s, against 68 MB to read, 0.02 ms.  (3xTF32 on
+// the tensor cores, as K1 and K6 compute, would meet the JAX
+// precision="highest" contract too; this kernel has not been redesigned
+// for it.)  So it is bound by operations, and the design is an FFMA tile
+// with a running minimum:
 //
 //   * A block of 256 threads owns 64 rows of x and walks all of y in tiles
 //     of 128 rows (the TPU grid's sequential y axis becomes this loop);
-//     the products come from the tile of l2_tile.cuh, shared with K1.  At
+//     the products come from the FFMA tile of l2_tile.cuh.  At
 //     m = 131,072 that is 2,048 blocks, enough for 132 SMs without
 //     splitting y.  (A call with few rows of x, say 1,024 x 100k, gets
 //     only 16 blocks: a split of y with a merge would fill the card, and

@@ -3,9 +3,12 @@
 
 Port of ``raft_tpu/ops/knn_tile.py:fused_knn_tile``: per query, the k
 smallest of ``max(qn + xn - 2 q.x, 0)`` over the index rows, ascending,
-with int32 ids, k <= 128, float32 inputs, distances in full float32
-(the JAX ``precision="highest"`` contract).  Ties resolve to the smaller
-id.
+with int32 ids, k <= 128, float32 inputs.  Ties resolve to the smaller
+id.  The kernels compute the products in 3xTF32 on the tensor cores
+(``csrc/knn_tile.cuh``): each operand is split into two TF32 halves and
+three products are summed in float32, which keeps float32's accuracy and
+so meets the JAX ``precision="highest"`` contract that one TF32 pass
+would miss.
 
 The kernel splits the index across blocks as well as the queries, so
 that a thousand queries fill the card; each split writes its own top-k
@@ -14,7 +17,9 @@ partials.  Because the partials are laid out split by split, a tie on
 distance between splits resolves to the smaller split, which holds the
 smaller ids: the merged result is the same as one pass.  The norms are
 computed here with torch ops, as ``pad_with_norms`` computes them
-outside the Pallas call.
+outside the Pallas call, and :func:`prepare_operands` pads a copy of the
+operands where the kernel's TMA copies (16-byte aligned rows) and its k8
+steps (a depth that is a multiple of 8) need it.
 
 The JAX ``knn_tile_merge`` knob (``merge``/``fullsort``/``sorttile``/
 ``skip``) picks between lane-network variants of the TPU's 128-lane
@@ -50,9 +55,10 @@ from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
 
 MAX_K = 128
-BLOCK_Q = 64      # queries per block (csrc/knn_tile.cu kBQ)
-BLOCK_N = 128     # index rows per tile (kBN)
-BLOCKS_PER_SM = 4  # split the index until the grid has this many blocks per SM
+BLOCK_Q = 64       # queries per block at the main path's depth, 128 (knn_block_q)
+BLOCK_N = 64       # index rows per tile: wgmma's M (csrc/knn_tile.cuh kBN)
+BLOCKS_PER_SM = 1  # blocks resident on an SM (some 220 KB of shared memory each)
+DEPTH_UNIT = 8     # the kernels take a depth that is a multiple of wgmma's k8
 
 # index rows per tile of the plain version
 _PLAIN_TILE = 8192
@@ -83,12 +89,47 @@ def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor,
     return best_d.contiguous(), best_i.to(torch.int32)
 
 
-def split_rows(nq: int, n: int, n_sms: int) -> int:
-    """Index rows per split: enough splits for ``BLOCKS_PER_SM`` blocks on
-    every SM, each a whole number of tiles."""
-    n_tiles = ceildiv(n, BLOCK_N)
-    splits = min(n_tiles, max(1, ceildiv(BLOCKS_PER_SM * n_sms, ceildiv(nq, BLOCK_Q))))
-    return ceildiv(n_tiles, splits) * BLOCK_N
+def index_blocks(q_tiles: int, units: int, n_sms: int) -> Tuple[int, int]:
+    """``(units per block, blocks)`` along the index: ``units`` whole
+    tiles shared by as many blocks as fit beside ``q_tiles`` query tiles
+    in one wave of ``BLOCKS_PER_SM`` blocks on ``n_sms`` SMs (at least
+    one).  ``csrc/knn_twophase.cu:index_blocks`` mirrors it."""
+    want = min(units, max(1, BLOCKS_PER_SM * n_sms // q_tiles))
+    per = ceildiv(units, want)
+    return per, ceildiv(units, per)
+
+
+def split_rows(nq: int, n: int, n_sms: int, n_q: int = BLOCK_Q) -> int:
+    """K1's index rows per split, a whole number of ``BLOCK_N`` tiles:
+    the index shared by as many splits as fill the card beside the
+    ``ceil(nq / n_q)`` query tiles."""
+    per, _ = index_blocks(ceildiv(nq, n_q), ceildiv(n, BLOCK_N), n_sms)
+    return per * BLOCK_N
+
+
+def prepare_operands(index: torch.Tensor, queries: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(index, queries, qn, xn)`` as the kernels take them: contiguous
+    rows, 16-byte aligned, with a depth that is a multiple of 8, and the
+    squared norms of the rows.  A strided tensor is made contiguous; where
+    the depth is not a multiple of 8 or the rows are not 16-byte aligned,
+    a zero-padded copy is made: zero columns leave every dot product
+    unchanged, and the norms are taken on the unpadded rows.  The main
+    path (contiguous, depth 128) copies nothing."""
+    index = index.contiguous()
+    queries = queries.contiguous()
+    qn = (queries * queries).sum(dim=1)
+    xn = (index * index).sum(dim=1)
+    dp = ceildiv(index.shape[1], DEPTH_UNIT) * DEPTH_UNIT
+    return _padded(index, dp), _padded(queries, dp), qn, xn
+
+
+def _padded(t: torch.Tensor, dp: int) -> torch.Tensor:
+    if t.shape[1] == dp and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], dp))
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
@@ -120,18 +161,17 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
     expects(d > 0, "fused_knn_tile: zero depth")
-    index = index.contiguous()
-    queries = queries.contiguous()
-    qn = (queries * queries).sum(dim=1)
-    xn = (index * index).sum(dim=1)
-    rows = split_rows(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    index, queries, qn, xn = prepare_operands(index, queries)
+    dp = index.shape[1]
+    rows = split_rows(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                      block_q(dp))
     splits = ceildiv(n, rows)
     part_d = torch.empty((nq, splits * k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, splits * k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, d, k, rows, part_d.data_ptr(),
+                  xn.data_ptr(), nq, n, dp, k, rows, part_d.data_ptr(),
                   part_i.data_ptr(), stream)
     _build.check(code, "fused_knn_tile")
     fused_knn_tile.launches += 1
@@ -149,6 +189,28 @@ def _entry():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
+
+
+def block_q(d: int) -> int:
+    """Queries per K1/K6 block at depth ``d`` (a multiple of 8), as the
+    kernel decides it (``csrc/knn_tile.cuh:block_q``, exported as
+    ``knn_block_q``): 64 up to depth 128, 32 up to 512, 16 up to 1216,
+    then 32 with the depth in slabs.  Builds the kernel library if
+    needed."""
+    fn = _build.load("knn_tile").knn_block_q
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d)
+
+
+def smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of a K1 block at depth ``d`` (a multiple of
+    8) and ``k`` (K6's is k = 128), as the kernel counts it
+    (``knn_smem_bytes``).  Builds the kernel library if needed."""
+    fn = _build.load("knn_tile").knn_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, k)
 
 
 # --------------------------------------------------------------------- #
@@ -214,14 +276,12 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor,
     part_i = torch.empty((nq, width), dtype=torch.int32, device=dev)
     if nq == 0:
         return part_d, part_i
-    index = index.contiguous()
-    queries = queries.contiguous()
-    qn = (queries * queries).sum(dim=1)
-    xn = (index * index).sum(dim=1)
+    expects(d > 0, "twophase_tiles: zero depth")
+    index, queries, qn, xn = prepare_operands(index, queries)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, d, bn, part_d.data_ptr(),
+                  xn.data_ptr(), nq, n, index.shape[1], bn, part_d.data_ptr(),
                   part_i.data_ptr(), stream)
     _build.check(code, "twophase_tiles")
     twophase_tiles.launches += 1
@@ -246,7 +306,7 @@ def _check_twophase(index, queries, k, precision, merge_select_impl):
             "fused_knn_twophase: index and queries on different devices")
     expects(precision == "highest",
             "fused_knn_twophase: precision=%r is not ported (the kernel "
-            "computes in full float32, 'highest')", precision)
+            "computes float32-faithful products in 3xTF32, 'highest')", precision)
     expects(merge_select_impl == "topk",
             "fused_knn_twophase: merge_select_impl=%r is not ported; the "
             "merge is the exact select ('topk')", merge_select_impl)

@@ -3,6 +3,9 @@ package's ``fused_knn_xla``, the production twin of the Pallas kernel
 whose distances equal the kernel's bitwise; and one small case against
 the Pallas kernel itself in interpret mode."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,3 +91,94 @@ def test_split_rows_cover_the_index(nq, n):
     # the split fills the card unless the index runs out of tiles first
     assert q_tiles * splits >= min(knn_tile.BLOCKS_PER_SM * 132,
                                    q_tiles * -(-n // knn_tile.BLOCK_N)) * 0.5
+
+
+def _misaligned(n, d, seed):
+    # a contiguous view 4 bytes past an aligned start: the kernels' TMA
+    # copies need 16-byte aligned rows
+    flat = torch.from_numpy(np.random.default_rng(seed).standard_normal(n * d + 1)
+                            .astype(np.float32))
+    return flat[1:].view(n, d)
+
+
+# (name, index, queries): depths off the multiple of 8, a misaligned
+# tensor, a strided view, and the main path's depth, which is not copied
+def _tensors(n, nq, d):
+    x, q = _data(n, nq, d)
+    return torch.from_numpy(x), torch.from_numpy(q)
+
+
+OPERANDS = {
+    "d3": lambda: _tensors(300, 9, 3),
+    "d13": lambda: _tensors(200, 5, 13),
+    "misaligned": lambda: (_misaligned(257, 16, 1), _misaligned(7, 16, 2)),
+    "strided": lambda: tuple(t[:, ::2] for t in _tensors(100, 4, 256)),
+    "d128": lambda: _tensors(100, 4, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPERANDS))
+def test_prepare_operands(name):
+    x, q = OPERANDS[name]()
+    xp, qp, qn, xn = knn_tile.prepare_operands(x, q)
+    d = x.shape[1]
+    dp = -(-d // knn_tile.DEPTH_UNIT) * knn_tile.DEPTH_UNIT
+    for orig, got in ((x, xp), (q, qp)):
+        assert got.shape == (orig.shape[0], dp) and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got[:, :d], orig) and not got[:, d:].any()
+    # the norms of the unpadded rows, bitwise
+    assert torch.equal(qn, (q.contiguous() * q.contiguous()).sum(dim=1))
+    assert torch.equal(xn, (x.contiguous() * x.contiguous()).sum(dim=1))
+    if name == "d128":                       # the main path copies nothing
+        assert xp.data_ptr() == x.data_ptr() and qp.data_ptr() == q.data_ptr()
+
+
+@pytest.mark.parametrize("name", sorted(OPERANDS))
+def test_prepared_operands_leave_the_plain_result(name):
+    x, q = OPERANDS[name]()
+    xp, qp, _, _ = knn_tile.prepare_operands(x, q)
+    # against the rows as the wrapper holds them, contiguous
+    ref_d, ref_i = knn_tile_plain(x.contiguous(), q.contiguous(), 5)
+    got_d, got_i = knn_tile_plain(xp, qp, 5)
+    if xp.shape[1] == x.shape[1]:
+        # an alignment copy holds the same rows: bitwise the same result
+        assert torch.equal(got_d, ref_d) and torch.equal(got_i, ref_i)
+    else:
+        # zero columns change no product, but the CPU matmul blocks a
+        # longer depth differently, so the sums may round apart
+        assert_knn_close(ref_d.numpy(), ref_i.numpy(), got_d.numpy(), got_i.numpy(), RTOL, ATOL)
+
+
+def test_grid_constants_match_the_kernel_source():
+    # the wrapper sizes K1's splits, and the kernels their grids, from the
+    # same tile rows and blocks per SM (csrc/knn_tile.cuh,
+    # csrc/knn_twophase.cu); the query tile comes from the kernel itself
+    csrc = Path(knn_tile.__file__).parent / "csrc"
+
+    def const(name, src):
+        return int(re.search(r"constexpr int %s = (\d+);" % name,
+                             (csrc / src).read_text()).group(1))
+
+    assert const("kBN", "knn_tile.cuh") == knn_tile.BLOCK_N
+    assert const("kBlocksPerSm", "knn_twophase.cu") == knn_tile.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("nq,n,n_q", [(1024, 1_000_000, 32), (7, 5000, 16)])
+def test_split_rows_at_other_depths(nq, n, n_q):
+    # the query tiles of 32 (depths 136 to 512, and past 1216 in slabs)
+    # and 16 (depths 520 to 1216)
+    rows = split_rows(nq, n, 132, n_q)
+    splits = -(-n // rows)
+    assert rows % knn_tile.BLOCK_N == 0 and (splits - 1) * rows < n <= splits * rows
+    assert -(-nq // n_q) * splits <= max(132, -(-nq // n_q))   # one wave
+
+
+def test_kernel_route_takes_any_depth():
+    # the kernels stream the queries' depth in slabs: no depth limit on
+    # the kernel route, which at 4096 gives the scan's result
+    from raft_tpu_torch.spatial.fused_l2_knn import fused_l2_knn
+    x, q = _data(40, 3, 4096, seed=4)
+    got_d, got_i = fused_l2_knn(x, q, 3, impl="kernel", device="cpu")
+    ref_d, ref_i = fused_l2_knn(x, q, 3, impl="scan", device="cpu")
+    assert_knn_close(ref_d.numpy(), ref_i.numpy(), got_d.numpy(), got_i.numpy(), RTOL, 1e-3)

@@ -14,8 +14,8 @@ from raft_tpu.ops.knn_tile import fused_knn_twophase as jax_twophase
 from raft_tpu.ops.knn_tile import tile_geometry
 from raft_tpu_torch import LogicError
 from raft_tpu_torch.ops.knn_tile import (BLOCK_N_LADDER, TWOPHASE_PAD, fused_knn_twophase,
-                                         knn_tile_plain, knn_twophase_plain, twophase_geometry,
-                                         twophase_tiles)
+                                         index_blocks, knn_tile_plain, knn_twophase_plain,
+                                         twophase_geometry, twophase_tiles)
 
 # the tolerance of the JAX package's own test of this kernel
 # (tests/test_spatial.py test_fused_knn_twophase_exact): expanded-form
@@ -107,3 +107,22 @@ def test_unported_merge_is_named():
     with pytest.raises(LogicError, match="approx.*not ported"):
         fused_knn_twophase(torch.from_numpy(x), torch.from_numpy(q), 5,
                            merge_select_impl="approx")
+
+
+@pytest.mark.parametrize("block_n", BLOCK_N_LADDER)
+def test_block_ranges_cover_the_jax_tiles(block_n):
+    # K6's grid along the index (index_blocks, as csrc/knn_twophase.cu
+    # sizes it over the JAX tiles): each block owns a run of whole JAX
+    # tiles, the runs cover every tile of twophase_geometry once, and the
+    # grid is one wave of blocks on 132 SMs unless the query tiles alone
+    # exceed it; query tiles of 64, 32 and 16 (depths 128, 300, 2000)
+    for n, nq, n_q in [(1_000_000, 1024, 64), (5000, 5, 64), (300, 64, 32), (70_001, 3, 16)]:
+        bn, n_tiles = twophase_geometry(n, block_n)
+        q_tiles = -(-nq // n_q)
+        per, blocks = index_blocks(q_tiles, n_tiles, 132)
+        runs = [range(b * per, min((b + 1) * per, n_tiles)) for b in range(blocks)]
+        assert all(len(r) > 0 for r in runs)
+        assert [t for r in runs for t in r] == list(range(n_tiles))
+        assert q_tiles * blocks <= max(132, q_tiles)
+        # a block's rows are whole tiles: its range starts on a tile edge
+        assert all(r.start * bn < n for r in runs)
