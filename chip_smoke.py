@@ -16,7 +16,8 @@ paths through the public entry points with ``device="cuda"``:
   ``ivf_flat_build`` of 1M x 128 rows from a Gaussian mixture into 1024
   lists, k-means trained on 131,072 sampled rows (K4 assigns), then
   ``ivf_flat_search`` of 1024 queries, k=100, nprobe=32 (K2 probes, K3
-  scans), held against the scan route, its recall@100 against brute force
+  scans the work list of the scan lists grouped by slot, K2 merges),
+  held against the scan route, its recall@100 against brute force
   reported, and a full probe held equal to brute force;
 - the serving layer: ``KNNService`` over the 1M index (k=100,
   L2SqrtExpanded, batches of up to 1024 rows) under 8 submitter threads,
@@ -29,11 +30,20 @@ paths through the public entry points with ``device="cuda"``:
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
-yardstick.  K1 and K6 (3xTF32 on the tensor cores) are also held against
-their plain versions on offset data (100 + N(0, 1)), their rows carry the
-3xTF32 bound beside the float32 FFMA one, and the card's SM clock and
-power draw are read right after the K1 timing.  Any failure raises, and the script exits non-zero without the
-final line.  It needs a CUDA device and the repository beside it.
+yardstick.  K1 and K6 are also held against their plain versions on
+offset data (100 + N(0, 1)) and on uniform [0, 1) data at depth 128;
+K1, K3, K4 and K6 (3xTF32 on the tensor
+cores) carry the 3xTF32 bound beside the float32 FFMA one, and the card's
+SM clock and power draw are read right after the K1 timing.  K3 is held
+against its plain version as a whole and as the kernel alone on the same
+work list, at every check store (one with a slot that every query
+probes, so that it takes several items) and at the search's shape, and
+its row times the inversion of the scan lists, the kernel and K2's merge
+apart.  K4 is checked to d = 300 and m = 9,000, and on a row with no
+finite distance.  K2's row times it at every shape the paths launched it
+at, with their launch-weighted total.  Any failure raises, and the script
+exits non-zero without the final line.  It needs a CUDA device and the
+repository beside it.
 
 Output: the card (``nvidia-smi``), versions, build seconds, one line per
 check, a ``paths`` JSON line (launches and end-to-end milliseconds per
@@ -42,6 +52,7 @@ path), a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import threading
@@ -231,7 +242,8 @@ def main():
     from raft_tpu_torch.core.metrics import default_registry
     from raft_tpu_torch.distance.pairwise import expanded_sq_dists
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
+    from raft_tpu_torch.ops.ivf_tile import (fused_ivf_scan, fused_ivf_scan_plain, item_queries,
+                                             ivf_items, ivf_items_plain, scan_work_list)
     from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
                                              knn_twophase_plain, twophase_geometry,
                                              twophase_tiles, twophase_tiles_plain)
@@ -245,13 +257,18 @@ def main():
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
                 "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
-                "ivf_tile": fused_ivf_scan, "knn_twophase": twophase_tiles}
+                "ivf_tile": ivf_items, "knn_twophase": twophase_tiles}
 
     def reset():
         for w in wrappers.values():
             w.launches = 0
+        select_tile.shapes.clear()
 
-    def counts():
+    k2_shapes = {}    # path: K2's launches by (rows, width, k)
+
+    def counts(path=None):
+        if path is not None:
+            k2_shapes[path] = dict(select_tile.shapes)
         return {name: w.launches for name, w in wrappers.items()}
 
     card = card_line()
@@ -275,32 +292,34 @@ def main():
 
     # 2. each kernel against its plain version; K1 and K6 also on offset
     # data (index and queries OFFSET + N(0, 1)), where the expanded form
-    # cancels most and 3xTF32 must keep float32's accuracy, and at every
-    # query tile: 64 (depth <= 128), 32 (300), 16 with the whole depth
-    # (1000) and in slabs (2000, 4096), and a depth off the multiple of 8
-    # (3, a zero-padded copy)
-    for n, nq, d, k, dup, off in [(10_007, 77, 64, 1, False, 0.0),
-                                  (50_003, 300, 128, 100, False, 0.0),
-                                  (3_001, 129, 300, 128, False, 0.0),
-                                  (4_000, 65, 128, 100, True, 0.0),
-                                  (4_000, 65, 16, 100, False, OFFSET),
-                                  (20_011, 33, 16, 64, False, OFFSET),
-                                  (5_003, 40, 3, 10, False, 0.0),
-                                  (6_007, 37, 1000, 100, False, 0.0),
-                                  (4_001, 21, 2000, 32, False, 0.0),
-                                  (3_003, 50, 4096, 100, False, 0.0)]:
-        x, q = randn(n, d) + off, randn(nq, d) + off
-        if dup:                                  # exact ties: every row twice
+    # cancels most and 3xTF32 must keep float32's accuracy, on uniform
+    # [0, 1) data at the main path's depth, where the tensor cores'
+    # truncating sums drift one way, and at every query tile: 64 (depth
+    # <= 128), 32 (300), 16 with the whole depth (1000) and in slabs (2000,
+    # 4096), and a depth off the multiple of 8 (3, a zero-padded copy)
+    for n, nq, d, k, data in [(10_007, 77, 64, 1, "normal"), (50_003, 300, 128, 100, "normal"),
+                              (3_001, 129, 300, 128, "normal"), (4_000, 65, 128, 100, "dup"),
+                              (4_000, 65, 16, 100, "offset"), (20_011, 33, 16, 64, "offset"),
+                              (50_003, 300, 128, 100, "uniform"), (5_003, 40, 3, 10, "normal"),
+                              (6_007, 37, 1000, 100, "normal"), (4_001, 21, 2000, 32, "normal"),
+                              (3_003, 50, 4096, 100, "normal")]:
+        if data == "uniform":
+            x = torch.rand(n, d, device=dev, generator=gen)
+            q = torch.rand(nq, d, device=dev, generator=gen)
+        else:
+            off = OFFSET if data == "offset" else 0.0
+            x, q = randn(n, d) + off, randn(nq, d) + off
+        if data == "dup":                        # exact ties: every row twice
             x = torch.cat([x[: n // 2], x[: n // 2]])
         got = fused_knn_tile(x, q, k)
         torch.cuda.synchronize()
         ref = knn_tile_plain(x, q, k)
         atol = l2_atol(q, x)
-        err = check_knn("knn_tile n=%d nq=%d d=%d k=%d" % (len(x), nq, d, k),
+        err = check_knn("knn_tile n=%d nq=%d d=%d k=%d %s" % (len(x), nq, d, k, data),
                         *got, *ref, atol)
         errs["knn_tile"] = max(errs["knn_tile"], err)
-        print("check knn_tile n=%d nq=%d d=%d k=%d%s: max err %.3g (atol %.3g)"
-              % (len(x), nq, d, k, " offset %g" % off if off else "", err, atol), flush=True)
+        print("check knn_tile n=%d nq=%d d=%d k=%d %s: max err %.3g (atol %.3g)"
+              % (len(x), nq, d, k, data, err, atol), flush=True)
 
         # K6 at the same shapes, at the smallest block_n and the main path's
         for block_n in (256, TWOPHASE_BLOCK_N):
@@ -319,9 +338,8 @@ def main():
             err = check_knn(name + " k=%d" % k, *got,
                             *knn_twophase_plain(x, q, k, block_n=block_n), atol)
             errs["knn_twophase"] = max(errs["knn_twophase"], err, perr)
-            print("check %s k=%d%s%s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
-                  % (name, k, " dup" if dup else "", " offset %g" % off if off else "",
-                     n_tiles, err, perr, atol), flush=True)
+            print("check %s k=%d %s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
+                  % (name, k, data, n_tiles, err, perr, atol), flush=True)
 
     for m, w, k in [(1000, 3333, 1), (517, 10_001, 100), (64, 129, 128)]:
         keys = randn(m, w)
@@ -347,7 +365,8 @@ def main():
               % (m, n, d, len(METRICS)), flush=True)
 
     for m, n, d, dup in [(1000, 1024, 128, False), (77, 1, 16, False),
-                         (1031, 3001, 300, False), (500, 2000, 33, True)]:
+                         (1031, 3001, 300, False), (500, 2000, 33, True),
+                         (9000, 4096, 300, False)]:
         x, y = randn(m, d), randn(n, d)
         if dup:                                  # exact ties: every row of y twice
             y = torch.cat([y[: n // 2], y[: n // 2]])
@@ -359,19 +378,38 @@ def main():
         errs["nn_tile"] = max(errs["nn_tile"], err)
         print("check nn_tile m=%d n=%d d=%d%s: max err %.3g (atol %.3g)"
               % (m, n, d, " dup" if dup else "", err, atol), flush=True)
+    # K4's own contract: a row with no finite distance (a NaN in x) keeps
+    # (inf, IDX_SENTINEL), as the plain version does
+    x, y = randn(300, 64), randn(700, 64)
+    x[7, 3] = float("nan")
+    got, ref = fused_nn_tile(x, y), nn_tile_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.isinf(got[0][7]) and int(got[1][7]) == int(ref[1][7]) == 2**31 - 1, got
+    keep = torch.arange(300, device=dev) != 7
+    errs["nn_tile"] = max(errs["nn_tile"], check_nn("nn_tile NaN row", got[0][keep], got[1][keep],
+                                                    ref[0][keep], ref[1][keep], x[keep], y,
+                                                    l2_atol(x[keep], y)))
+    print("check nn_tile NaN row: (inf, IDX_SENTINEL), the other rows agree", flush=True)
 
     # slot stores: S slots of cap rows, the last `vacant` rows of each
-    # vacant; scan lists with a short list, an empty one and pad steps
-    for S, cap, d, k, nq, steps, vacant, bf16 in [
-            (6, 24, 10, 5, 7, 4, 3, False), (40, 100, 128, 100, 300, 20, 7, False),
-            (40, 37, 300, 128, 65, 12, 0, False), (40, 37, 300, 128, 65, 12, 0, True),
-            (10, 50, 16, 1, 33, 5, 0, False), (64, 984, 128, 100, 256, 48, 50, True)]:
+    # vacant; scan lists with a short list, an empty one and pad steps; in
+    # the last store every query with a list probes slot 0 first, so that
+    # slot takes several items.  Each case holds the whole function and,
+    # on the same work list, the kernel alone against their plain versions.
+    for S, cap, d, k, nq, steps, vacant, bf16, crowded in [
+            (6, 24, 10, 5, 7, 4, 3, False, False), (40, 100, 128, 100, 300, 20, 7, False, False),
+            (40, 37, 300, 128, 65, 12, 0, False, False), (40, 37, 300, 128, 65, 12, 0, True, False),
+            (10, 50, 16, 1, 33, 5, 0, False, False), (64, 984, 128, 100, 256, 48, 50, True, False),
+            (16, 300, 128, 100, 500, 4, 9, False, True)]:
         sv = torch.rand(S, cap, d, device=dev, generator=gen)
         si = torch.arange(S * cap, dtype=torch.int32, device=dev).reshape(S, cap)
         si[:, cap - vacant:] = -1
         sv[:, cap - vacant:] = 0
         q = torch.rand(nq, d, device=dev, generator=gen)
-        slots = torch.stack([torch.randperm(S, device=dev, generator=gen)[:steps]
+        first = int(crowded)       # slot 0 first in every list, or a random order
+        slots = torch.stack([torch.cat([torch.zeros(first, dtype=torch.int64, device=dev),
+                                        first + torch.randperm(S - first, device=dev,
+                                                               generator=gen)[:steps - first]])
                              for _ in range(nq)]).to(torch.int32)
         slots[0, 2:] = -1
         slots[1] = -1
@@ -384,9 +422,17 @@ def main():
         name = "ivf_tile S=%d cap=%d d=%d k=%d nq=%d%s" % (S, cap, d, k, nq,
                                                           " bf16" if bf16 else "")
         err = check_knn(name, *got, *ref, atol)
-        errs["ivf_tile"] = max(errs["ivf_tile"], err)
-        print("check %s: max err %.3g (atol %.3g), %d deficit slots"
-              % (name, err, atol, int((ref[1] < 0).sum())), flush=True)
+        work = scan_work_list(slots, S, cap, item_queries(d, dev))
+        flat = (q, sv.reshape(S * cap, d), args[2].reshape(-1), si.reshape(-1), work, cap, k,
+                nq * steps, bf16)
+        part, part_ref = ivf_items(*flat), ivf_items_plain(*flat)
+        torch.cuda.synchronize()
+        perr = check_knn(name + " kernel alone", *part, *part_ref, atol)
+        errs["ivf_tile"] = max(errs["ivf_tile"], err, perr)
+        print("check %s: max err %.3g, the kernel alone %.3g (atol %.3g), %d deficit slots, "
+              "%d items of up to %d entries"
+              % (name, err, perr, atol, int((ref[1] < 0).sum()), int(work.n_items), work.n_q),
+              flush=True)
 
     # 3. the main path, through the public entry point
     index, queries = randn(N_INDEX, DIM), randn(N_QUERIES, DIM)
@@ -396,7 +442,8 @@ def main():
     t0 = time.perf_counter()
     dist, ids = brute_force_knn(index, queries, K, D.L2SqrtExpanded, device=dev)
     torch.cuda.synchronize()
-    paths["bfknn_1M"] = {"launches": counts(), "first_call_ms": (time.perf_counter() - t0) * 1e3}
+    paths["bfknn_1M"] = {"launches": counts("bfknn_1M"),
+                         "first_call_ms": (time.perf_counter() - t0) * 1e3}
     assert paths["bfknn_1M"]["launches"]["knn_tile"] > 0, paths
     assert paths["bfknn_1M"]["launches"]["select_tile"] > 0, paths
     assert dist.shape == (N_QUERIES, K) and ids.dtype == torch.int32
@@ -414,7 +461,7 @@ def main():
     reset()
     dist4, ids4 = brute_force_knn(parts, queries, K, D.L2SqrtExpanded, device=dev)
     torch.cuda.synchronize()
-    paths["bfknn_1M_4parts"] = {"launches": counts()}
+    paths["bfknn_1M_4parts"] = {"launches": counts("bfknn_1M_4parts")}
     assert paths["bfknn_1M_4parts"]["launches"]["knn_tile"] >= 4, paths
     assert paths["bfknn_1M_4parts"]["launches"]["select_tile"] > 0, paths
     err = check_knn("bfknn 4 partitions vs 1", dist4 ** 2, ids4, dist ** 2, ids, atol)
@@ -425,7 +472,7 @@ def main():
     reset()
     dist_l1, ids_l1 = brute_force_knn(index_l1, queries, K, D.L1, device=dev)
     torch.cuda.synchronize()
-    paths["bfknn_L1_100k"] = {"launches": counts()}
+    paths["bfknn_L1_100k"] = {"launches": counts("bfknn_L1_100k")}
     assert paths["bfknn_L1_100k"]["launches"]["pairwise_tile"] > 0, paths
     assert paths["bfknn_L1_100k"]["launches"]["select_tile"] > 0, paths
     ref_keys = pairwise_tile_plain(queries[:N_CHECK], index_l1, D.L1)
@@ -438,7 +485,7 @@ def main():
     reset()
     tp_d, tp_i = fused_knn_twophase(index, queries, K, block_n=TWOPHASE_BLOCK_N)
     torch.cuda.synchronize()
-    paths["knn_twophase_1M"] = {"launches": counts(), "block_n": TWOPHASE_BLOCK_N}
+    paths["knn_twophase_1M"] = {"launches": counts("knn_twophase_1M"), "block_n": TWOPHASE_BLOCK_N}
     assert paths["knn_twophase_1M"]["launches"]["knn_twophase"] > 0, paths
     assert paths["knn_twophase_1M"]["launches"]["select_tile"] > 0, paths
     assert tp_d.shape == (N_QUERIES, K) and tp_i.dtype == torch.int32
@@ -475,7 +522,7 @@ def main():
                          train_rows=TRAIN_ROWS, device=dev)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
-    launched = counts()
+    launched = counts("ivf_build_1M")
     # K4 runs every k-means assignment: the first, then one per Lloyd iteration
     paths["ivf_build_1M"] = {"launches": launched, "ms": build_ms,
                              "kmeans_iters": launched["nn_tile"] - 1,
@@ -492,7 +539,7 @@ def main():
     reset()
     ivf_d, ivf_i = ivf_flat_search(ivf, ivf_q, K, device=dev)
     torch.cuda.synchronize()
-    paths["ivf_search_1M"] = {"launches": counts()}
+    paths["ivf_search_1M"] = {"launches": counts("ivf_search_1M")}
     assert paths["ivf_search_1M"]["launches"]["ivf_tile"] > 0, paths
     assert paths["ivf_search_1M"]["launches"]["select_tile"] > 0, paths
     assert ivf_d.shape == (N_QUERIES, K) and ivf_i.dtype == torch.int32
@@ -531,7 +578,7 @@ def main():
     reset()
     futs, wall_ms = serve_concurrently(svc, blocks, SERVE_THREADS)
     torch.cuda.synchronize()
-    launched = counts()
+    launched = counts("serve_knn_1M")
     after_warmup = svc.kernel_libraries_after_warmup()
     svc.close()
     assert launched["knn_tile"] > 0 and launched["select_tile"] > 0, launched
@@ -567,7 +614,7 @@ def main():
         reset()
         futs, wall_ms = serve_concurrently(svc, blocks, 4)
         torch.cuda.synchronize()
-        launched = counts()
+        launched = counts("serve_pairwise" if metric == D.L1 else None)
         svc.close()
         by_trace = {f.trace().trace_id: (b, f.result(timeout=0)) for b, f in zip(blocks, futs)}
         err = 0.0
@@ -660,6 +707,23 @@ def main():
         "plain_ms": time_ms(lambda: select_tile_plain(keys, K), reps=3),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.topk(keys, K, dim=1, largest=False), reps=5)})
+    # K2 at every shape the paths launched it at (merges of K1's splits and
+    # of partitions, the two-phase and IVF merges, the probe, the L1
+    # select), timed on normal keys: the launch-weighted total is what the
+    # paths spend in it
+    k2_all = Counter()
+    for shp in k2_shapes.values():
+        k2_all.update(shp)
+    k2_rows = []
+    for (m, w, k), n_launch in sorted(k2_all.items()):
+        k2_keys = randn(m, w)
+        k2_rows.append({"rows": m, "width": w, "k": k, "launches": n_launch,
+                        "ms": time_ms(lambda: select_tile(k2_keys, k), reps=5),
+                        "bound_ms": bound(1.0 * m * w, 4.0 * m * w + 8.0 * m * k)[0]})
+        del k2_keys
+    rows[-1]["shapes"] = k2_rows
+    rows[-1]["launch_weighted_ms"] = sum(r["launches"] * r["ms"] for r in k2_rows)
+    rows[-1]["launch_weighted_bound_ms"] = sum(r["launches"] * r["bound_ms"] for r in k2_rows)
 
     ref_keys = pairwise_tile_plain(queries, index_l1, D.L1)
     errs["pairwise_tile"] = max(errs["pairwise_tile"], (keys - ref_keys).abs().max().item())
@@ -689,7 +753,8 @@ def main():
         return torch.min(xn[:, None] + cn[None, :] - 2.0 * (xs @ cents.T), dim=1)
 
     m, n = xs.shape[0], cents.shape[0]
-    b, by = bound(2.0 * m * n * DIM, 4.0 * (m + n) * DIM + 8.0 * m)
+    nn_ops, nn_bytes = 2.0 * m * n * DIM, 4.0 * (m + n) * DIM + 8.0 * m
+    b, by = bound_tf32x3(nn_ops, nn_bytes)
     rows.append({
         "name": "nn_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/nn_tile.cu",
         "replaces": "raft_tpu/ops/nn_tile.py:151",
@@ -697,7 +762,7 @@ def main():
         "launches": launches["nn_tile"], "max_abs_err": errs["nn_tile"],
         "ms": time_ms(lambda: fused_nn_tile(xs, cents), reps=10),
         "plain_ms": time_ms(lambda: nn_tile_plain(xs, cents), reps=5),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(nn_ops, nn_bytes)[0],
         "library_ms": time_ms(l2_min, reps=5),
         "library": "composition: expanded-L2 matmul + torch.min(dim=1)"})
 
@@ -709,35 +774,61 @@ def main():
     print("check select_tile at the probe, keys %dx%d k=%d: exact"
           % (*probe_keys.shape, NPROBE), flush=True)
 
-    # K3 at the search's scan lists
+    # K3 at the search's scan lists: the whole function, and its three
+    # steps apart (the inversion into a work list, the kernel, K2's merge)
     slots, _ = _probe_compact(ivf_q, ivf.centroids, ivf.cent_slots, NPROBE)
     scan_args = (ivf_q, ivf.slot_vecs, ivf.slot_norms, ivf.slot_ids, slots, K)
     got, ref = fused_ivf_scan(*scan_args), fused_ivf_scan_plain(*scan_args)
     errs["ivf_tile"] = max(errs["ivf_tile"], check_knn("ivf_tile at the search's shape",
                                                        *got, *ref, ivf_atol))
+    S, cap = ivf.slot_ids.shape
+    n_steps = slots.shape[1]
+    n_q = item_queries(DIM, dev)
+    work = scan_work_list(slots, S, cap, n_q)
+    flat = (ivf_q, ivf.slot_vecs.reshape(S * cap, DIM), ivf.slot_norms.reshape(-1),
+            ivf.slot_ids.reshape(-1), work, cap, K, N_QUERIES * n_steps)
+    part = ivf_items(*flat)
+    errs["ivf_tile"] = max(errs["ivf_tile"], check_knn("ivf_tile kernel alone at the search's "
+                                                       "shape", *part, *ivf_items_plain(*flat),
+                                                       ivf_atol))
+
+    def merge():
+        d, pos = select_tile(part[0].view(N_QUERIES, -1), K)
+        return d, torch.gather(part[1].view(N_QUERIES, -1), 1, pos.long())
+
     # the work these lists need: every stored row of each listed slot, once
     # per query (operations); the distinct slots of the batch, each read
-    # once (least bytes), beside the bytes of reading them per query
+    # once (least bytes), beside the bytes of reading them per query and
+    # once per item
     rows_in_slot = (ivf.slot_ids >= 0).sum(dim=1)
     live = slots >= 0
     rows_scanned = int(rows_in_slot[slots[live].long()].sum())
     rows_distinct = int(rows_in_slot[torch.unique(slots[live].long())].sum())
     row_bytes = 4.0 * DIM + 8.0                  # vector, norm, id
     io_bytes = 4.0 * N_QUERIES * DIM + 4.0 * slots.numel() + 8.0 * N_QUERIES * K
-    b, by = bound(2.0 * DIM * rows_scanned, rows_distinct * row_bytes + io_bytes)
+    n_items = int(work.n_items)
+    scan_ops = 2.0 * DIM * rows_scanned
+    b, by = bound_tf32x3(scan_ops, rows_distinct * row_bytes + io_bytes)
     rows.append({
         "name": "ivf_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/ivf_tile.cu",
         "replaces": "raft_tpu/ops/ivf_tile.py:230",
-        "shape": "%d queries x %d scan steps (%d live at most), slots of %d x %d f32, k=%d"
-                 % (N_QUERIES, slots.shape[1], int(live.sum(1).max()), ivf.slot_vecs.shape[1],
-                    DIM, K),
+        "shape": "%d queries x %d scan steps (%d live at most, %d live in all), slots of %d x %d "
+                 "f32, k=%d; %d items of up to %d entries"
+                 % (N_QUERIES, n_steps, int(live.sum(1).max()), int(live.sum()), cap, DIM, K,
+                    n_items, n_q),
         "launches": launches["ivf_tile"], "max_abs_err": errs["ivf_tile"],
         "ms": time_ms(lambda: fused_ivf_scan(*scan_args), reps=5),
+        "glue_ms": time_ms(lambda: scan_work_list(slots, S, cap, n_q), reps=5),
+        "kernel_ms": time_ms(lambda: ivf_items(*flat), reps=5),
+        "merge_ms": time_ms(merge, reps=5),
         "plain_ms": time_ms(lambda: fused_ivf_scan_plain(*scan_args), reps=2),
         "bound_ms": b, "bound_by": by,
+        "bound_fp32_ms": bound(scan_ops, rows_distinct * row_bytes + io_bytes)[0],
         "library_ms": None, "library": "none: no single PyTorch call scans an IVF list",
         "bf16_ms": time_ms(lambda: fused_ivf_scan(*scan_args, accum_bf16=True), reps=5),
+        "bf16_kernel_ms": time_ms(lambda: ivf_items(*flat, accum_bf16=True), reps=5),
         "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
+        "item_bytes": n_items * cap * row_bytes + io_bytes,
         "per_query_bytes": rows_scanned * row_bytes + io_bytes})
 
     # K6 at the two-phase path's shape: the whole call and phase 1 alone

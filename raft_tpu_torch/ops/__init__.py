@@ -7,7 +7,8 @@ counts its launches in a ``launches`` attribute.
 
 - K1 :func:`~raft_tpu_torch.ops.knn_tile.fused_knn_tile`
 - K2 :func:`~raft_tpu_torch.ops.select_tile.select_tile`
-- K3 :func:`~raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`
+- K3 :func:`~raft_tpu_torch.ops.ivf_tile.ivf_items` (the scan of
+  :func:`~raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`, over its work list)
 - K4 :func:`~raft_tpu_torch.ops.nn_tile.fused_nn_tile`
 - K5 :func:`~raft_tpu_torch.ops.pairwise_tile.pairwise_tile`
 - K6 :func:`~raft_tpu_torch.ops.knn_tile.twophase_tiles` (phase 1 of

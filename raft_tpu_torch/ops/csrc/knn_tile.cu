@@ -43,8 +43,8 @@ extern "C" int knn_tile_launch(const void* Q, const void* X, const void* qn,
   if (rows_per_split < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int n_splits = (n + rows_per_split - 1) / rows_per_split;
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
-            nq, n, d, k, rows_per_split, 1, n_splits, (float*)out_d, (int*)out_i};
-  return (int)launch<false>(n_splits, (cudaStream_t)stream, a);
+            nq, n, d, k, rows_per_split, 1, n_splits, (float*)out_d, (int*)out_i, {}};
+  return (int)launch<kSplits>(n_splits, (cudaStream_t)stream, a);
 }
 
 // The block geometry, for the wrapper and the tools, so that it is

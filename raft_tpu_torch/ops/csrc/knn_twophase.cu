@@ -66,6 +66,6 @@ extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
   int per_block, blocks;
   index_blocks((nq + n_q - 1) / n_q, n_tiles, sms, &per_block, &blocks);
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
-            nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i};
-  return (int)launch<true>(blocks, (cudaStream_t)stream, a);
+            nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i, {}};
+  return (int)launch<kTileParts>(blocks, (cudaStream_t)stream, a);
 }

@@ -119,6 +119,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = tf32_rna(x - __uint_as_float(big));
 }
 
+// Round a float32 to bfloat16, to nearest even, as the bits of a float32
+// with the low 16 zero (torch's rounding for finite values).  A bfloat16
+// value is a TF32 value, so its TF32 small half is 0 and the tensor cores
+// take it exactly; the volatile asm is tf32_rna's.
+__device__ __forceinline__ uint32_t bf16_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  uint32_t r = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  asm volatile("" : "+r"(r));
+  return r;
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // Descriptor of a K-major operand without swizzle: 8-row x 16-byte core

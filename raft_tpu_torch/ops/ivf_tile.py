@@ -1,4 +1,5 @@
-"""K3: one-pass IVF-Flat probe scan, ``csrc/ivf_tile.cu``.
+"""K3: the IVF-Flat probe scan, queries grouped by probed slot,
+``csrc/ivf_tile.cu``.
 
 Port of ``raft_tpu/ops/ivf_tile.py:fused_ivf_scan``: per query, walk its
 compacted scan list (``slots``, the valid-first -1-padded output of
@@ -9,27 +10,52 @@ k <= 128.  Ties resolve to the earlier scan position (step, then row).
 Returns squared distances ascending and global int32 ids, (+inf, -1)
 where fewer than k candidates exist.
 
-``accum_bf16=True`` rounds the query and the slot vectors to bfloat16
-as the kernel loads them and sums the products in float32; norms and
-every select operation stay float32, as in JAX.  The JAX kernel casts a
-padded copy of the whole store instead (``_pad_slot_store``); here the
-store is read as it is, in place.  The JAX ``knn_tile_merge`` knob has
-no counterpart (the warp top-k of ``csrc/warp_select.cuh`` is the one
-selection core).
+:func:`fused_ivf_scan` runs three steps, all on the tensors' device:
 
-One block scans one query's whole list, so a batch of few queries fills
-few SMs; the list is not split across blocks.
+1. :func:`scan_work_list` inverts the scan lists with torch ops: the live
+   (query, step) entries, stable-sorted by slot (queries ascending), cut
+   into items of at most ``n_q`` entries of one slot (16 at the main
+   path's depth: the kernel is bound by its selection, and sixteen
+   entries keep each of its selection warps on one), with each entry's
+   output row.  The item table is
+   sized from the shapes and the count in use stays on the device, so
+   the host never waits for the card.
+2. :func:`ivf_items` runs the kernel over the items: each entry's top-k
+   with global ids, in its own row of an (nq * n_steps, k) buffer
+   prefilled with (+inf, -1).  A slot's rows are read once per item.
+3. K2 (:func:`raft_tpu_torch.ops.select_tile.select_tile`) merges each
+   query's n_steps * k columns and the ids are gathered.  The columns are
+   step-major and K2 keeps the smaller column on ties, so ties resolve to
+   the earlier step, then the smaller row.
+
+On the CPU the same steps run with :func:`ivf_items_plain` in the
+kernel's place (and K2's plain version), so the CPU tests hold the glue
+that the card runs against the JAX package; :func:`fused_ivf_scan_plain`
+is the plain version of the whole function.
+
+``accum_bf16=True`` rounds the query and the slot vectors to bfloat16
+(the kernel does it where it splits its operands) and sums the products
+in float32; norms and every select operation stay float32, as in JAX.
+The JAX kernel casts a padded copy of the whole store instead
+(``_pad_slot_store``); here the store is read in place, and copied only
+where its depth is not a multiple of 8.  The JAX ``knn_tile_merge`` knob
+has no counterpart (the warp top-k of ``csrc/warp_select.cuh`` is the one
+selection core).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops.knn_tile import DEPTH_UNIT, pad_depth
+from raft_tpu_torch.ops.select_tile import select_tile
 
 MAX_K = 128
 
@@ -72,6 +98,125 @@ def fused_ivf_scan_plain(queries: torch.Tensor, slot_vecs: torch.Tensor,
     return best_d.contiguous(), best_i.contiguous()
 
 
+class ScanWork(NamedTuple):
+    """The work list of the scan lists, grouped by slot (module doc)."""
+    items: torch.Tensor     # (max_items, 4) int32: first entry, entries, first store row, 0
+    n_items: torch.Tensor   # (1,) int32: the items in use, the first n_items rows
+    out_rows: torch.Tensor  # (nq * n_steps,) int32: each entry's output row, q * n_steps + step
+    n_steps: int            # the scan steps of a query: an entry's query is out_row // n_steps
+    n_q: int                # entries an item holds at most
+
+
+def scan_work_list(slots: torch.Tensor, n_slots: int, cap: int, n_q: int) -> ScanWork:
+    """Invert the scan lists ``slots`` (nq, n_steps) into items of at most
+    ``n_q`` entries of one slot, with torch ops on the slots' device.
+
+    The entries, in the order of a stable sort by slot of the flat
+    (query, step) positions, are the live ones first (queries ascending
+    within a slot), then the pad steps, which no item names.  Item ``i``
+    holds entries ``[e0, e0 + count)`` of that order, all of slot ``s``,
+    whose rows start at ``s * cap`` of the (n_slots * cap, d) store.  The
+    table has a row for the most items the shapes allow,
+    ``min(E, n_slots + E // n_q)`` with ``E = nq * n_steps``; only the
+    first ``n_items`` are in use.  Few ops, all int32 where they can be:
+    each costs host time that the card waits for.
+    """
+    nq, n_steps = slots.shape
+    e_max = nq * n_steps
+    n_max = max(1, min(e_max, n_slots + e_max // n_q))
+    # a pad step (-1) sorts last: -1 mod (n_slots + 1) is n_slots
+    key, order = torch.sort(slots.reshape(-1).remainder(n_slots + 1), stable=True)
+    ramp = torch.arange(max(n_slots + 1, n_max), dtype=torch.int32, device=slots.device)
+    # each slot's first entry; the last bound is the count of live entries
+    bounds = torch.searchsorted(key, ramp[:n_slots + 1], out_int32=True)
+    per_slot = (bounds[1:] - bounds[:-1] + (n_q - 1)).div(n_q, rounding_mode="floor")
+    end = per_slot.cumsum(0, dtype=torch.int32)
+    s = torch.searchsorted(end, ramp[:n_max], right=True, out_int32=True).clamp_(max=n_slots - 1)
+    # item i of slot s starts at entry bounds[s] + (i - first item of s) n_q
+    e0 = (bounds[:-1] - (end - per_slot) * n_q)[s] + ramp[:n_max] * n_q
+    count = (bounds[1:][s] - e0).clamp_(0, n_q)
+    items = torch.stack([e0, count, s * cap, torch.zeros_like(s)], dim=1)
+    return ScanWork(items, end[-1:], order.to(torch.int32), n_steps, n_q)
+
+
+def ivf_items_plain(queries: torch.Tensor, store: torch.Tensor, norms: torch.Tensor,
+                    ids: torch.Tensor, work: ScanWork, cap: int, k: int, n_out: int,
+                    accum_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the K3 kernel: for each item in use, the
+    distances of its entries' queries to the ``cap`` rows of its slot
+    (the products as :func:`fused_ivf_scan_plain` takes them), vacant
+    rows masked, and each entry's first k of a stable sort, with global
+    ids, in its output row of an (n_out, k) buffer of (+inf, -1)."""
+    q = queries.to(torch.float32)
+    qn = (q * q).sum(dim=1)
+    if accum_bf16:
+        q = _bf16(q)
+    inf = float("inf")
+    out_d = torch.full((n_out, k), inf, dtype=torch.float32, device=q.device)
+    out_i = torch.full((n_out, k), -1, dtype=torch.int32, device=q.device)
+    kk = min(k, cap)
+    for e0, count, row0, _ in work.items[:int(work.n_items)].tolist():
+        rows = work.out_rows[e0:e0 + count].long()
+        qr = rows // work.n_steps
+        vecs = store[row0:row0 + cap].to(torch.float32)
+        if accum_bf16:
+            vecs = _bf16(vecs)
+        dot = torch.bmm(vecs.expand(count, cap, -1).contiguous(), q[qr][:, :, None])[:, :, 0]
+        dist = torch.clamp(qn[qr][:, None] + norms[row0:row0 + cap] - 2.0 * dot, min=0.0)
+        gid = ids[row0:row0 + cap]
+        vals, pos = torch.sort(torch.where(gid >= 0, dist, inf), dim=1, stable=True)
+        vals, pos = vals[:, :kk], pos[:, :kk]
+        fin = vals < inf
+        out_d[rows, :kk] = torch.where(fin, vals, inf)
+        out_i[rows, :kk] = torch.where(fin, gid[pos], -1).to(torch.int32)
+    return out_d, out_i
+
+
+def ivf_items(queries: torch.Tensor, store: torch.Tensor, norms: torch.Tensor,
+              ids: torch.Tensor, work: ScanWork, cap: int, k: int, n_out: int,
+              accum_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K3 kernel over the work list: queries (nq, d) float32, the slot
+    store flat (store (S * cap, d) float32, norms (S * cap,) float32, ids
+    (S * cap,) int32, -1 vacant).  Returns the (n_out, k) float32 and
+    int32 buffer of each entry's top-k (+inf, -1 in rows no entry names).
+    A CUDA tensor launches ``csrc/ivf_tile.cu``; a CPU tensor takes
+    :func:`ivf_items_plain`."""
+    if queries.device.type == "cpu":
+        return ivf_items_plain(queries, store, norms, ids, work, cap, k, n_out, accum_bf16)
+    fn = _entry()
+    dev = queries.device
+    dp = ceildiv(queries.shape[1], DEPTH_UNIT) * DEPTH_UNIT
+    qn = (queries * queries).sum(dim=1)
+    x = pad_depth(store.contiguous(), dp)
+    q = pad_depth(queries.contiguous(), dp)
+    args = [t.contiguous() for t in (norms, ids, work.items, work.n_items, work.out_rows)]
+    out_d = torch.full((n_out, k), float("inf"), dtype=torch.float32, device=dev)
+    out_i = torch.full((n_out, k), -1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), qn.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in args],
+                  q.shape[0], work.n_steps, x.shape[0], dp, cap, work.items.shape[0], work.n_q, k,
+                  int(bool(accum_bf16)), out_d.data_ptr(), out_i.data_ptr(), stream)
+    _build.check(code, "ivf_items")
+    ivf_items.launches += 1
+    return out_d, out_i
+
+
+ivf_items.launches = 0
+
+
+def item_queries(d: int, device: torch.device) -> int:
+    """Entries an item holds at depth ``d``: the kernel's choice
+    (``csrc/ivf_tile.cu:ivf_block_q``) on the card, and on the CPU the
+    card's choice at the main path's depth, 16."""
+    if device.type == "cpu":
+        return 16
+    fn = _build.load("ivf_tile").ivf_block_q
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(ceildiv(d, DEPTH_UNIT) * DEPTH_UNIT)
+
+
 def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
                    slot_norms: torch.Tensor, slot_ids: torch.Tensor,
                    slots: torch.Tensor, k: int,
@@ -81,8 +226,8 @@ def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
     queries (nq, d) float32; slot_vecs (S, cap, d) float32; slot_norms
     (S, cap) float32 squared norms; slot_ids (S, cap) int32, -1 vacant;
     slots (nq, n_steps) int32 slot indices, -1 padded.  Returns (nq, k)
-    float32 ascending and (nq, k) int32.  A CUDA tensor launches the
-    kernel; a CPU tensor takes :func:`fused_ivf_scan_plain`.
+    float32 ascending and (nq, k) int32.  CUDA tensors launch the kernel
+    and K2; CPU tensors take their plain versions.
     """
     expects(queries.ndim == 2 and slot_vecs.ndim == 3
             and queries.shape[1] == slot_vecs.shape[2],
@@ -101,38 +246,30 @@ def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
             "fused_ivf_scan: float32 queries, vectors and norms required")
     expects(slot_ids.dtype == torch.int32 and slots.dtype == torch.int32,
             "fused_ivf_scan: int32 ids and slots required")
-    expects(n_steps * cap < 2**31, "fused_ivf_scan: scan positions overflow int32")
+    expects(S * cap < 2**31 and nq * n_steps < 2**31,
+            "fused_ivf_scan: store rows or scan entries overflow int32")
     dev = queries.device
     expects(all(t.device == dev for t in (slot_vecs, slot_norms, slot_ids, slots)),
             "fused_ivf_scan: inputs on different devices")
-    if dev.type == "cpu":
-        return fused_ivf_scan_plain(queries, slot_vecs, slot_norms, slot_ids, slots, k,
-                                    accum_bf16)
-    fn = _entry()
+    n_q = item_queries(d, dev)
     if nq == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
     expects(d > 0 and cap > 0, "fused_ivf_scan: empty slots")
-    queries = queries.contiguous()
-    qn = (queries * queries).sum(dim=1)
-    args = [t.contiguous() for t in (slot_vecs, slot_norms, slot_ids, slots)]
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(queries.data_ptr(), qn.data_ptr(), *[t.data_ptr() for t in args],
-                  nq, d, cap, n_steps, k, int(bool(accum_bf16)),
-                  out_d.data_ptr(), out_i.data_ptr(), stream)
-    _build.check(code, "fused_ivf_scan")
-    fused_ivf_scan.launches += 1
-    return out_d, out_i
-
-
-fused_ivf_scan.launches = 0
+    # one profiler range a step, so that a trace splits the function's time
+    with record_function("fused_ivf_scan.work_list"):
+        work = scan_work_list(slots, S, cap, n_q)
+    with record_function("fused_ivf_scan.kernel"):
+        part_d, part_i = ivf_items(queries, slot_vecs.reshape(S * cap, d),
+                                   slot_norms.reshape(-1), slot_ids.reshape(-1), work, cap, k,
+                                   nq * n_steps, accum_bf16)
+    with record_function("fused_ivf_scan.merge"):
+        out_d, pos = select_tile(part_d.view(nq, n_steps * k), k)
+        return out_d, torch.gather(part_i.view(nq, n_steps * k), 1, pos.long())
 
 
 def _entry():
     fn = _build.load("ivf_tile").ivf_tile_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn

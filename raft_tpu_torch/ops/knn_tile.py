@@ -121,10 +121,12 @@ def prepare_operands(index: torch.Tensor, queries: torch.Tensor
     qn = (queries * queries).sum(dim=1)
     xn = (index * index).sum(dim=1)
     dp = ceildiv(index.shape[1], DEPTH_UNIT) * DEPTH_UNIT
-    return _padded(index, dp), _padded(queries, dp), qn, xn
+    return pad_depth(index, dp), pad_depth(queries, dp), qn, xn
 
 
-def _padded(t: torch.Tensor, dp: int) -> torch.Tensor:
+def pad_depth(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` (rows, d), or a zero-padded copy of depth ``dp`` where its
+    depth differs or its rows are not 16-byte aligned."""
     if t.shape[1] == dp and t.data_ptr() % 16 == 0:
         return t
     out = t.new_zeros((t.shape[0], dp))

@@ -2,16 +2,20 @@
 
 Port of ``raft_tpu/ops/nn_tile.py:fused_nn_tile``: per row of x, the
 minimum of ``max(xn + yn - 2 x.y, 0)`` over the rows of y and its int32
-index, float32 inputs, distances in full float32 (the JAX
-``precision="highest"`` contract).  Ties resolve to the smaller index; a
-row with no finite distance keeps ``(inf, IDX_SENTINEL)``.  An empty y is
-rejected.  The norms are computed here with torch ops, as
-``pad_with_norms`` computes them outside the Pallas call.
+index, float32 inputs, distances float32-faithful (the JAX
+``precision="highest"`` contract, met in 3xTF32 on the tensor cores as
+K1 meets it).  Ties resolve to the smaller index; a row with no finite
+distance keeps ``(inf, IDX_SENTINEL)``, and a NaN distance is never
+taken.  An empty y is rejected.  The norms are computed here with torch
+ops, as ``pad_with_norms`` computes them outside the Pallas call, and
+:func:`raft_tpu_torch.ops.knn_tile.prepare_operands` pads a copy of x
+and y where the depth is not a multiple of 8.
 
-The JAX kernel's (bm, 128) lane-strided running minimum and its 128 -> 1
-reduction in XLA have no counterpart: on the card each block reduces its
-rows to one (value, index) pair itself (the source note of
-``csrc/nn_tile.cu``).  Its ``nn_block_n`` knob is a constant here.
+The kernel is the fused kNN body of K1 (``csrc/knn_tile.cuh``) at k = 1,
+walking tiles of x as a work list (the source note of
+``csrc/nn_tile.cu``).  The JAX kernel's (bm, 128) lane-strided running
+minimum and its 128 -> 1 reduction in XLA have no counterpart, and its
+``nn_block_n`` knob none either.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops.knn_tile import prepare_operands
 
 IDX_SENTINEL = 2**31 - 1
 
@@ -74,13 +79,10 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
     if m == 0:
         return out_v, out_i
     expects(d > 0, "fused_nn_tile: zero depth")
-    x = x.contiguous()
-    y = y.contiguous()
-    xn = (x * x).sum(dim=1)
-    yn = (y * y).sum(dim=1)
+    y, x, xn, yn = prepare_operands(y, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, d,
+        code = fn(x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, x.shape[1],
                   out_v.data_ptr(), out_i.data_ptr(), stream)
     _build.check(code, "fused_nn_tile")
     fused_nn_tile.launches += 1

@@ -16,6 +16,7 @@ a warp's shuffles have no such variants, so it has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -59,10 +60,13 @@ def select_tile(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
                   stream)
     _build.check(code, "select_tile")
     select_tile.launches += 1
+    select_tile.shapes[(m, w, k)] += 1
     return out_k, out_i
 
 
 select_tile.launches = 0
+# launches by (rows, width, k): the merges and probes of a path differ in shape
+select_tile.shapes = Counter()
 
 
 def _entry():

@@ -22,9 +22,11 @@ card), concatenate the probed lists' slots, and move the valid ones to
 the front by a stable sort (``_probe_compact``).  Then one of two scans
 with one contract:
 
-- ``scan_impl="kernel"``: K3 (:func:`raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`),
-  the whole scan and its running top-k in one kernel; ``"kernel_bf16"``
-  rounds the multiplicands to bfloat16.  Legal for float32 queries and
+- ``scan_impl="kernel"``: K3 (:func:`raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`):
+  the scan lists grouped by probed slot into a work list, one kernel
+  launch over it that reads each slot once per group of queries, and K2
+  merging each query's steps; ``"kernel_bf16"`` rounds the
+  multiplicands to bfloat16.  Legal for float32 queries and
   store and k <= 128 (the metrics are all of the L2 family); an explicit
   request outside that raises.
 - ``scan_impl="scan"``: one step per slot: gather the slot of every
@@ -348,7 +350,8 @@ def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots
         expects(legal, "ivf_flat_search: scan_impl=%r needs float32 queries and store, "
                 "k <= %d and an L2 metric (got %s, %s, k=%d)", scan_impl, MAX_K,
                 q.dtype, slot_vecs.dtype, k)
-        slots, _ = _probe_compact(q, centroids, cent_slots, nprobe)
+        with record_function("ivf_flat_search.probe"):
+            slots, _ = _probe_compact(q, centroids, cent_slots, nprobe)
         dist, ids = fused_ivf_scan(q, slot_vecs, slot_norms.to(torch.float32), slot_ids,
                                    slots, k, accum_bf16=scan_impl == "kernel_bf16")
         if metric in _SQRT_METRICS:

@@ -1,6 +1,7 @@
-"""The arithmetic of K1's and K6's tensor-core distance tile, in numpy:
-TF32 rounding, the big/small split, and dot products in 3xTF32 or in one
-TF32 pass (float32 sums of exact products of TF32 values)."""
+"""The arithmetic of the tensor-core distance tile of K1, K3, K4 and K6,
+in numpy: TF32 and bfloat16 rounding, the big/small split, and dot
+products in 3xTF32 or in one TF32 pass (float32 sums of exact products of
+TF32 values), and 3xTF32 with the tensor cores' truncating sums."""
 
 import numpy as np
 
@@ -13,6 +14,15 @@ def tf32_round(x):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+def bf16_round(x):
+    """Round float32 to bfloat16 (7 mantissa bits), to nearest even, as
+    float32 values: K3's ``accum_bf16`` operands (``sm90.cuh:bf16_rne``,
+    torch's rounding)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    odd = (bits >> np.uint32(16)) & np.uint32(1)
+    return ((bits + np.uint32(0x7FFF) + odd) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
 def split_tf32(x):
     """``(big, small)``: big = tf32(x), small = tf32(x - big), so that
     big + small is x to about 2^-22 relative."""
@@ -20,13 +30,41 @@ def split_tf32(x):
     return big, tf32_round(np.asarray(x, np.float32) - big)
 
 
-def dots_tf32x3(queries, index):
+def _toward_zero(v):
+    """float64 values to float32, rounded toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def dots_tf32x3(queries, index, acc=None):
     """(nq, n) dot products in 3xTF32: small*big + big*small first, then
-    big*big, summed in float32.  A product of two TF32 values is exact in
-    float32, so each pass is a float32 matmul of the halves."""
+    big*big.  A product of two TF32 values is exact in float32, so with
+    ``acc=None`` each pass is a float32 matmul of the halves (sums rounded
+    to nearest).  ``acc="one"`` and ``acc="split"`` sum as the tensor
+    cores do: each wgmma adds the exact sum of its eight products (one k8
+    step) into a float32 accumulator, truncated toward zero; "one" puts
+    the three wgmmas of a step into one accumulator, "split" the two small
+    ones into an accumulator of their own, added to the dot product's at
+    the end (``csrc/knn_tile.cuh``)."""
     qb, qs = split_tf32(queries)
     xb, xs = split_tf32(index)
-    return (qb @ xs.T + qs @ xb.T) + qb @ xb.T
+    if acc is None:
+        return (qb @ xs.T + qs @ xb.T) + qb @ xb.T
+    assert acc in ("one", "split"), acc
+    qb, qs, xb, xs = (a.astype(np.float64) for a in (qb, qs, xb, xs))
+    big = np.zeros((len(qb), len(xb)), np.float32)
+    small = big if acc == "one" else np.zeros_like(big)
+    for s in range(0, qb.shape[1], 8):
+        k8 = slice(s, s + 8)
+        small = _toward_zero(small + qs[:, k8] @ xb[:, k8].T)
+        small = _toward_zero(small + qb[:, k8] @ xs[:, k8].T)
+        if acc == "one":
+            big = small = _toward_zero(small + qb[:, k8] @ xb[:, k8].T)
+        else:
+            big = _toward_zero(big + qb[:, k8] @ xb[:, k8].T)
+    return big if acc == "one" else big + small
 
 
 def dots_tf32(queries, index):
@@ -45,3 +83,16 @@ def knn_from_dots(queries, index, dots, k):
     dist = np.maximum(qn + xn - np.float32(2.0) * dots.astype(np.float32), np.float32(0.0))
     order = np.argsort(dist, axis=1, kind="stable")[:, :k]
     return np.take_along_axis(dist, order, axis=1), order.astype(np.int32)
+
+
+def nn_from_dots(x, y, dots):
+    """Per row of x, the smallest ``max(xn + yn - 2 dots, 0)`` in float32
+    and its index, ties to the smaller index: K4's output from the given
+    dot products."""
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    xn = (x * x).sum(axis=1, dtype=np.float32)[:, None]
+    yn = (y * y).sum(axis=1, dtype=np.float32)[None, :]
+    dist = np.maximum(xn + yn - np.float32(2.0) * dots.astype(np.float32), np.float32(0.0))
+    idx = np.argmin(dist, axis=1)        # the first index among equal minima
+    return dist[np.arange(len(x)), idx], idx.astype(np.int32)

@@ -19,7 +19,7 @@ from raft_tpu_torch import RaftError
 from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain, ivf_items
 from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
                                          twophase_tiles, twophase_tiles_plain)
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
@@ -120,7 +120,7 @@ def _no_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
 
 
-WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, fused_ivf_scan,
+WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, ivf_items,
             twophase_tiles)
 
 

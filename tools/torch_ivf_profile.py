@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the IVF-Flat paths of raft_tpu_torch goes on the card.
 
-    python3 tools/torch_ivf_profile.py [--out build/ivf_profile]
+    python3 tools/torch_ivf_profile.py [--out build/ivf_profile] [--widths 64,32,16]
 
 Draws the Gaussian mixture of ``chip_smoke.py`` on the card (1M x 128,
 256 blobs, spread 0.35, seed 0; the last 1024 rows are the queries), then
@@ -13,20 +13,33 @@ for ``ivf_flat_build`` (nlist 1024, train_rows 131,072) and
 - a ``torch.profiler`` trace of one build and of five searches.  From the
   trace alone: the traced window, the device's busy time in it (the union
   of its kernel, copy and fill intervals) and so its idle share, and the
-  device time by kernel.  The build's stages are the named ranges that
-  ``ivf_flat_build`` and ``kmeans`` open (``ivf_flat_build.*``,
-  ``kmeans.*``): for each, the host time of the range, the device busy
-  time of the work launched inside it, and its span (range start to the
-  end of the later of the range and its last device interval).  The
+  device time by kernel.  The stages are the named ranges that the entry
+  points open: the build's (``ivf_flat_build.*``, ``kmeans.*``) and the
+  search's probe (``ivf_flat_search.probe``) and the three steps of K3
+  (``fused_ivf_scan.work_list``, the inversion of the scan lists by torch
+  ops; ``.kernel``; ``.merge``, K2 and the id gather).  For each: the
+  host time of the range, the device busy time of the work launched
+  inside it, and its span (range start to the end of the later of the
+  range and its last device interval); the search's are per search.  The
   profiler slows the host side, so the traced stages are longer than in
-  an untraced build.
+  an untraced run.
 
-Prints the card (``nvidia-smi``) and one JSON line per path; the traces go
-to ``--out``.  Needs a CUDA device; imports nothing of JAX.
+Then, by CUDA events (median of 5 after a warm-up): the whole
+``fused_ivf_scan`` at the search's scan lists, and K4 at the build's
+assignment (the training rows against the centroids); and for each
+work-item width of ``--widths`` (the entries of the scan lists a K3 item
+holds: the search's scan lists cut by ``scan_work_list`` at that width),
+K3's kernel alone at k = 100 and at k = 1 (where the selection costs
+next to nothing), with the item count.
+
+Prints the card (``nvidia-smi``) and one JSON line per path and per
+width; the traces go to ``--out``.  Needs a CUDA device; imports nothing
+of JAX.
 """
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -40,11 +53,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from raft_tpu_torch import IVFFlatParams, ivf_flat_build, ivf_flat_search  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, ivf_items, scan_work_list  # noqa: E402
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile  # noqa: E402
+from raft_tpu_torch.spatial.ann import _probe_compact  # noqa: E402
 
 N, NQ, D, K = 1_000_000, 1024, 128, 100
 NLIST, NPROBE, TRAIN_ROWS = 1024, 32, 131_072
-STAGE_PREFIXES = ("ivf_flat_build.", "kmeans.")
+STAGE_PREFIXES = ("ivf_flat_build.", "kmeans.", "ivf_flat_search.", "fused_ivf_scan.")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -54,6 +69,22 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def events_ms(fn, reps=5):
+    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def union_ms(spans):
@@ -112,6 +143,8 @@ def traced(fn, trace_path):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/ivf_profile")
+    ap.add_argument("--widths", default="64,32,16",
+                    help="comma-separated work-item widths for K3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_ivf_profile: no CUDA device")
@@ -149,12 +182,28 @@ def main():
 
     search5()
     _, search_ms = wall_ms(search5)
-    window, busy, top, _ = traced(search5, out / "search.json")
+    window, busy, top, stages = traced(search5, out / "search.json")
+    per_search = {name: {key: v / 5 for key, v in st.items()} for name, st in stages.items()}
     print(json.dumps({"path": "ivf_search_1M", "ms_per_search": search_ms / 5,
                       "traced_ms_per_search": window / 5, "device_busy_ms_per_search": busy / 5,
                       "device_idle_share": 1.0 - busy / window,
-                      "top_kernels": top}))
+                      "stages_traced_per_search": per_search, "top_kernels": top}))
 
+    slots, _ = _probe_compact(q, index.centroids, index.cent_slots, NPROBE)
+    scan_args = (q, index.slot_vecs, index.slot_norms, index.slot_ids, slots, K)
+    S, cap = index.slot_ids.shape
+    xs = X[:TRAIN_ROWS]
+    print(json.dumps({"k3_whole_ms": events_ms(lambda: fused_ivf_scan(*scan_args)),
+                      "k4_ms": events_ms(lambda: fused_nn_tile(xs, index.centroids))}))
+    n_out = NQ * slots.shape[1]
+    for width in [int(w) for w in args.widths.split(",")]:
+        work = scan_work_list(slots, S, cap, width)
+        store = (q, index.slot_vecs.reshape(S * cap, D), index.slot_norms.reshape(-1),
+                 index.slot_ids.reshape(-1), work, cap)
+        print(json.dumps({"width": width, "k3_items": int(work.n_items),
+                          "k3_kernel_ms": events_ms(lambda: ivf_items(*store, K, n_out)),
+                          # k = 1: the selection's share is the difference
+                          "k3_kernel_k1_ms": events_ms(lambda: ivf_items(*store, 1, n_out))}))
 
 if __name__ == "__main__":
     main()

@@ -13,9 +13,10 @@ over several depths, with the query tile the kernel takes at each.
     python3 tools/torch_knn_sweep.py [--n 1000000] [--nq 1024] [--d 128]
     python3 tools/torch_knn_sweep.py --n 100000 --depths 300,1000,2000,4096
 
-Prints the card (``nvidia-smi``), the compiler's report of each K1 and
-K6 instantiation (``-Xptxas -v``: registers, spills, the warnings) with
-the dynamic shared memory a block takes, and one JSON line per
+Prints the card (``nvidia-smi``), the compiler's report of each
+instantiation of the fused kNN body (``-Xptxas -v``: registers, spills,
+the warnings), K1's and K6's and the work-list instances of K3 and K4,
+with the dynamic shared memory a block takes, and one JSON line per
 measurement: milliseconds by CUDA events (median of 5 after a warm-up).
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -35,6 +36,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from raft_tpu_torch.ops import _build, knn_tile  # noqa: E402
 from raft_tpu_torch.ops.select_tile import select_tile  # noqa: E402
 
+# the modes of csrc/knn_tile.cuh, by their number
+MODES = ("splits (K1)", "tile parts (K6)", "IVF items (K3)", "1-NN items (K4)")
 # H100 SXM dense peaks (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
@@ -62,7 +65,8 @@ def ptxas_summary(name):
     log = _build.ptxas_log(name)
     lines, current = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*knn_tile_kernelILi(\d+)ELi(\d+)ELb(\d)E", line)
+        m = re.search(r"Compiling entry function "
+                      r"'.*knn_tile_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", line)
         if m:
             current = tuple(int(v) for v in m.groups())
             continue
@@ -71,9 +75,10 @@ def ptxas_summary(name):
             spills = m.groups()
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            n_q, nr, parts = current
-            lines.append("%s N=%d NR=%d tile_parts=%d: %s registers at launch, spill stores %s "
-                         "bytes, loads %s bytes" % (name, n_q, nr, parts, m.group(1), *spills))
+            n_q, nr, mode, bf16 = current
+            lines.append("%s N=%d NR=%d mode=%s%s: %s registers at launch, spill stores %s "
+                         "bytes, loads %s bytes" % (name, n_q, nr, MODES[mode],
+                                                    " bf16" if bf16 else "", m.group(1), *spills))
             current = None
     warnings = sorted({re.sub(r" in the function .*|for the function .*", "", l.strip())
                        for l in log.splitlines() if "warning" in l or re.search(r"C75\d\d", l)
@@ -115,14 +120,15 @@ def main():
     if args.depths:
         depth_sweep(args.n, args.nq, [int(d) for d in args.depths.split(",")])
         return
-    _build.build(["knn_tile", "knn_twophase", "select_tile"])
-    for name in ("knn_tile", "knn_twophase"):
+    _build.build(["knn_tile", "knn_twophase", "select_tile", "ivf_tile", "nn_tile"])
+    for name in ("knn_tile", "knn_twophase", "ivf_tile", "nn_tile"):
         for line in ptxas_summary(name):
             print(line)
     dp = -(-args.d // knn_tile.DEPTH_UNIT) * knn_tile.DEPTH_UNIT
-    print("d=%d: %d queries a block; dynamic shared memory a block %s bytes (K6: k 128)"
+    print("d=%d: %d queries a block (K1, K6; K4's rows an item); dynamic shared memory a "
+          "block %s bytes (K4: k 1, K6: k 128)"
           % (args.d, knn_tile.block_q(dp),
-             ", ".join("k %d %d" % (k, knn_tile.smem_bytes(dp, k)) for k in (32, 64, 128))))
+             ", ".join("k %d %d" % (k, knn_tile.smem_bytes(dp, k)) for k in (1, 32, 64, 128))))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(args.n, args.d, device="cuda", generator=gen)
