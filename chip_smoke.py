@@ -40,9 +40,20 @@ work list, at every check store (one with a slot that every query
 probes, so that it takes several items) and at the search's shape, and
 its row times the inversion of the scan lists, the kernel and K2's merge
 apart.  K4 is checked to d = 300 and m = 9,000, and on a row with no
-finite distance.  K2's row times it at every shape the paths launched it
-at, with their launch-weighted total.  Any failure raises, and the script
-exits non-zero without the final line.  It needs a CUDA device and the
+finite distance.  K2 is held bit for bit against its plain version, and
+its route against the Python mirror, on few wide rows, on rows of 4
+distinct values (ties across every chunk, and rows that take the whole
+row where the sampled bound keeps too many keys), on rows
+all +inf, with NaN and fewer than k other keys and with signed zeros, at
+w = k, and at every shape the paths launched it at with k = 1, 32, 64,
+100 and 128; its row times each of those shapes on keys like the path's
+beside ``torch.topk``, with their launch-weighted total.  K5 is held
+against its plain version for every metric at ragged shapes, depths 1,
+3, 77, 128, 300 and 4096 and rows off 16-byte alignment; its bound counts
+the FP32 instructions a step issues at the SM clock read after its
+timing.  ``ivf_flat_build`` runs twice with one seed and must give the
+same index bit for bit.  Any failure raises, and the script exits
+non-zero without the final line.  It needs a CUDA device and the
 repository beside it.
 
 Output: the card (``nvidia-smi``), versions, build seconds, one line per
@@ -52,7 +63,6 @@ path), a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 
 import json
 import statistics
-from collections import Counter
 import subprocess
 import sys
 import threading
@@ -81,12 +91,14 @@ TWOPHASE_BLOCK_N = 2048
 SERVE_THREADS, SERVE_PER_THREAD, SERVE_ROWS = 8, 32, (1, 8, 64, 256)
 N_PAIRWISE = 10_000
 SPIN_CYCLES = 10_000_000   # card clock cycles spun before a side-stream payload is written
+QUEUE_SPIN_CYCLES = 8_000_000  # spun while queued_ms enqueues its calls (4 ms at 1.98 GHz)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 OFFSET = 100.0             # offset data for K1 and K6: the expanded form cancels most
+K5_INSTR_PER_STEP = 2      # FP32 instructions a step of L1, L2Unexpanded and Linf
 
 
 def card_line():
@@ -119,6 +131,24 @@ def time_ms(fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, calls=20):
+    """Milliseconds a call of ``fn`` keeps the card busy when calls queue
+    up: the card spins while the host enqueues ``calls`` calls, then runs
+    them back to back between two CUDA events.  For a kernel shorter than
+    its host-side launch, ``time_ms`` times the host instead."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound(ops, nbytes):
@@ -250,7 +280,7 @@ def main():
     from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
     from raft_tpu_torch.ops.pairwise_tile import (METRICS, pairwise_tile,
                                                   pairwise_tile_plain)
-    from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
+    from raft_tpu_torch.ops.select_tile import plan, select_tile, select_tile_plain, wide_chunks
     from raft_tpu_torch.serve import pad_rows
     from raft_tpu_torch.spatial.ann import _probe_compact
 
@@ -341,28 +371,82 @@ def main():
             print("check %s k=%d %s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
                   % (name, k, data, n_tiles, err, perr, atol), flush=True)
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def check_select(name, keys, k):
+        """K2 bit for bit against its plain version, and the kernel's route
+        (the wide filter's blocks a row, 0 for the held route) against its
+        mirror in ops/select_tile.py.  Returns the route."""
+        m, w = keys.shape
+        got = select_tile(keys, k)
+        torch.cuda.synchronize()
+        ref = select_tile_plain(keys, k)
+        name = "select_tile %s m=%d w=%d k=%d" % (name, m, w, k)
+        check_exact(name + " values", got[0].view(torch.int32), ref[0].view(torch.int32))
+        check_exact(name + " ids", got[1], ref[1])
+        chunks = plan(m, w, k)
+        assert chunks == wide_chunks(m, w, n_sms), (name, chunks)
+        return chunks
+
     for m, w, k in [(1000, 3333, 1), (517, 10_001, 100), (64, 129, 128)]:
         keys = randn(m, w)
         keys[0] = float("inf")                   # a row with no finite key
         keys[1, 5:] = float("inf")               # a row with 5
-        got = select_tile(keys, k)
-        torch.cuda.synchronize()
-        ref = select_tile_plain(keys, k)
-        check_exact("select_tile values m=%d w=%d k=%d" % (m, w, k), got[0], ref[0])
-        check_exact("select_tile ids m=%d w=%d k=%d" % (m, w, k), got[1], ref[1])
+        check_select("inf rows", keys, k)
         print("check select_tile m=%d w=%d k=%d: exact" % (m, w, k), flush=True)
+    # few wide rows (one served batch: the chunks fill the card), at every k
+    for k in (1, 32, 64, 100, 128):
+        chunks = check_select("few rows", randn(8, 13_200), k)
+    print("check select_tile 8 x 13200 at k 1/32/64/100/128: exact, %d chunks a row" % chunks,
+          flush=True)
+    # rows of 4 distinct values, so that ties cross every chunk boundary;
+    # the bound's bucket then holds a quarter of a row, more than a wide
+    # row's candidate room past 16,384 keys, so those rows take the whole
+    # row (the kernel's way where a sample misleads), and a held row of
+    # over 2048 keys the same
+    for m, w, k in [(8, 13_200, 100), (1024, 800, 100), (64, 62_592, 128),
+                    (1024, 100_000, 128), (3, 600_000, 128), (5, 1_000, 1), (300, 5_000, 64)]:
+        keys = torch.randint(0, 4, (m, w), device=dev, generator=gen).float()
+        chunks = check_select("4 values", keys, k)
+        print("check select_tile 4 values m=%d w=%d k=%d: exact, %d chunks a row"
+              % (m, w, k, chunks), flush=True)
+    # rows all +inf, rows with NaN and fewer than k other keys, signed
+    # zeros, a NaN with its sign bit set, and w = k
+    keys = randn(64, 5_000)
+    keys[:8] = float("inf")
+    keys[8:16, 40:] = float("nan")
+    keys[16:24, ::3] = float("nan")
+    keys[24:32] = torch.where(keys[24:32] > 0, 0.0, -0.0)
+    keys[32:40, 7:] = -float("nan")
+    keys[40:48, ::2] = float("inf")
+    keys[40:48, 1::2] = float("nan")
+    for k in (1, 64, 100, 128):
+        check_select("inf/NaN/zeros", keys, k)
+    for m, w in [(100, 128), (7, 1), (33, 100)]:
+        keys = randn(m, w)
+        keys[0, ::2] = float("nan")
+        check_select("w = k", keys, w if w <= 128 else 128)
+    print("check select_tile all +inf, NaN with fewer than k keys, signed zeros, w = k: exact",
+          flush=True)
 
-    for m, n, d in [(193, 257, 77), (130, 70, 300)]:
+    # ragged tiles, depths of one slab, of a ragged last slab and of 256
+    # slabs; scalar staging (d not a multiple of 4, or rows off 16 bytes)
+    # and 128-bit staging
+    for m, n, d, skew in [(193, 257, 77, False), (130, 70, 300, False), (131, 259, 1, False),
+                          (67, 300, 3, False), (129, 130, 4096, False), (200, 333, 128, False),
+                          (257, 129, 128, True)]:
         x = torch.rand(m, d, device=dev, generator=gen)
         y = torch.rand(n, d, device=dev, generator=gen)
+        if skew:                                 # rows 4 bytes off 16-byte alignment
+            x = torch.empty(m * d + 1, device=dev)[1:].view(m, d).copy_(x)
         for metric in METRICS:
             got = pairwise_tile(x, y, metric, 3.0)
             torch.cuda.synchronize()
             ref = pairwise_tile_plain(x, y, metric, 3.0)
             # float32 sums of d terms in another order
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
-        print("check pairwise_tile %dx%dx%d: %d metrics agree (rtol 1e-5, atol 1e-5)"
-              % (m, n, d, len(METRICS)), flush=True)
+        print("check pairwise_tile %dx%dx%d%s: %d metrics agree (rtol 1e-5, atol 1e-5)"
+              % (m, n, d, " skewed" if skew else "", len(METRICS)), flush=True)
 
     for m, n, d, dup in [(1000, 1024, 128, False), (77, 1, 16, False),
                          (1031, 3001, 300, False), (500, 2000, 33, True),
@@ -519,7 +603,7 @@ def main():
     reset()
     t0 = time.perf_counter()
     ivf = ivf_flat_build(X, IVFFlatParams(nlist=NLIST, nprobe=NPROBE), D.L2SqrtExpanded,
-                         train_rows=TRAIN_ROWS, device=dev)
+                         seed=SEED, train_rows=TRAIN_ROWS, device=dev)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     launched = counts("ivf_build_1M")
@@ -535,6 +619,19 @@ def main():
                        torch.arange(N_INDEX, dtype=torch.int32, device=dev))
     print("ivf_build_1M: %.0f ms, launches %s, %d k-means iterations, %d slots of %d rows"
           % (build_ms, launched, launched["nn_tile"] - 1, *ivf.slot_ids.shape), flush=True)
+    # one seed, one index: a second build gives the same centroids and lists
+    again = ivf_flat_build(X, IVFFlatParams(nlist=NLIST, nprobe=NPROBE), D.L2SqrtExpanded,
+                           seed=SEED, train_rows=TRAIN_ROWS, device=dev)
+    for field in ("centroids", "slot_vecs", "slot_ids", "slot_centroid", "cent_slots",
+                  "list_sizes", "slot_norms"):
+        a, b = getattr(ivf, field), getattr(again, field)
+        assert a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.int32),
+                                                  b.reshape(-1).view(torch.int32)), (
+            "ivf_build_1M: a second build with seed %d differs in %s" % (SEED, field))
+    del again
+    paths["ivf_build_1M"]["second_build_bitwise_equal"] = True
+    print("ivf_build_1M: a second build with seed %d is bitwise equal (centroids and lists)"
+          % SEED, flush=True)
 
     reset()
     ivf_d, ivf_i = ivf_flat_search(ivf, ivf_q, K, device=dev)
@@ -704,41 +801,79 @@ def main():
         "shape": "keys 1024x100000 f32, k=100",
         "launches": launches["select_tile"], "max_abs_err": errs["select_tile"],
         "ms": time_ms(lambda: select_tile(keys, K), reps=5),
+        "queued_ms": queued_ms(lambda: select_tile(keys, K)),
         "plain_ms": time_ms(lambda: select_tile_plain(keys, K), reps=3),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.topk(keys, K, dim=1, largest=False), reps=5)})
-    # K2 at every shape the paths launched it at (merges of K1's splits and
-    # of partitions, the two-phase and IVF merges, the probe, the L1
-    # select), timed on normal keys: the launch-weighted total is what the
-    # paths spend in it
-    k2_all = Counter()
-    for shp in k2_shapes.values():
-        k2_all.update(shp)
+    # K2 at every shape the paths launched it at (merges of K1's splits, of
+    # partitions, of K3's steps and K6's tiles, the probe, the L1 select),
+    # on keys like the path's: concatenated sorted runs of k (of 128 for
+    # K6's tiles) for the merges, normal keys for the probe and the L1
+    # select.  Each shape is held bit for bit against the plain version at
+    # k = 1, 32, 64, 100 and 128, and timed at its own k beside torch.topk;
+    # the launch-weighted total is what the paths spend in it.
+    def k2_keys(m, w, run):
+        if not run:
+            return randn(m, w)
+        return torch.sort(randn(m, w // run, run), dim=2).values.reshape(m, w)
+
+    k2_all = {}
+    for path, shp in k2_shapes.items():
+        for (m, w, k), n_launch in shp.items():
+            normal = path == "bfknn_L1_100k" or (path == "ivf_search_1M" and k == NPROBE)
+            run = None if normal else (128 if path == "knn_twophase_1M" else k)
+            k2_all[(m, w, k, run)] = k2_all.get((m, w, k, run), 0) + n_launch
     k2_rows = []
-    for (m, w, k), n_launch in sorted(k2_all.items()):
-        k2_keys = randn(m, w)
+    for (m, w, k, run), n_launch in sorted(k2_all.items(), key=lambda kv: kv[0][:3]):
+        path_keys = k2_keys(m, w, run)
+        for kk in (1, 32, 64, 100, 128):
+            check_select("at a path's shape", path_keys, kk)
+        chunks = plan(m, w, k)
+        topk = lambda: torch.topk(path_keys, k, dim=1, largest=False)  # noqa: E731
         k2_rows.append({"rows": m, "width": w, "k": k, "launches": n_launch,
-                        "ms": time_ms(lambda: select_tile(k2_keys, k), reps=5),
-                        "bound_ms": bound(1.0 * m * w, 4.0 * m * w + 8.0 * m * k)[0]})
-        del k2_keys
+                        "keys": "sorted runs of %d" % run if run else "normal",
+                        "route": "wide, %d blocks a row" % chunks if chunks else "held",
+                        "ms": time_ms(lambda: select_tile(path_keys, k), reps=20),
+                        "queued_ms": queued_ms(lambda: select_tile(path_keys, k)),
+                        "bound_ms": (4.0 * m * w + 8.0 * m * k) / PEAK_BYTES * 1e3,
+                        "bound_by": "bytes",
+                        "library_ms": time_ms(topk, reps=20),
+                        "library_queued_ms": queued_ms(topk)})
+        del path_keys
+    print("check select_tile at the paths' %d shapes, k 1/32/64/100/128: exact" % len(k2_rows),
+          flush=True)
     rows[-1]["shapes"] = k2_rows
     rows[-1]["launch_weighted_ms"] = sum(r["launches"] * r["ms"] for r in k2_rows)
+    rows[-1]["launch_weighted_queued_ms"] = sum(r["launches"] * r["queued_ms"] for r in k2_rows)
     rows[-1]["launch_weighted_bound_ms"] = sum(r["launches"] * r["bound_ms"] for r in k2_rows)
+    rows[-1]["launch_weighted_library_ms"] = sum(r["launches"] * r["library_ms"]
+                                                 for r in k2_rows)
+    rows[-1]["launch_weighted_library_queued_ms"] = sum(r["launches"] * r["library_queued_ms"]
+                                                         for r in k2_rows)
 
     ref_keys = pairwise_tile_plain(queries, index_l1, D.L1)
     errs["pairwise_tile"] = max(errs["pairwise_tile"], (keys - ref_keys).abs().max().item())
     del ref_keys
-    b, by = bound(2.0 * N_QUERIES * N_L1 * DIM,
-                  4.0 * (N_QUERIES + N_L1) * DIM + 4.0 * N_QUERIES * N_L1)
+    # K5's bound: issued FP32 instructions, K5_INSTR_PER_STEP a step, 128 a
+    # clock on each SM at the SM clock read right after the timing
+    k5_ms = time_ms(lambda: pairwise_tile(queries, index_l1, D.L1), reps=5)
+    k5_clocks = clocks_line()
+    k5_metric_ms = {metric.name: time_ms(lambda: pairwise_tile(queries, index_l1, metric), reps=3)
+                    for metric in (D.L2Unexpanded, D.Linf)}
+    sm_hz = float(k5_clocks.split(",")[0].split()[0]) * 1e6
+    t_ops = (1.0 * N_QUERIES * N_L1 * DIM * K5_INSTR_PER_STEP / (128.0 * n_sms * sm_hz) * 1e3)
+    t_bytes = (4.0 * (N_QUERIES + N_L1) * DIM + 4.0 * N_QUERIES * N_L1) / PEAK_BYTES * 1e3
     rows.append({
         "name": "pairwise_tile", "route": "cuda",
         "source": "raft_tpu_torch/ops/csrc/pairwise_tile.cu",
         "replaces": "raft_tpu/ops/pairwise_tile.py:133",
         "shape": "L1, x 1024x128, y 100000x128 f32",
         "launches": launches["pairwise_tile"], "max_abs_err": errs["pairwise_tile"],
-        "ms": time_ms(lambda: pairwise_tile(queries, index_l1, D.L1), reps=5),
+        "ms": k5_ms, "clocks_sm_power_after": k5_clocks, "metric_ms": k5_metric_ms,
         "plain_ms": time_ms(lambda: pairwise_tile_plain(queries, index_l1, D.L1), reps=2),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_note": "%d FP32 instructions a step (L1, L2Unexpanded, Linf), 128 a clock on "
+                      "each of %d SMs at %.0f MHz" % (K5_INSTR_PER_STEP, n_sms, sm_hz / 1e6),
         "library_ms": time_ms(lambda: torch.cdist(queries, index_l1, p=1), reps=3)})
     del keys
 

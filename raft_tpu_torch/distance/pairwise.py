@@ -27,6 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
+from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects, fail
 from raft_tpu_torch.distance.distance_type import DistanceType
@@ -34,19 +35,17 @@ from raft_tpu_torch.ops.pairwise_tile import pairwise_tile
 
 D = DistanceType
 
-# float32 products must be float32-accurate (the "highest" contract)
-torch.backends.cuda.matmul.allow_tf32 = False
-
 PRECISIONS = ("highest", "default")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
-    """``a @ b`` in float32, or with bfloat16 operands for ``"default"``."""
+    """``a @ b`` in IEEE float32 (:mod:`raft_tpu_torch.core.precision`), or
+    with bfloat16 operands for ``"default"``."""
     expects(precision in PRECISIONS, "precision must be one of %s, got %r",
             PRECISIONS, precision)
     if precision == "default":
         return torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16)).to(torch.float32)
-    return torch.matmul(a, b)
+    return _precision.matmul(a, b)
 
 
 def expanded_sq_dists(x, y, precision: str = "highest") -> torch.Tensor:

@@ -15,7 +15,9 @@ library, and :func:`ptxas_log` returns it.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on
-a code other than 0.
+a code other than 0.  :func:`entry` binds an entry point once per
+process (argument and result types set under the lock) and hands the
+same function back after.
 
 The first :func:`load` of a library is serialised by a lock, so a
 serving worker thread and a caller that reach it together build and load
@@ -34,7 +36,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 from raft_tpu_torch.core.error import RaftError
 
@@ -46,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
 _load_lock = threading.Lock()
 _stats = {"builds": 0, "loads": 0}
 
@@ -121,6 +124,23 @@ def load(name: str) -> ctypes.CDLL:
                 _loaded[name] = lib
                 _stats["loads"] += 1
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence, restype):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    and result types set, bound once per process (the library is built
+    and loaded first if needed)."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        lib = load(name)
+        with _load_lock:
+            fn = _entries.get((name, symbol))
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+                _entries[(name, symbol)] = fn
+    return fn
 
 
 def ptxas_log(name: str) -> str:

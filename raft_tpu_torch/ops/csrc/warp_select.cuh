@@ -1,5 +1,5 @@
-// Warp-wide running top-k: the selection core shared by knn_tile.cu (K1)
-// and select_tile.cu (K2).
+// Warp-wide running top-k: the selection core of the fused kernels of
+// knn_tile.cuh (K1, K3, K4, K6).
 //
 // Replaces raft_tpu/ops/knn_tile.py:239 topk_update, the threshold-gated
 // extract-merge loop over 128-lane bitonic networks that K1, K2 and K3
@@ -7,9 +7,10 @@
 // one row's running top-k, kept sorted ascending as KP = 32*NR (key, id)
 // pairs, position p = r*32 + lane in register r of lane `lane`.  This is
 // the warp-select design of the reference's fusedL2Knn and
-// warp_select_faiss.cuh.  K2 keeps the buffer in registers (WarpTopK);
-// K1, whose registers go to the distance tile, keeps it in shared memory
-// and loads it only to merge (SharedTopK).
+// warp_select_faiss.cuh.  The buffer lives in shared memory, where the
+// registers go to the distance tile, and is loaded only to merge
+// (SharedTopK over WarpTopK).  K2 (select_tile.cu) selects by radix
+// instead.
 //
 // Candidates arrive 32 at a time, one per lane.  The gate compares each
 // against the current k-th best (broadcast from its lane); a batch where

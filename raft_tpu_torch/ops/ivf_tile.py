@@ -51,6 +51,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
+from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build
@@ -86,7 +87,7 @@ def fused_ivf_scan_plain(queries: torch.Tensor, slot_vecs: torch.Tensor,
         vecs = slot_vecs[slx].to(torch.float32)               # (nq, cap, d)
         if accum_bf16:
             vecs = _bf16(vecs)
-        dot = torch.bmm(vecs, q[:, :, None])[:, :, 0]
+        dot = precision.bmm(vecs, q[:, :, None])[:, :, 0]
         dist = torch.clamp(qn[:, None] + slot_norms[slx] - 2.0 * dot, min=0.0)
         ids = slot_ids[slx]
         keep = (ids >= 0) & (sl >= 0)[:, None]
@@ -161,7 +162,7 @@ def ivf_items_plain(queries: torch.Tensor, store: torch.Tensor, norms: torch.Ten
         vecs = store[row0:row0 + cap].to(torch.float32)
         if accum_bf16:
             vecs = _bf16(vecs)
-        dot = torch.bmm(vecs.expand(count, cap, -1).contiguous(), q[qr][:, :, None])[:, :, 0]
+        dot = precision.bmm(vecs.expand(count, cap, -1).contiguous(), q[qr][:, :, None])[:, :, 0]
         dist = torch.clamp(qn[qr][:, None] + norms[row0:row0 + cap] - 2.0 * dot, min=0.0)
         gid = ids[row0:row0 + cap]
         vals, pos = torch.sort(torch.where(gid >= 0, dist, inf), dim=1, stable=True)
@@ -211,9 +212,7 @@ def item_queries(d: int, device: torch.device) -> int:
     card's choice at the main path's depth, 16."""
     if device.type == "cpu":
         return 16
-    fn = _build.load("ivf_tile").ivf_block_q
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("ivf_tile", "ivf_block_q", [ctypes.c_int], ctypes.c_int)
     return fn(ceildiv(d, DEPTH_UNIT) * DEPTH_UNIT)
 
 
@@ -269,7 +268,6 @@ def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
 
 
 def _entry():
-    fn = _build.load("ivf_tile").ivf_tile_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("ivf_tile", "ivf_tile_launch",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3,
+                        ctypes.c_int)

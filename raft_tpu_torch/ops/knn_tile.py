@@ -49,6 +49,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build
@@ -79,7 +80,7 @@ def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor,
     for j0 in range(0, n, _PLAIN_TILE):
         x = index[j0:j0 + _PLAIN_TILE]
         xn = (x * x).sum(dim=1)
-        d = torch.clamp(qn + xn[None, :] - 2.0 * (queries @ x.T), min=0.0)
+        d = torch.clamp(qn + xn[None, :] - 2.0 * precision.matmul(queries, x.T), min=0.0)
         ids = torch.arange(j0, j0 + x.shape[0], device=queries.device)
         cat_d = torch.cat([best_d, d], dim=1)
         cat_i = torch.cat([best_i, ids.expand(nq, -1)], dim=1)
@@ -187,10 +188,9 @@ fused_knn_tile.launches = 0
 
 
 def _entry():
-    fn = _build.load("knn_tile").knn_tile_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("knn_tile", "knn_tile_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+                        ctypes.c_int)
 
 
 def block_q(d: int) -> int:
@@ -199,20 +199,14 @@ def block_q(d: int) -> int:
     ``knn_block_q``): 64 up to depth 128, 32 up to 512, 16 up to 1216,
     then 32 with the depth in slabs.  Builds the kernel library if
     needed."""
-    fn = _build.load("knn_tile").knn_block_q
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(d)
+    return _build.entry("knn_tile", "knn_block_q", [ctypes.c_int], ctypes.c_int)(d)
 
 
 def smem_bytes(d: int, k: int) -> int:
     """Dynamic shared memory of a K1 block at depth ``d`` (a multiple of
     8) and ``k`` (K6's is k = 128), as the kernel counts it
     (``knn_smem_bytes``).  Builds the kernel library if needed."""
-    fn = _build.load("knn_tile").knn_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(d, k)
+    return _build.entry("knn_tile", "knn_smem_bytes", [ctypes.c_int] * 2, ctypes.c_int)(d, k)
 
 
 # --------------------------------------------------------------------- #
@@ -248,7 +242,7 @@ def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor,
     for j0 in range(0, n, bn):
         x = index[j0:j0 + bn]
         xn = (x * x).sum(dim=1)
-        d = torch.clamp(qn + xn[None, :] - 2.0 * (queries @ x.T), min=0.0)
+        d = torch.clamp(qn + xn[None, :] - 2.0 * precision.matmul(queries, x.T), min=0.0)
         if x.shape[0] < TWOPHASE_PAD:      # the tile's masked columns
             d = torch.cat([d, inf.expand(nq, TWOPHASE_PAD - x.shape[0])], dim=1)
         vals, pos = torch.sort(d, dim=1, stable=True)
@@ -348,7 +342,6 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def _twophase_entry():
-    fn = _build.load("knn_twophase").knn_twophase_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("knn_twophase", "knn_twophase_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
+                        ctypes.c_int)

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops.knn_tile import prepare_operands
@@ -46,7 +47,7 @@ def nn_tile_plain(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
     best_i = torch.full((m,), IDX_SENTINEL, dtype=torch.int32, device=x.device)
     for j0 in range(0, y.shape[0], _PLAIN_TILE):
         t = y[j0:j0 + _PLAIN_TILE]
-        d = torch.clamp(xn[:, None] + (t * t).sum(dim=1)[None, :] - 2.0 * (x @ t.T), min=0.0)
+        d = torch.clamp(xn[:, None] + (t * t).sum(dim=1)[None, :] - 2.0 * precision.matmul(x, t.T), min=0.0)
         v, i = torch.min(d, dim=1)          # the first index among equal minima
         i = (i + j0).to(torch.int32)
         take = (v < best_v) | ((v == best_v) & torch.isfinite(v) & (i < best_i))
@@ -93,7 +94,6 @@ fused_nn_tile.launches = 0
 
 
 def _entry():
-    fn = _build.load("nn_tile").nn_tile_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("nn_tile", "nn_tile_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+                        ctypes.c_int)

@@ -9,7 +9,8 @@ below takes the same id and computes the same function.
 
 Integer inputs are cast to float32 here, as the JAX kernel casts them;
 the output is float32.  Block sizes are constants of the kernel, chosen
-for Hopper (64 x 64 output tiles, depth 32 through shared memory).
+for Hopper: 128 x 128 output tiles of 8 x 8 a thread, the depth 16 at a
+time through double-buffered shared memory (the source's note).
 """
 
 from __future__ import annotations
@@ -123,9 +124,7 @@ pairwise_tile.launches = 0
 
 
 def _entry():
-    fn = _build.load("pairwise_tile").pairwise_tile_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("pairwise_tile", "pairwise_tile_launch",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                         ctypes.c_void_p], ctypes.c_int)

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import round_up_safe
@@ -284,7 +285,7 @@ def _delta_merge_impl(delta_vecs, delta_ids, base_d, base_i, q, k, sqrt):
     stable selection keeps the base copy."""
     qn = (q * q).sum(dim=1)
     dn = (delta_vecs * delta_vecs).sum(dim=1)
-    dist = qn[:, None] + dn[None, :] - 2.0 * (q @ delta_vecs.T)
+    dist = qn[:, None] + dn[None, :] - 2.0 * precision.matmul(q, delta_vecs.T)
     valid = delta_ids >= 0
     dist = torch.where(valid[None, :], torch.clamp(dist, min=0.0), float("inf")).to(base_d.dtype)
     if sqrt:
@@ -362,7 +363,7 @@ def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots
 
     def step_dist(slx):
         vecs = slot_vecs[slx]                                  # (nq, cap, d)
-        dot = torch.bmm(vecs, q[:, :, None].to(vecs.dtype))[:, :, 0]
+        dot = precision.bmm(vecs, q[:, :, None].to(vecs.dtype))[:, :, 0]
         return qn[:, None] + slot_norms[slx] - 2.0 * dot, slot_ids[slx]
 
     return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric)

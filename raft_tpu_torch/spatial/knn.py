@@ -69,8 +69,12 @@ def knn_merge_parts(
         expects(len(translations) == n_parts,
                 "knn_merge_parts: %d translations for %d partitions",
                 len(translations), n_parts)
-        trans = torch.as_tensor(list(translations), dtype=idx.dtype, device=dev)
-        idx = idx + trans[:, None, None]
+        if isinstance(translations, torch.Tensor) and translations.device == dev:
+            idx = idx + translations.to(idx.dtype)[:, None, None]
+        else:
+            # host offsets: one scalar add a partition, since copying them to
+            # the card would make the host wait for every kernel queued before
+            idx = torch.stack([part + int(t) for part, t in zip(idx.unbind(0), translations)])
     cand_d = part_distances.permute(1, 0, 2).reshape(nq, n_parts * kk)
     cand_i = idx.permute(1, 0, 2).reshape(nq, n_parts * kk)
     return select_k(cand_d, k, select_min=select_min, values=cand_i, device=dev)

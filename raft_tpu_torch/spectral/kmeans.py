@@ -8,8 +8,12 @@ Port of ``raft_tpu/spectral/kmeans.py`` (reference spectral/kmeans.hpp:
   (``|x|^2 + |c|^2 - 2 x.c``, full float32) and its argmin; at k >= 256,
   ``fused_l2_nn(..., tile_n=512)``, which on the card is K4, so the
   (n, k) matrix never exists (4 GB at n = 1M, k = 1024).
-- Update: one ``index_add_`` per sums and counts; an empty cluster keeps
-  its previous centroid.
+- Update: each cluster's sum in row order, by a stable sort of the rows
+  by label and a segmented sum (``torch.segment_reduce``), so one seed
+  gives the same centroids on every run, as the JAX ``segment_sum``
+  does; ``index_add_`` would add with atomics on the card, in an order
+  that changes from run to run.  An empty cluster keeps its previous
+  centroid.
 - Lloyd iterates while ``|prev - res| > tol * max(res, 1e-30)`` and fewer
   than ``max_iter`` iterations ran, the JAX ``while_loop`` condition, in
   the data's dtype.
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
@@ -88,17 +93,19 @@ def _assign(X: torch.Tensor, C: torch.Tensor, xn: torch.Tensor) -> Tuple[torch.T
         vals, labels = fused_l2_nn(X, C, tile_n=512, device=X.device)
         return labels, vals.sum()
     cn = (C * C).sum(dim=1)
-    dm = torch.clamp(xn[:, None] + cn[None, :] - 2.0 * (X @ C.T), min=0.0)
+    dm = torch.clamp(xn[:, None] + cn[None, :] - 2.0 * precision.matmul(X, C.T), min=0.0)
     res, labels = torch.min(dm, dim=1)
     return labels.to(torch.int32), res.sum()
 
 
 def _update(X: torch.Tensor, C: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    k = C.shape[0]
+    """The clusters' means (module doc), the previous centroid where a
+    cluster is empty."""
     idx = labels.long()
-    sums = torch.zeros_like(C).index_add_(0, idx, X)
-    counts = torch.zeros(k, dtype=X.dtype, device=X.device).index_add_(
-        0, idx, torch.ones_like(X[:, 0]))
+    sizes = torch.bincount(idx, minlength=C.shape[0])
+    order = torch.argsort(idx, stable=True)
+    sums = torch.segment_reduce(X[order], "sum", lengths=sizes, axis=0)
+    counts = sizes.to(X.dtype)
     return torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], C)
 
 

@@ -1,0 +1,211 @@
+"""The port's float32 products run in IEEE float32 whatever the caller's
+matmul-precision setting, and the caller's setting survives each call
+(``raft_tpu_torch.core.precision``).
+
+Each of the port's float32 product sites runs here with the caller's
+setting on TF32 (``torch.set_float32_matmul_precision("high")``), under a
+spy on ``torch.matmul`` and ``torch.bmm`` that records, at the moment of
+each call, whether torch's flags ask for IEEE float32.
+"""
+
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch import DistanceType, IVFFlatParams, ivf_flat_build, ivf_flat_search, kmeans
+from raft_tpu_torch.core import precision
+from raft_tpu_torch.distance.pairwise import pairwise_distance
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan_plain
+from raft_tpu_torch.ops.knn_tile import knn_tile_plain, twophase_tiles_plain
+from raft_tpu_torch.ops.nn_tile import nn_tile_plain
+from raft_tpu_torch.spatial.ann import _delta_merge_impl
+
+D = DistanceType
+
+
+def _flags():
+    """Every matmul-precision flag torch lets us read."""
+    out = {}
+    try:
+        out["legacy"] = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        out["legacy"] = "unreadable"
+    if hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        out["cuda"] = torch.backends.cuda.matmul.fp32_precision
+        out["mkldnn"] = torch.backends.mkldnn.matmul.fp32_precision
+    return out
+
+
+@pytest.fixture
+def tf32_caller():
+    """The caller asks for TF32 products; the default comes back after."""
+    torch.set_float32_matmul_precision("high")
+    yield _flags()
+    torch.set_float32_matmul_precision("highest")
+    if hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        torch.backends.cuda.matmul.fp32_precision = "none"
+        torch.backends.mkldnn.matmul.fp32_precision = "none"
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Records precision.is_ieee() at each torch.matmul / torch.bmm call."""
+    seen = []
+    for name in ("matmul", "bmm"):
+        real = getattr(torch, name)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            seen.append((_name, precision.is_ieee()))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(torch, name, wrapped)
+    return seen
+
+
+def _f32(*shape, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).random(shape, dtype=np.float32))
+
+
+def _ivf_index():
+    x = _f32(400, 8, seed=1)
+    return ivf_flat_build(x, IVFFlatParams(nlist=8, nprobe=3), D.L2Expanded, device="cpu")
+
+
+def _site_pairwise():
+    pairwise_distance(_f32(9, 8), _f32(11, 8, seed=1), D.L2Expanded, device="cpu")
+
+
+def _site_kmeans_assign():
+    kmeans(_f32(200, 6), 5, max_iter=3, device="cpu")       # k < 256: the matmul route
+
+
+def _site_delta_merge():
+    q, dv = _f32(5, 8), _f32(12, 8, seed=1)
+    ids = torch.arange(12, dtype=torch.int32)
+    base_d = torch.full((5, 4), float("inf"))
+    base_i = torch.full((5, 4), -1, dtype=torch.int32)
+    _delta_merge_impl(dv, ids, base_d, base_i, q, 4, False)
+
+
+def _site_scan_route():
+    ivf_flat_search(_ivf_index(), _f32(6, 8, seed=2), 5, scan_impl="scan",
+                    device="cpu")
+
+
+def _site_knn_tile_plain():
+    knn_tile_plain(_f32(300, 8), _f32(7, 8, seed=1), 5)
+
+
+def _site_twophase_plain():
+    twophase_tiles_plain(_f32(300, 8), _f32(7, 8, seed=1), 256)
+
+
+def _site_nn_tile_plain():
+    nn_tile_plain(_f32(50, 8), _f32(9, 8, seed=1))
+
+
+def _site_ivf_scan_plain():
+    S, cap, d, nq = 4, 10, 8, 5
+    sv = _f32(S, cap, d)
+    si = torch.arange(S * cap, dtype=torch.int32).reshape(S, cap)
+    slots = torch.tensor([[0, 1], [2, 3], [1, -1], [3, 0], [2, 2]], dtype=torch.int32)
+    fused_ivf_scan_plain(_f32(nq, d, seed=1), sv, (sv * sv).sum(-1), si, slots, 3)
+
+
+SITES = {
+    "distance/pairwise.py matmul": _site_pairwise,
+    "spectral/kmeans.py _assign": _site_kmeans_assign,
+    "spatial/ann.py delta merge": _site_delta_merge,
+    "spatial/ann.py scan route": _site_scan_route,
+    "ops/knn_tile.py knn_tile_plain": _site_knn_tile_plain,
+    "ops/knn_tile.py twophase_tiles_plain": _site_twophase_plain,
+    "ops/nn_tile.py nn_tile_plain": _site_nn_tile_plain,
+    "ops/ivf_tile.py plain scan": _site_ivf_scan_plain,
+}
+
+
+@pytest.mark.parametrize("site", list(SITES), ids=list(SITES))
+def test_site_runs_in_ieee_float32(site, tf32_caller, spy):
+    assert not precision.is_ieee()
+    SITES[site]()
+    assert spy, "%s made no product through torch.matmul or torch.bmm" % site
+    assert all(ieee for _, ieee in spy), spy
+    assert _flags() == tf32_caller
+
+
+def test_import_changes_no_flag():
+    code = ("import torch\n"
+            "torch.set_float32_matmul_precision('high')\n"
+            "before = torch.get_float32_matmul_precision()\n"
+            "import raft_tpu_torch, raft_tpu_torch.ops, raft_tpu_torch.serve\n"
+            "assert torch.get_float32_matmul_precision() == before == 'high'\n"
+            "print('unchanged')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "unchanged" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("setting", ["high", "medium", "backend-tf32"])
+def test_caller_setting_restored(setting, tf32_caller):
+    if setting == "backend-tf32" and hasattr(torch.backends.cuda.matmul, "fp32_precision"):
+        # the per-backend settings alone (the legacy one left at "highest")
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+        torch.backends.mkldnn.matmul.fp32_precision = "bf16"
+    else:
+        torch.set_float32_matmul_precision("high" if setting == "backend-tf32" else setting)
+    before = _flags()
+    with precision.ieee_fp32():
+        assert precision.is_ieee()
+        inside = _flags()
+        assert inside.get("cuda", "ieee") == "ieee" and inside.get("mkldnn", "ieee") == "ieee"
+    assert _flags() == before
+
+
+def test_default_setting_is_left_unwritten(monkeypatch):
+    # with the flags already at IEEE float32 the helper writes nothing
+    calls = []
+    monkeypatch.setattr(torch, "set_float32_matmul_precision",
+                        lambda *a: calls.append(a))
+    with precision.ieee_fp32():
+        pass
+    assert calls == []
+
+
+def test_concurrent_calls_share_one_pin(tf32_caller):
+    # two port calls overlap in two threads: the flags stay pinned until
+    # the last one leaves, then the caller's setting is back
+    inside, release = threading.Event(), threading.Event()
+    seen = []
+
+    def worker():
+        with precision.ieee_fp32():
+            inside.set()
+            release.wait(10)
+            seen.append(precision.is_ieee())
+
+    t = threading.Thread(target=worker)
+    t.start()
+    assert inside.wait(10)
+    with precision.ieee_fp32():
+        seen.append(precision.is_ieee())
+    seen.append(precision.is_ieee())       # the worker still holds the pin
+    release.set()
+    t.join(10)
+    assert seen == [True, True, True]
+    assert _flags() == tf32_caller
+
+
+def test_product_matches_float64():
+    # the helper's product is the float32 product: within float32's
+    # rounding of a float64 reference
+    a, b = _f32(17, 300), _f32(300, 13, seed=1)
+    got = precision.matmul(a, b)
+    ref = (a.double() @ b.double()).float()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    got = precision.bmm(a[None], b[None])[0]
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
