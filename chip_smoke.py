@@ -26,7 +26,26 @@ paths through the public entry points with ``device="cuda"``:
   ``PairwiseService`` over 10,000 x 128 rows with L1 (K5, every response
   bitwise equal to the unbatched call) and L2SqrtExpanded (bitwise equal
   to the call on its padded batch, sliced), and the L1 service again,
-  built on one side stream and fed from another.
+  built on one side stream and fed from another;
+- ``ANNService`` over the 1M IVF-Flat index (``serve_ann_1M``, the JAX
+  ``serve_ann_1m`` rung: k=100, nprobe ladder 4/6/8/16, rungs
+  8/32/64/128): warmup, then ``calibrate`` to recall@100 >= 0.9 on 32
+  queries, a load of 16 threads x 48 requests of 16 rows (every response
+  bitwise equal to the search of its padded batch, recall@100 against
+  brute force, no kernel build after warmup), 2,048 inserts under
+  traffic (each found at distance 0 with its own id before and after the
+  automatic compaction; a fixed query set equal across the swap at a
+  full probe), a manual brownout one ladder step down, and the delta arm
+  against its padded batch and the request alone; the host runtime
+  (``core/native.py``, built with g++) must pack the lists;
+- the dense library at ``BASELINE.md`` config #2 (``linalg_4096``):
+  ``gemm`` 4096^3 at ``precision="highest"`` and ``"default"`` (TF32),
+  ``row_norm``, ``coalesced_reduction``, ``strided_reduction`` (and a
+  maximum through the pairwise tree) and ``transpose`` of 4096 x 4096,
+  each against float64 on the card, with TFLOP/s and the bytes bound,
+  and the gemm again on a ``Handle``'s stream, bit for bit;
+- Lanczos: the 8 smallest eigenpairs of the 64 x 64 grid Laplacian
+  (dense 4096 x 4096), residuals and eigenvalues against the closed form.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -61,6 +80,7 @@ check, a ``paths`` JSON line (launches and end-to-end milliseconds per
 path), a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 """
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -94,6 +114,20 @@ SPIN_CYCLES = 10_000_000   # card clock cycles spun before a side-stream payload
 QUEUE_SPIN_CYCLES = 8_000_000  # spun while queued_ms enqueues its calls (4 ms at 1.98 GHz)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
 # on the tensor cores (dense), HBM3
+# ANNService over the IVF-Flat index: the JAX serve_ann_1m rung
+# (bench.py:1318-1375, 2909-2915): k 100, the nprobe ladder, the bucket
+# rungs, 16 threads x 48 requests of 16 rows, 2,048 inserts under traffic
+ANN_LADDER, ANN_RUNGS = (4, 6, 8, 16), (8, 32, 64, 128)
+ANN_THREADS, ANN_PER_THREAD, ANN_ROWS = 16, 48, 16
+ANN_CALIB, ANN_TARGET = 32, 0.9
+ANN_DELTA_CAP, ANN_COMPACT, ANN_INSERT, ANN_CHUNK = 4096, 2048, 2048, 64
+# linalg_4096 (BASELINE.md config #2) and the Lanczos check: 8 smallest
+# eigenpairs of the 64 x 64 grid Laplacian (dense, 4096 x 4096)
+N_LINALG, GRID, N_EIG = 4096, 64, 8
+LANCZOS_TOL, LANCZOS_NCV, LANCZOS_MAXITER = 1e-6, 64, 30_000
+EIG_ATOL = 1e-5            # |A v - lambda v| and |lambda - exact|, with |A| <= 8
+GEMM_RTOL = {"highest": 2e-5, "default": 2e-3}   # of max (|A| @ |B|)
+SUM_RTOL = 1e-5            # a float32 sum of 4096 terms, of the sum of |terms|
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
@@ -217,11 +251,11 @@ def check_exact(name, got, ref):
     assert torch.equal(got, ref), "%s: kernel and plain version differ" % name
 
 
-def serve_concurrently(svc, blocks, n_threads):
+def serve_concurrently(svc, blocks, n_threads, drain=True):
     """Submit ``blocks`` to ``svc`` from ``n_threads`` threads (thread t
-    takes blocks t, t + n_threads, ...), wait for every future, drain.
-    Returns the futures in block order and the wall milliseconds from the
-    first submit to the last result."""
+    takes blocks t, t + n_threads, ...), wait for every future, and drain
+    unless told not to.  Returns the futures in block order and the wall
+    milliseconds from the first submit to the last result."""
     futs = [None] * len(blocks)
     errors = []
     start = threading.Barrier(n_threads + 1)
@@ -246,8 +280,36 @@ def serve_concurrently(svc, blocks, n_threads):
     for f in futs:
         f.result(timeout=120)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    assert svc.drain(timeout=60)
+    if drain:
+        assert svc.drain(timeout=60)
     return futs, wall_ms
+
+
+def latencies_ms(futs):
+    """Each request's latency (its ``resolved`` event), sorted."""
+    lat = sorted(ev["latency_s"] * 1e3 for f in futs for ev in f.trace().timeline()
+                 if ev["kind"] == "resolved")
+    assert len(lat) == len(futs)
+    return lat
+
+
+def quantile(sorted_ms, q):
+    return sorted_ms[min(len(sorted_ms) - 1, int(q * len(sorted_ms)))]
+
+
+def grid_laplacian(n, dev):
+    """The Laplacian of the n x n grid graph (4-neighbour, dense float32)
+    and its 8 smallest eigenvalues in closed form (float64): the sums of
+    two eigenvalues 2 - 2 cos(pi k / n) of the path graph's Laplacian."""
+    path = 2.0 * torch.eye(n, dtype=torch.float64, device=dev)
+    off = torch.ones(n - 1, dtype=torch.float64, device=dev)
+    path -= torch.diag(off, 1) + torch.diag(off, -1)
+    path[0, 0] = path[-1, -1] = 1.0
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    lap = torch.kron(path, eye) + torch.kron(eye, path)
+    mu = 2.0 - 2.0 * torch.cos(torch.pi * torch.arange(n, dtype=torch.float64, device=dev) / n)
+    exact = torch.sort((mu[:, None] + mu[None, :]).reshape(-1)).values[:N_EIG]
+    return lap, exact
 
 
 def batch_order(flight, name):
@@ -265,10 +327,12 @@ def main():
     if not (ROOT / "raft_tpu_torch" / "ops" / "csrc").is_dir():
         sys.exit("chip_smoke: raft_tpu_torch not found beside %s" % __file__)
     sys.path.insert(0, str(ROOT))
-    from raft_tpu_torch import (DistanceType, IVFFlatParams, KNNService, PairwiseService,
-                                brute_force_knn, ivf_flat_build, ivf_flat_search,
-                                pairwise_distance)
-    from raft_tpu_torch.core import flight
+    from raft_tpu_torch import (ANNService, DistanceType, IVFFlatParams, KNNService,
+                                PairwiseService, approx_knn_search, brute_force_knn, config,
+                                ivf_flat_build, ivf_flat_search, pairwise_distance)
+    from raft_tpu_torch import linalg
+    from raft_tpu_torch.core import flight, native, precision, tracing
+    from raft_tpu_torch.core.handle import Handle
     from raft_tpu_torch.core.metrics import default_registry
     from raft_tpu_torch.distance.pairwise import expanded_sq_dists
     from raft_tpu_torch.ops import _build
@@ -282,8 +346,11 @@ def main():
                                                   pairwise_tile_plain)
     from raft_tpu_torch.ops.select_tile import plan, select_tile, select_tile_plain, wide_chunks
     from raft_tpu_torch.serve import pad_rows
-    from raft_tpu_torch.spatial.ann import _probe_compact
+    from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
 
+    # the serve_ann_1M checks read every batch of its load back from the
+    # flight recorder: a ring that holds the whole run
+    config.configure(flight_events="65536")
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
                 "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
@@ -600,6 +667,8 @@ def main():
     X, ivf_q = mixture[:N_INDEX], mixture[N_INDEX:]
     del blob
 
+    # the build packs its lists on the host runtime, not the numpy route
+    assert native.native_available(), "the host runtime did not build (g++ missing)"
     reset()
     t0 = time.perf_counter()
     ivf = ivf_flat_build(X, IVFFlatParams(nlist=NLIST, nprobe=NPROBE), D.L2SqrtExpanded,
@@ -685,9 +754,7 @@ def main():
         d0, i0 = brute_force_knn(index, q, K, D.L2SqrtExpanded, device=dev)
         assert torch.equal(d, d0) and torch.equal(i, i0), (
             "serve_knn_1M: a %d-row response differs from the unbatched call" % len(q))
-    lat_ms = sorted(ev["latency_s"] * 1e3 for f in futs for ev in f.trace().timeline()
-                    if ev["kind"] == "resolved")
-    assert len(lat_ms) == len(futs)
+    lat_ms = latencies_ms(futs)
     batches = sum(s.value for lbl, s in
                   default_registry().get("raft_tpu_serve_batches_total").series()
                   if lbl["service"] == "serve_knn_1M")
@@ -695,8 +762,7 @@ def main():
         "launches": launched, "requests": len(futs), "rows": sum(req_rows),
         "batches": int(batches), "rows_per_batch": sum(req_rows) / batches,
         "wall_ms": wall_ms, "rows_per_s": sum(req_rows) / wall_ms * 1e3,
-        "p50_ms": statistics.median(lat_ms),
-        "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+        "p50_ms": statistics.median(lat_ms), "p99_ms": quantile(lat_ms, 0.99),
         "kernel_libraries_after_warmup": after_warmup}
     print("serve_knn_1M: %s; every response bitwise equal to the unbatched call"
           % json.dumps(paths["serve_knn_1M"]), flush=True)
@@ -765,6 +831,363 @@ def main():
     print("serve_pairwise %d x %d: %s" % (N_PAIRWISE, DIM, json.dumps(paths["serve_pairwise"])),
           flush=True)
 
+    # 5b. ANNService over the IVF-Flat index built above, the JAX
+    # serve_ann_1m rung: warmup, then (counted as the path) calibrate, a
+    # load of 16 threads, 2,048 inserts under traffic with the automatic
+    # compaction, a manual brownout, and the delta arm alone
+    def mixture(m):
+        """Rows near the data: fresh draws of the same Gaussian mixture."""
+        b = torch.randint(0, N_BLOBS, (m,), device=dev, generator=gen)
+        return centers[b] + randn(m, DIM) * BLOB_SPREAD
+
+    ann_name = "serve_ann_1M"
+
+    def ann_calls():
+        fam = default_registry().get("raft_tpu_serve_ann_calls_total")
+        return {int(lbl["nprobe"]): s.value for lbl, s in fam.series()
+                if lbl["service"] == ann_name} if fam is not None else {}
+
+    def wait_all(futs):
+        return [f.result(timeout=120) for f in futs]
+
+    svc = ANNService(ivf, K, nprobe_ladder=ANN_LADDER, bucket_rungs=ANN_RUNGS,
+                     max_batch_rows=ANN_RUNGS[-1], max_wait_ms=2.0, queue_cap=4096,
+                     delta_cap=ANN_DELTA_CAP, compact_rows=ANN_COMPACT, device=dev,
+                     name=ann_name)
+    t0 = time.perf_counter()
+    svc.warmup()
+    ann = {"warmup_s": time.perf_counter() - t0}
+    calib_q = mixture(ANN_CALIB)
+    n_req = ANN_THREADS * ANN_PER_THREAD
+    load_rows = mixture(n_req * ANN_ROWS)
+    blocks = list(load_rows.split(ANN_ROWS))
+    new_vecs = mixture(ANN_INSERT)
+    new_ids = torch.arange(N_INDEX, N_INDEX + ANN_INSERT, dtype=torch.int32)
+    fixed_q = torch.cat([new_vecs[:64], mixture(64)])
+    delta_vecs, delta_qs = mixture(ANN_CHUNK), [mixture(ANN_ROWS) for _ in range(16)]
+    torch.cuda.synchronize()
+    reset()
+    t_path = time.perf_counter()
+
+    calib = svc.calibrate(calib_q, ANN_TARGET, measure_all=True)
+    nprobe = calibrated = svc.nprobe
+    assert calib["met_target"] and nprobe == calib["chosen_nprobe"], calib
+    ann["calibrate"] = calib
+    print("serve_ann_1M calibrate (%d queries, target recall@%d %.2f): chose nprobe %d; %s"
+          % (ANN_CALIB, K, ANN_TARGET, nprobe, json.dumps(calib["table"])), flush=True)
+
+    calls0 = ann_calls()
+    futs, wall_ms = serve_concurrently(svc, blocks, ANN_THREADS, drain=False)
+    load_batches = batch_order(flight, ann_name)
+    calls1 = ann_calls()
+    index0 = svc.index
+    assert {c: calls1.get(c, 0) - calls0.get(c, 0) for c in calls1} == {
+        **{c: 0 for c in calls1}, nprobe: len(load_batches)}, (calls0, calls1)
+    lat_ms = latencies_ms(futs)
+    ann.update({"requests": n_req, "rows": n_req * ANN_ROWS, "batches": len(load_batches),
+                "rows_per_batch": n_req * ANN_ROWS / len(load_batches), "wall_ms": wall_ms,
+                "rows_per_s": n_req * ANN_ROWS / wall_ms * 1e3, "nprobe": nprobe,
+                "p50_ms": statistics.median(lat_ms), "p99_ms": quantile(lat_ms, 0.99)})
+
+    # inserts under traffic: a thread keeps submitting load blocks while the
+    # main thread inserts 64 rows at a time and asks for each chunk back
+    stop, bg, bg_err = threading.Event(), [], []
+
+    def background():
+        try:
+            for i in itertools.count():
+                if stop.is_set():
+                    return
+                bg.append(svc.submit(blocks[i % len(blocks)]))
+                time.sleep(0.001)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            bg_err.append(e)
+
+    th = threading.Thread(target=background, daemon=True)
+    th.start()
+    before = []
+    try:
+        for c in range(0, ANN_INSERT, ANN_CHUNK):
+            if c + ANN_CHUNK < ANN_INSERT:
+                svc.insert(new_ids[c:c + ANN_CHUNK], new_vecs[c:c + ANN_CHUNK])
+            else:
+                # the last chunk fills the delta to compact_rows: hold the
+                # swap back (the compaction lock) to read the snapshot it
+                # replaces
+                with svc._compact_lock:
+                    svc.insert(new_ids[c:c + ANN_CHUNK], new_vecs[c:c + ANN_CHUNK])
+                    pre_swap = svc._ann_state
+            before.append(svc.submit(new_vecs[c:c + ANN_CHUNK]))
+        assert pre_swap.delta_rows == ANN_INSERT
+        t_wait = time.perf_counter()
+        while svc.delta_rows and time.perf_counter() - t_wait < 300:
+            time.sleep(0.01)
+        assert svc.delta_rows == 0 and svc.index is not index0, "no compaction"
+        post_swap = svc._ann_state
+        after = [svc.submit(v) for v in new_vecs.split(ANN_CHUNK)]
+        wait_all(after)
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and not bg_err, bg_err
+    wait_all(bg)
+    bg_lat = latencies_ms(bg)
+    stats_now = svc.stats()
+    ann.update({"inserted": ANN_INSERT, "compact_s": stats_now["last_compact_s"],
+                "background_requests": len(bg),
+                "background_p50_ms": statistics.median(bg_lat),
+                "background_max_ms": bg_lat[-1]})
+
+    # a manual brownout: one ladder step below the served cell, then back
+    # (from the next cell up where calibration chose the lowest)
+    ladder = svc.nprobe_ladder
+    if nprobe == ladder[0]:
+        nprobe = svc.set_nprobe(ladder[1])
+    lower = ladder[ladder.index(nprobe) - 1]
+    c0 = ann_calls()
+    svc.degrade(1)
+    wait_all([svc.submit(b) for b in blocks[:8]])
+    c1 = ann_calls()
+    svc.restore()
+    wait_all([svc.submit(b) for b in blocks[8:16]])
+    c2 = ann_calls()
+    assert c1.get(lower, 0) > c0.get(lower, 0) and c2.get(nprobe, 0) > c1.get(nprobe, 0)
+    assert c1.get(nprobe, 0) == c0.get(nprobe, 0) and c2.get(lower, 0) == c1.get(lower, 0)
+    ann["degrade"] = {"served_nprobe": nprobe, "degraded_nprobe": lower,
+                      "batches_degraded": c1.get(lower, 0) - c0.get(lower, 0),
+                      "batches_restored": c2.get(nprobe, 0) - c1.get(nprobe, 0)}
+
+    # the delta arm alone: 64 rows in the delta, one request a batch
+    svc.insert(torch.arange(N_INDEX + ANN_INSERT, N_INDEX + ANN_INSERT + ANN_CHUNK), delta_vecs)
+    delta_state = svc._ann_state
+    delta_out = [svc.submit(q).result(timeout=120) for q in delta_qs]
+    torch.cuda.synchronize()
+    launched = counts(ann_name)
+    ann["path_ms"] = (time.perf_counter() - t_path) * 1e3
+    after_warmup = svc.kernel_libraries_after_warmup()
+    svc.close()
+    assert launched["ivf_tile"] > 0 and launched["select_tile"] > 0, launched
+    assert launched["knn_tile"] > 0, launched           # calibrate's ground truth
+    assert after_warmup == {"builds": 0, "loads": 0}, after_warmup
+    ann["launches"] = launched
+    ann["kernel_libraries_after_warmup"] = after_warmup
+
+    # the checks, after the path's counts are read: every load response
+    # bitwise equal to the port's unbatched search of its padded batch on
+    # the same snapshot and nprobe (and counted against the request alone)
+    by_trace = {f.trace().trace_id: (b, f) for b, f in zip(blocks, futs)}
+    assert sum(len(r) for r in load_batches) == len(futs)
+    for riders in load_batches:
+        batch = torch.cat([by_trace[t][0] for t in riders])
+        pd, pi = approx_knn_search(index0, pad_rows(batch, svc.policy.bucket_for(len(batch))),
+                                   K, nprobe=calibrated, device=dev)
+        at = 0
+        for t in riders:
+            b, f = by_trace[t]
+            d, i = f.result(timeout=0)
+            assert torch.equal(d, pd[at:at + len(b)]) and torch.equal(i, pi[at:at + len(b)]), (
+                "serve_ann_1M: a response differs from the search of its padded batch")
+            at += len(b)
+    alone_equal = 0
+    for b, f in zip(blocks, futs):
+        ad, ai = approx_knn_search(index0, b, K, nprobe=calibrated, device=dev)
+        d, i = f.result(timeout=0)
+        alone_equal += int(torch.equal(d, ad) and torch.equal(i, ai))
+    ann["responses_bitwise_equal_to_request_alone"] = alone_equal
+    assert alone_equal == len(futs), (
+        "serve_ann_1M: %d of %d responses differ from the search of the request alone"
+        % (len(futs) - alone_equal, len(futs)))
+    served_i = torch.cat([f.result(timeout=0)[1] for f in futs])
+    _, bf_i = brute_force_knn(X, load_rows, K, D.L2SqrtExpanded, device=dev)
+    ann["recall_at_100"] = (served_i[:, :, None] == bf_i[:, None, :]).any(-1).float().mean().item()
+    assert ann["recall_at_100"] >= ANN_TARGET - 0.05, ann["recall_at_100"]
+
+    # K3 against its plain version at the geometries this path gave it: a
+    # served padded batch at the calibrated nprobe on the index it was
+    # served from, and a padded batch of another rung on the index the
+    # compaction rebuilt at the ladder's top cell
+    first = torch.cat([by_trace[t][0] for t in load_batches[0]])
+    k3_cases = [("served batch", index0, pad_rows(first, svc.policy.bucket_for(len(first))),
+                 calibrated),
+                ("after the swap", post_swap.index,
+                 pad_rows(fixed_q[:40], svc.policy.bucket_for(40)), ladder[-1])]
+    ann["ivf_tile_checks"] = []
+    for what, idx, q, n_probe in k3_cases:
+        slots, _ = _probe_compact(q, idx.centroids, idx.cent_slots, n_probe)
+        S, cap = idx.slot_ids.shape
+        atol = l2_atol(q, X)
+        scan_args = (q, idx.slot_vecs, idx.slot_norms, idx.slot_ids, slots, K)
+        name = "ivf_tile serve_ann_1M %s (%d rows, nprobe %d)" % (what, len(q), n_probe)
+        e1 = check_knn(name, *fused_ivf_scan(*scan_args), *fused_ivf_scan_plain(*scan_args), atol)
+        work = scan_work_list(slots, S, cap, item_queries(DIM, dev))
+        flat = (q, idx.slot_vecs.reshape(S * cap, DIM), idx.slot_norms.reshape(-1),
+                idx.slot_ids.reshape(-1), work, cap, K, len(q) * slots.shape[1])
+        e2 = check_knn(name + " kernel alone", *ivf_items(*flat), *ivf_items_plain(*flat), atol)
+        errs["ivf_tile"] = max(errs["ivf_tile"], e1, e2)
+        ann["ivf_tile_checks"].append({"case": what, "rows": len(q), "nprobe": n_probe,
+                                       "slots": S, "cap": cap, "max_err": max(e1, e2),
+                                       "atol": atol})
+
+    # the host packing of the 1M index's lists (the build's labels, read
+    # back from its slots): the native route against the numpy route
+    live = ivf.slot_ids >= 0
+    labels = torch.empty(N_INDEX, dtype=torch.int64, device=dev)
+    labels[ivf.slot_ids[live].long()] = ivf.slot_centroid[:, None].expand_as(live)[live].long()
+    labels = labels.cpu().numpy()
+    pack = {}
+    for route, fn in (("native", _pack_lists), ("numpy", _pack_lists_numpy),
+                      ("native_again", _pack_lists), ("numpy_again", _pack_lists_numpy)):
+        t0 = time.perf_counter()
+        table, max_len = fn(labels, NLIST)
+        pack[route + "_ms"] = (time.perf_counter() - t0) * 1e3
+        if route == "native":
+            ref_table = table
+        assert np.array_equal(table, ref_table), "pack_lists: the two routes differ"
+    ann["pack_lists_1M"] = pack
+
+    # each inserted vector at distance 0 (the expanded form's rounding) with
+    # its own id, before the compaction (from the delta) and after it
+    ins_tol = l2_atol(new_vecs, X) ** 0.5
+    for name, outs in (("before", before), ("after", after)):
+        d = torch.cat([f.result(timeout=0)[0] for f in outs])
+        i = torch.cat([f.result(timeout=0)[1] for f in outs])
+        assert torch.equal(i[:, 0].cpu(), new_ids), "serve_ann_1M: an insert lost its id " + name
+        assert d[:, 0].max().item() <= ins_tol, (name, d[:, 0].max().item(), ins_tol)
+        ann["insert_max_dist_" + name] = d[:, 0].max().item()
+    # a fixed query set on the snapshots either side of the swap, at a full
+    # probe: below it the slots miss neighbours the delta's brute force finds
+    pre_d, pre_i = approx_knn_search(pre_swap.index, fixed_q, K, nprobe=NLIST,
+                                     delta=(pre_swap.delta_vecs, pre_swap.delta_ids), device=dev)
+    post_d, post_i = approx_knn_search(post_swap.index, fixed_q, K, nprobe=NLIST, device=dev)
+    ann["swap_max_err"] = check_knn("serve_ann_1M across the swap (squared)", post_d ** 2,
+                                    post_i, pre_d ** 2, pre_i, l2_atol(fixed_q, X))
+
+    # the delta arm: bitwise to its padded batch; against the request alone
+    # bitwise where cuBLAS picked the same product, else by tolerance and ids
+    delta = (delta_state.delta_vecs, delta_state.delta_ids)
+    d_alone_equal, d_err = 0, 0.0
+    for q, (d, i) in zip(delta_qs, delta_out):
+        pd, pi = approx_knn_search(delta_state.index, pad_rows(q, svc.policy.bucket_for(len(q))),
+                                   K, nprobe=nprobe, delta=delta, device=dev)
+        assert torch.equal(d, pd[:len(q)]) and torch.equal(i, pi[:len(q)]), (
+            "serve_ann_1M: a delta-arm response differs from the search of its padded batch")
+        ad, ai = approx_knn_search(delta_state.index, q, K, nprobe=nprobe, delta=delta, device=dev)
+        d_alone_equal += int(torch.equal(d, ad) and torch.equal(i, ai))
+        d_err = max(d_err, check_knn("serve_ann_1M delta arm vs alone (squared)", d ** 2, i,
+                                     ad ** 2, ai, l2_atol(q, X)))
+    ann["delta_arm"] = {"requests": len(delta_qs), "bitwise_equal_to_request_alone": d_alone_equal,
+                        "max_err_vs_alone": d_err}
+    paths[ann_name] = ann
+    print("serve_ann_1M: %s; every response bitwise equal to the search of its padded batch"
+          % json.dumps({k: v for k, v in ann.items() if k != "calibrate"}), flush=True)
+    del svc, index0, pre_swap, post_swap, delta_state
+
+    # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
+    # precisions, row norm, the two reductions and the transpose, each held
+    # against float64 on the card and timed with CUDA events
+    reset()
+    A, B = randn(N_LINALG, N_LINALG), randn(N_LINALG, N_LINALG)
+    A64, B64 = A.double(), B.double()
+    C64 = A64 @ B64
+    scale = (A64.abs() @ B64.abs()).max().item()
+    lin = {}
+    gemm_ops = 2.0 * N_LINALG ** 3
+    gemm_bytes = 3 * 4.0 * N_LINALG ** 2
+    for prec, peak in (("highest", PEAK_FP32_FLOPS), ("default", PEAK_TF32_FLOPS)):
+        err = (linalg.gemm(A, B, precision=prec, device=dev).double() - C64).abs().max().item()
+        assert err <= GEMM_RTOL[prec] * scale, (prec, err, scale)
+        # ms: one call between two events, the wrapper's host side before
+        # the product included; queued_ms: calls enqueued behind a spin,
+        # the card's time alone (the TFLOP/s)
+        ms = time_ms(lambda: linalg.gemm(A, B, precision=prec, device=dev), reps=10)
+        q_ms = queued_ms(lambda: linalg.gemm(A, B, precision=prec, device=dev), calls=10)
+        lin["gemm_" + prec] = {"ms": ms, "queued_ms": q_ms, "tflops": gemm_ops / q_ms / 1e9,
+                               "peak_tflops": peak / 1e12,
+                               "bound_ms": max(gemm_ops / peak, gemm_bytes / PEAK_BYTES) * 1e3,
+                               "max_err_over_abs_product": err / scale}
+    lin["gemm_highest"]["library_ms"] = time_ms(lambda: torch.mm(A, B), reps=10)
+    lin["gemm_highest"]["library_queued_ms"] = queued_ms(lambda: torch.mm(A, B), calls=10)
+    # the wrapper's host cost a call (takes_handle, the precision pin, the
+    # tracing range and timer): host seconds of calls on 64 x 64 operands,
+    # whose products the card runs faster than the host issues them
+    a64, b64 = A[:64, :64].contiguous(), B[:64, :64].contiguous()
+    host_us, traced = {}, tracing.is_enabled()
+    for name, fn in (("torch_mm", lambda: torch.mm(a64, b64)),
+                     ("gemm", lambda: linalg.gemm(a64, b64, device=dev)),
+                     ("gemm_tracing_off", lambda: linalg.gemm(a64, b64, device=dev)),
+                     ("precision_matmul", lambda: precision.matmul(a64, b64)),
+                     ("gemm_default", lambda: linalg.gemm(a64, b64, precision="default",
+                                                          device=dev))):
+        tracing.set_enabled(traced and name != "gemm_tracing_off")
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        torch.cuda.synchronize()
+        host_us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    tracing.set_enabled(traced)
+    lin["host_us_per_call_64"] = host_us
+    # on a handle's own stream: ordered after this stream's writes of A and
+    # B and before its next read, the same product bit for bit
+    handle = Handle(dev)
+    on_handle = linalg.gemm(A, B, handle=handle)
+    handle.sync_stream()
+    assert torch.equal(on_handle, linalg.gemm(A, B, device=dev)), "gemm on a handle's stream"
+    lin["gemm_on_handle_stream_bitwise"] = True
+    del on_handle
+    A_abs_rows, A_abs_cols = A64.abs().sum(1), A64.abs().sum(0)
+    in_bytes = 4.0 * N_LINALG ** 2
+    for name, fn, ref, tol, nbytes in [
+            ("row_norm_l2", lambda: linalg.row_norm(A, device=dev), (A64 * A64).sum(1),
+             1e-6 * (A64 * A64).sum(1), in_bytes + 4.0 * N_LINALG),
+            ("coalesced_reduction_sum", lambda: linalg.coalesced_reduction(A, device=dev),
+             A64.sum(1), SUM_RTOL * A_abs_rows, in_bytes + 4.0 * N_LINALG),
+            ("strided_reduction_sum", lambda: linalg.strided_reduction(A, device=dev),
+             A64.sum(0), SUM_RTOL * A_abs_cols, in_bytes + 4.0 * N_LINALG),
+            ("coalesced_reduction_max_tree",
+             lambda: linalg.coalesced_reduction(A, reduce_op=torch.maximum,
+                                                init=-float("inf"), device=dev),
+             A64.amax(1), 0.0, in_bytes + 4.0 * N_LINALG),
+            ("transpose", lambda: linalg.transpose(A, device=dev), A64.T, 0.0, 2 * in_bytes)]:
+        err = (fn().double() - ref).abs()
+        assert (err <= tol).all(), (name, err.max().item())
+        # ms: one call, its host side included; queued_ms: the device time
+        # of calls enqueued behind a spin
+        ms, q_ms = time_ms(fn, reps=20), queued_ms(fn)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        lin[name] = {"ms": ms, "queued_ms": q_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "bound_share": bound_ms / q_ms, "max_err": err.max().item()}
+    del A, B, A64, B64, C64
+    torch.cuda.synchronize()
+    lin["launches"] = counts()
+    paths["linalg_4096"] = lin
+    print("linalg_4096: %s" % json.dumps(lin), flush=True)
+
+    # 5d. Lanczos: the 8 smallest eigenpairs of the 64 x 64 grid Laplacian
+    lap64, exact = grid_laplacian(GRID, dev)
+    lap = lap64.float()
+    reset()
+    t0 = time.perf_counter()
+    vals, vecs, iters = linalg.compute_smallest_eigenvectors(
+        lap, GRID * GRID, N_EIG, maxiter=LANCZOS_MAXITER, restart_iter=LANCZOS_NCV,
+        tol=LANCZOS_TOL, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    lz_ms = (time.perf_counter() - t0) * 1e3
+    v64 = vecs.double()
+    resid = torch.linalg.vector_norm(lap64 @ v64 - v64 * vals.double()[None, :], dim=0)
+    val_err = (vals.double() - exact).abs()
+    assert resid.max().item() <= EIG_ATOL and val_err.max().item() <= EIG_ATOL, (resid, val_err)
+    paths["lanczos_grid64"] = {"ms": lz_ms, "iters": iters, "launches": counts(),
+                               "max_residual": resid.max().item(),
+                               "max_eigenvalue_err": val_err.max().item(),
+                               "eigenvalues": vals.tolist()}
+    print("lanczos 64 x 64 grid Laplacian, 8 smallest: %.1f ms, %d iterations, residuals <= %.3g, "
+          "eigenvalues within %.3g of the closed form (tolerance %g)"
+          % (lz_ms, iters, resid.max().item(), val_err.max().item(), EIG_ATOL), flush=True)
+    del lap64, lap, vecs, v64
+
     # 6. kernels at the main paths' shapes: kernel, plain version, yardstick
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
                 for name in wrappers}
@@ -820,8 +1243,12 @@ def main():
     k2_all = {}
     for path, shp in k2_shapes.items():
         for (m, w, k), n_launch in shp.items():
-            normal = path == "bfknn_L1_100k" or (path == "ivf_search_1M" and k == NPROBE)
-            run = None if normal else (128 if path == "knn_twophase_1M" else k)
+            run = 128 if path == "knn_twophase_1M" else k
+            # the L1 select, the IVF probes (k an nprobe) and the delta merge
+            # (one sorted run of k, then the delta's keys) take normal keys
+            normal = (path == "bfknn_L1_100k" or w % run
+                      or (path in ("ivf_search_1M", "serve_ann_1M") and k != K))
+            run = None if normal else run
             k2_all[(m, w, k, run)] = k2_all.get((m, w, k, run), 0) + n_launch
     k2_rows = []
     for (m, w, k, run), n_launch in sorted(k2_all.items(), key=lambda kv: kv[0][:3]):

@@ -8,9 +8,12 @@ pairwise distances (``brute_force_knn``, ``knn_merge_parts``,
 ``fused_l2_nn_min_reduce``), k-means (``kmeans``) and the IVF-Flat
 approximate index (``ivf_flat_build``, ``ivf_flat_search``,
 ``ivf_flat_extend``, ``ivf_flat_reconstruct``, ``approx_knn_build_index``,
-``approx_knn_search``), and the serving layer in front of brute-force
-kNN and pairwise distances (``KNNService``, ``PairwiseService``; more in
-:mod:`raft_tpu_torch.serve`).  Each entry point takes ``device=``
+``approx_knn_search``), the serving layer in front of brute-force
+kNN, pairwise distances and IVF-Flat (``KNNService``, ``PairwiseService``,
+``ANNService``; more in :mod:`raft_tpu_torch.serve`), and the dense
+library (:mod:`raft_tpu_torch.linalg`, :mod:`raft_tpu_torch.matrix`,
+:mod:`raft_tpu_torch.stats`, with ``Handle`` in
+:mod:`raft_tpu_torch.core.handle`).  Each entry point takes ``device=``
 (default ``"cuda"``) and raises when CUDA is asked for and missing;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.  The
 kernels (``ops/``) are CUDA C++ for ``sm_90a``, built with ``nvcc`` at
@@ -27,12 +30,13 @@ from raft_tpu_torch.spatial import (IVFFlatIndex, IVFFlatParams, approx_knn_buil
                                     haversine_knn, ivf_flat_build, ivf_flat_extend,
                                     ivf_flat_reconstruct, ivf_flat_search, knn_merge_parts,
                                     select_k)
-from raft_tpu_torch.serve import KNNService, PairwiseService
+from raft_tpu_torch.serve import ANNService, KNNService, PairwiseService
 from raft_tpu_torch.spectral import KmeansResult, kmeans
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "ANNService",
     "CommError",
     "CommTimeoutError",
     "DistanceType",

@@ -24,6 +24,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from raft_tpu_torch.core.device import resolve_device
+
 _INT32_MAX = torch.iinfo(torch.int32).max
 
 
@@ -61,16 +63,18 @@ class VecCache:
     n_vecs: cache capacity in vectors (rounded down to a multiple of
         ``associativity``).
     associativity: ways per set (reference ``associativity`` = 32).
-    dtype / device: of the stored vectors.
+    dtype / device: of the stored vectors (``device`` defaults to
+        ``"cuda"`` and raises when CUDA is missing; pass ``"cpu"`` for
+        the host).
     """
 
     def __init__(self, n_dim: int, n_vecs: int, associativity: int = 32,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.n_dim = n_dim
         self.assoc = min(associativity, max(n_vecs, 1))
         self.n_sets = max(n_vecs // self.assoc, 1)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def init(self) -> CacheState:
         dev = self.device

@@ -15,9 +15,9 @@ so a change affects the next construction.  The JAX
 package's tuning-table layer and the impl-choice and block-shape knobs
 that it serves (``core/tuning.py``) are not ported.  Free-form numeric
 and list knobs read through the typed helpers (:func:`get_int`,
-:func:`get_float`, :func:`get_float_list`), so that a malformed value
-fails as a :class:`LogicError` naming the knob and its environment
-variable.
+:func:`get_float`, :func:`get_int_list`, :func:`get_float_list`), so
+that a malformed value fails as a :class:`LogicError` naming the knob
+and its environment variable.
 
 Knobs
 -----
@@ -31,6 +31,13 @@ serve_breaker_window_failures / serve_breaker_cooldown_ms
     0 = no breaker).
 serve_tenant_weights
     ``"name:weight,..."`` weighted-fair tenants (empty = one queue).
+serve_ann_nprobe / serve_ann_nprobe_ladder / serve_ann_delta_cap /
+serve_ann_compact_rows / serve_ann_degrade_frac
+    :class:`~raft_tpu_torch.serve.ANNService`: the served probe count
+    (0 = the index's own), the ladder of probe counts that warmup and
+    calibrate walk, the delta segment's capacity, the auto-compaction
+    threshold (0 = manual only) and the queue fraction past which
+    batches are served one ladder step lower (0 = never).
 serve_slo_target_ms / serve_slo_objective / serve_slo_windows_s
     The per-service SLO tracker (:mod:`raft_tpu_torch.core.flight`).
 flight_events
@@ -45,7 +52,7 @@ from contextlib import contextmanager
 from typing import Dict, Iterator, Optional, Tuple
 
 __all__ = ["configure", "override", "get", "knob_default", "get_int",
-           "get_float", "get_float_list"]
+           "get_float", "get_int_list", "get_float_list"]
 
 # knob -> (env alias, default)
 _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
@@ -58,6 +65,11 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
         "RAFT_TPU_SERVE_BREAKER_WINDOW_FAILURES", "8"),
     "serve_breaker_cooldown_ms": ("RAFT_TPU_SERVE_BREAKER_COOLDOWN_MS", "250"),
     "serve_tenant_weights": ("RAFT_TPU_SERVE_TENANT_WEIGHTS", ""),
+    "serve_ann_nprobe": ("RAFT_TPU_SERVE_ANN_NPROBE", "0"),
+    "serve_ann_nprobe_ladder": ("RAFT_TPU_SERVE_ANN_NPROBE_LADDER", "4,8,16,32,64"),
+    "serve_ann_delta_cap": ("RAFT_TPU_SERVE_ANN_DELTA_CAP", "4096"),
+    "serve_ann_compact_rows": ("RAFT_TPU_SERVE_ANN_COMPACT_ROWS", "2048"),
+    "serve_ann_degrade_frac": ("RAFT_TPU_SERVE_ANN_DEGRADE_FRAC", "0.75"),
     "flight_events": ("RAFT_TPU_FLIGHT_EVENTS", "4096"),
     "serve_slo_target_ms": ("RAFT_TPU_SERVE_SLO_TARGET_MS", "100"),
     "serve_slo_objective": ("RAFT_TPU_SERVE_SLO_OBJECTIVE", "0.99"),
@@ -135,6 +147,16 @@ def get_float(name: str) -> float:
 
 def _split_list(raw) -> Tuple[str, ...]:
     return tuple(tok.strip() for tok in str(raw).split(",") if tok.strip())
+
+
+def get_int_list(name: str) -> Tuple[int, ...]:
+    """:func:`get` + comma-separated int-list parse; malformed →
+    :class:`LogicError` naming the knob and env var."""
+    raw = get(name)
+    try:
+        return tuple(int(tok) for tok in _split_list(raw))
+    except (TypeError, ValueError):
+        raise _parse_error(name, raw, "comma-separated integer list") from None
 
 
 def get_float_list(name: str) -> Tuple[float, ...]:

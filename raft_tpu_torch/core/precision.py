@@ -19,11 +19,22 @@ legacy setting cannot be read (torch raises when the caller mixed the two
 kinds), only the per-backend settings are pinned.  When the flags already
 ask for IEEE float32 nothing is written.
 
+A product at the JAX package's ``precision="default"`` runs in TF32 on
+the card (:func:`tf32`, :func:`matmul_tf32`), the analogue of XLA's
+single-pass default on the TPU: the same flags, pinned to TF32 for that
+one call and restored after.  On the CPU, which has no TF32, such a
+product runs in float32.
+
 The flags are process-global, not per thread.  Port calls in several
 threads share one pin (a count under a lock: the first call in pins, the
 last call out restores), so no port code ever leaves a flag changed or
-unpins another port call.  A caller that flips a flag from another
-thread while a port call runs can still race with it.
+unpins another port call.  A call that wants the other mode waits until
+the pin of the first is released, so a pin is held around one product
+(or a few with no caller code between them), never around a callable of
+the caller.  A thread that already holds a pin and asks for the other
+mode would wait on itself: it raises :class:`RaftError` instead.  A
+caller that flips a flag from another thread while a port call runs can
+still race with it.
 """
 
 from __future__ import annotations
@@ -33,9 +44,14 @@ import threading
 
 import torch
 
-_lock = threading.Lock()
+from raft_tpu_torch.core.error import RaftError
+
+_cond = threading.Condition()
 _depth = 0
+_mode = None         # "ieee" or "tf32" while pinned
 _saved = None        # what the first call in found, restored by the last out
+_LEGACY = {"ieee": "highest", "tf32": "high"}
+_held = threading.local()   # .depth: the pins this thread holds
 
 
 def _backends():
@@ -54,25 +70,29 @@ def _legacy():
         return None
 
 
-def is_ieee() -> bool:
-    """Whether a float32 product issued now runs in IEEE float32."""
+def _is(mode: str) -> bool:
     legacy = _legacy()
     values = [b.fp32_precision for b in _backends()]
     if legacy is None:  # the caller mixed the two kinds of setting
-        return bool(values) and all(v == "ieee" for v in values)
-    return legacy == "highest" and all(v in ("ieee", "none") for v in values)
+        return bool(values) and all(v == mode for v in values)
+    return legacy == _LEGACY[mode] and all(v in (mode, "none") for v in values)
 
 
-def _pin():
-    """Pin IEEE float32; returns what to restore, or None where nothing
-    was written."""
-    if is_ieee():
+def is_ieee() -> bool:
+    """Whether a float32 product issued now runs in IEEE float32."""
+    return _is("ieee")
+
+
+def _pin(mode: str):
+    """Pin ``mode``; returns what to restore, or None where nothing was
+    written."""
+    if _is(mode):
         return None
     saved = (_legacy(), [(b, b.fp32_precision) for b in _backends()])
     if saved[0] is not None:
-        torch.set_float32_matmul_precision("highest")
+        torch.set_float32_matmul_precision(_LEGACY[mode])
     for b, _ in saved[1]:
-        b.fp32_precision = "ieee"
+        b.fp32_precision = mode
     return saved
 
 
@@ -85,26 +105,55 @@ def _restore(saved) -> None:
 
 
 @contextlib.contextmanager
-def ieee_fp32():
-    """Float32 products inside the block run in IEEE float32 (module doc)."""
-    global _depth, _saved
-    with _lock:
+def _pinned(mode: str):
+    global _depth, _mode, _saved
+    mine = getattr(_held, "depth", 0)
+    with _cond:
+        if mine and _mode != mode:
+            raise RaftError("a %s product inside a pin of %s products in the same thread: the "
+                            "two modes do not nest (raft_tpu_torch.core.precision)"
+                            % (mode, _mode), collect_stack=False)
+        while _depth and _mode != mode:
+            _cond.wait()
         if _depth == 0:
-            _saved = _pin()
+            _saved = _pin(mode)
+            _mode = mode
         _depth += 1
+    _held.depth = mine + 1
     try:
         yield
     finally:
-        with _lock:
+        _held.depth = mine
+        with _cond:
             _depth -= 1
-            if _depth == 0 and _saved is not None:
-                _restore(_saved)
-                _saved = None
+            if _depth == 0:
+                if _saved is not None:
+                    _restore(_saved)
+                    _saved = None
+                _mode = None
+                _cond.notify_all()
+
+
+def ieee_fp32():
+    """Float32 products inside the block run in IEEE float32 (module doc)."""
+    return _pinned("ieee")
+
+
+def tf32():
+    """Float32 products inside the block run in TF32 on the card (module
+    doc)."""
+    return _pinned("tf32")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.matmul(a, b)`` with float32 operands in IEEE float32."""
     with ieee_fp32():
+        return torch.matmul(a, b)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with float32 operands in TF32 on the card."""
+    with tf32():
         return torch.matmul(a, b)
 
 

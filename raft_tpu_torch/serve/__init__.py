@@ -1,6 +1,7 @@
 """Serving layer: dynamic micro-batching query engine on one device.
 
-Port of ``raft_tpu/serve`` for the brute-force and pairwise paths.
+Port of ``raft_tpu/serve`` for the brute-force, pairwise and IVF-Flat
+paths.
 Concurrent callers submit small query blocks; a per-service worker
 coalesces them into one padded device call per shape bucket, so
 
@@ -14,7 +15,10 @@ coalesces them into one padded device call per shape bucket, so
   batch N+1 launches while batch N still runs on the card
   (:mod:`~raft_tpu_torch.serve.scheduler`),
 - facades own warmup / drain / close lifecycle and the optional
-  query-vector cache (:mod:`~raft_tpu_torch.serve.service`),
+  query-vector cache (:mod:`~raft_tpu_torch.serve.service`), and
+  :class:`ANNService` serves an IVF-Flat index with streaming ingestion,
+  compaction and recall-targeted probe counts
+  (:mod:`~raft_tpu_torch.serve.ann_service`),
 - the serving failure contract — serve-seam fault injection and the
   per-service circuit breaker — lives in
   :mod:`~raft_tpu_torch.serve.resilience`.
@@ -23,11 +27,12 @@ Every layer records into the flight recorder
 (:mod:`raft_tpu_torch.core.flight`): each admitted request carries a
 trace_id and ``ServeFuture.trace()`` returns its complete timeline.
 
-Not ported yet: ``ANNService``, replicas and sharded serving,
+Not ported yet: replicas and sharded serving,
 ``RecoveryManager`` and ``session.serve``, and the ops plane with its
 anomaly sentinel.
 """
 
+from raft_tpu_torch.serve.ann_service import ANNService  # noqa: F401
 from raft_tpu_torch.serve.batcher import MicroBatcher, ServeFuture  # noqa: F401
 from raft_tpu_torch.serve.bucketing import (  # noqa: F401
     BucketPolicy,
@@ -52,6 +57,6 @@ from raft_tpu_torch.serve.service import (  # noqa: F401
 __all__ = [
     "BucketPolicy", "resolve_rungs", "pad_rows", "coalesce", "split_rows",
     "MicroBatcher", "ServeFuture", "ServeWorker",
-    "Service", "KNNService", "PairwiseService",
+    "Service", "KNNService", "PairwiseService", "ANNService",
     "BreakerState", "CircuitBreaker", "ServeFaultInjector", "inject_worker",
 ]

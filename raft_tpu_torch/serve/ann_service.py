@@ -1,0 +1,592 @@
+"""ANNService: serve a resident IVF-Flat index with streaming ingestion.
+
+Port of ``raft_tpu/serve/ann_service.py`` for one IVF-Flat index on one
+device.  :class:`ANNService` fronts
+:func:`raft_tpu_torch.spatial.ann.approx_knn_search` through the
+micro-batching engine of :class:`~raft_tpu_torch.serve.service.Service`,
+and adds what a vector store needs beyond a static index:
+
+**Recall-targeted dispatch.**  The service owns a small *ladder* of
+``nprobe`` cells.  :meth:`warmup` runs every bucket rung x every cell x
+both delta arms once, so that every kernel library that serving,
+:meth:`calibrate` and :meth:`compact` reach is built and loaded before
+traffic (K3 and K2 on the search, K2 in the delta merge, K1 and K2 in the
+brute-force ground truth).  :meth:`calibrate` measures recall@k against
+an exact ground truth and the latency of each cell, then pins the
+smallest cell that meets the target; :meth:`set_nprobe` retargets.
+
+**Streaming ingestion.**  :meth:`insert` appends vectors to a
+fixed-capacity *delta segment*, a ``(delta_cap, dim)`` buffer scanned by
+brute force and merged into each batch's result
+(:func:`raft_tpu_torch.spatial.ann._delta_merge_impl`); an inserted
+vector is visible to the next formed batch.  When the delta crosses
+``compact_rows``, the worker's maintenance seam folds it into the IVF
+slots (:func:`raft_tpu_torch.spatial.ann.ivf_flat_extend`: nearest
+existing centroid, no k-means) and swaps the index between batches.
+Every batch reads one immutable :class:`_AnnState` (index and delta),
+so an insert or a swap never tears a batch.
+
+On the card, the state's tensors live on the worker's stream: the delta
+is published by a synchronous copy of a private copy of the host mirror
+on that stream (finished before :meth:`insert` returns; a later append
+to the mirror never reaches a published snapshot), and compaction runs
+on that stream too.  A batch launched before a swap is ordered before
+any reuse of the old index's memory by that stream, so the old index
+outlives the batches that read it.
+
+**Degraded dispatch.**  While the queue holds ``degrade_queue_frac`` of
+its cap, or the circuit breaker is half-open, batches are served one
+ladder step below the calibrated cell; :meth:`degrade` holds a number of
+steps by hand and :meth:`restore` releases it.
+
+Results are held bit for bit to the port's own
+:func:`~raft_tpu_torch.spatial.ann.approx_knn_search` of the batch the
+worker formed, on the same snapshot and nprobe.  The probe and the delta
+merge compute their distances with a matrix product (cuBLAS on the
+card), which may round a row differently at another row count, so a
+served row is held to the search of the same padded batch, as for the
+expanded metrics of ``PairwiseService``.
+
+Metrics (``raft_tpu_serve_ann_*``, labelled ``service=`` and, where
+noted, ``nprobe=``): ``delta_rows``, ``inserts_total``,
+``compactions_total``, ``compacted_rows_total``, ``compact_seconds``,
+``calls_total{nprobe=}``, and calibration's ``nprobe_seconds{nprobe=}``
+and ``recall{nprobe=}``; ``raft_tpu_serve_degraded_batches_total`` and
+``raft_tpu_serve_degraded_active``.  Each compaction records a
+``compaction`` flight event.
+
+Not ported yet, each raising a :class:`RaftError` that names its queue
+item (``ROADMAP.md``, queue 1) when asked for: IVF-PQ and IVF-SQ indexes
+and ``refine_ratio`` (item 4); ``ooc``, ``device_budget_bytes``,
+``tile_slots``, ``ooc_overlap``, ``ooc_promote_batches`` and the
+``persist_*`` arguments (item 5); ``mesh``, ``axis``, ``merge`` and
+``group_size``, with ``repartition`` and ``post_recover`` (item 6); and
+``select_impl`` (item 7).  The JAX package's buffer donation has no
+PyTorch counterpart (``serve/scheduler.py``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from raft_tpu_torch import config
+from raft_tpu_torch.core import flight
+from raft_tpu_torch.core import metrics as _metrics
+from raft_tpu_torch.core.device import as_tensor, resolve_device
+from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects
+from raft_tpu_torch.ops import _build
+from raft_tpu_torch.serve.resilience import BreakerState
+from raft_tpu_torch.serve.service import Service, _knob_float, _knob_int, _service_seq
+from raft_tpu_torch.spatial import ann as _ann
+from raft_tpu_torch.spatial.knn import brute_force_knn
+
+__all__ = ["ANNService"]
+
+_CPU = torch.device("cpu")
+
+# arguments of the JAX ANNService that wait for a later item of queue 1
+_DEFERRED = {
+    "refine_ratio": "item 4 (IVF-PQ and IVF-SQ)",
+    "ooc": "item 5 (out-of-core and durability)",
+    "device_budget_bytes": "item 5 (out-of-core and durability)",
+    "tile_slots": "item 5 (out-of-core and durability)",
+    "ooc_overlap": "item 5 (out-of-core and durability)",
+    "ooc_promote_batches": "item 5 (out-of-core and durability)",
+    "persist_dir": "item 5 (out-of-core and durability)",
+    "persist_fsync": "item 5 (out-of-core and durability)",
+    "snapshot_interval_s": "item 5 (out-of-core and durability)",
+    "persist_mmap": "item 5 (out-of-core and durability)",
+    "scrub_chunks": "item 5 (out-of-core and durability)",
+    "mesh": "item 6 (session and multi-GPU)",
+    "axis": "item 6 (session and multi-GPU)",
+    "merge": "item 6 (session and multi-GPU)",
+    "group_size": "item 6 (session and multi-GPU)",
+    "select_impl": "item 7 (core/tuning.py)",
+}
+
+
+class _AnnState(NamedTuple):
+    """One immutable serving snapshot: a batch reads exactly one, so an
+    insert or a compaction swap can never tear it."""
+
+    index: _ann.IVFFlatIndex
+    delta_vecs: torch.Tensor    # (delta_cap, dim) on the device, zeros past the count
+    delta_ids: torch.Tensor     # (delta_cap,) int32 on the device, -1 past the count
+    delta_rows: int
+
+
+def _labeled(kind: str, name: str, help: str, service: str, **extra):
+    """Registry family with ``service=`` plus optional extra labels,
+    resolved per use (a registry reset gets fresh families)."""
+    label_names = ("service",) + tuple(sorted(extra))
+    fam = getattr(_metrics.default_registry(), kind)(name, help=help, labels=label_names)
+    return fam.labels(service=service, **extra)
+
+
+def _parse_ladder(spec, nlist: int) -> tuple:
+    """An nprobe-ladder spec (comma string or int sequence) as an
+    ascending, deduplicated tuple clamped to ``nlist``."""
+    if isinstance(spec, str):
+        try:
+            spec = [int(tok) for tok in spec.split(",") if tok.strip()]
+        except ValueError:
+            raise ValueError("ANNService: nprobe ladder %r is not a comma-separated "
+                             "int list" % spec) from None
+    cells = sorted({min(int(c), nlist) for c in spec if int(c) >= 1})
+    expects(len(cells) > 0, "ANNService: empty nprobe ladder after clamping to nlist=%d",
+            nlist)
+    return tuple(cells)
+
+
+def _index_on(index: _ann.IVFFlatIndex, dev: torch.device) -> _ann.IVFFlatIndex:
+    """The index with every array on ``dev`` (no copy where it is there)
+    and its squared slot norms filled in."""
+    fields = {name: as_tensor(value, dev) if isinstance(value, (torch.Tensor, np.ndarray))
+              else value for name, value in index._asdict().items()}
+    out = _ann.IVFFlatIndex(**fields)
+    if out.slot_norms is None:
+        out = out._replace(slot_norms=(out.slot_vecs * out.slot_vecs).sum(dim=-1))
+    return out
+
+
+class ANNService(Service):
+    """Micro-batched :func:`~raft_tpu_torch.spatial.ann.approx_knn_search`
+    over one pinned IVF-Flat index, with streaming ingestion (module doc).
+
+    Parameters
+    ----------
+    index:
+        A prebuilt :class:`~raft_tpu_torch.spatial.ann.IVFFlatIndex`,
+        moved to ``device``.
+    k:
+        Neighbours returned per query row.
+    nprobe:
+        Probe count served by default; None resolves the
+        ``serve_ann_nprobe`` knob (0 = the index's build-time default).
+    nprobe_ladder:
+        Candidate cells for :meth:`warmup` and :meth:`calibrate`
+        (default: the ``serve_ann_nprobe_ladder`` knob), each clamped to
+        the index's ``nlist``; the served ``nprobe`` is always included.
+    delta_cap / compact_rows:
+        Delta-segment capacity and the auto-compaction threshold
+        (``serve_ann_delta_cap`` / ``serve_ann_compact_rows`` knobs);
+        ``compact_rows=0`` leaves compaction to :meth:`compact`.
+    degrade_queue_frac:
+        Queue fraction of the admission cap from which batches are
+        served one ladder step lower (``serve_ann_degrade_frac`` knob;
+        0 disables).
+    slot_multiple:
+        Compaction rounds the slot count up to a multiple of this, so
+        that successive compactions keep their shapes.
+    device:
+        Where the index lives and the searches run (default ``"cuda"``;
+        raises when CUDA is missing).
+    **opts:
+        The shared :class:`~raft_tpu_torch.serve.service.Service`
+        options (``max_batch_rows``, ``bucket_rungs``, ``max_wait_ms``,
+        ``queue_cap``, ``retry_policy``, ``breaker``, ``start``,
+        ``clock``, ...).  The JAX arguments that wait for a later item
+        raise (module doc).
+    """
+
+    def __init__(self, index, k: int, *,
+                 nprobe: Optional[int] = None,
+                 nprobe_ladder=None,
+                 delta_cap: Optional[int] = None,
+                 compact_rows: Optional[int] = None,
+                 degrade_queue_frac: Optional[float] = None,
+                 slot_multiple: int = 64,
+                 name: Optional[str] = None,
+                 device="cuda", **opts):
+        for arg, item in _DEFERRED.items():
+            if opts.pop(arg, None) not in (None, False):
+                raise RaftError("ANNService: %s= is not ported yet; it waits for queue 1 %s"
+                                % (arg, item), collect_stack=False)
+        if not isinstance(index, _ann.IVFFlatIndex):
+            raise RaftError("ANNService: only an IVFFlatIndex is served yet; %s waits for "
+                            "queue 1 %s" % (type(index).__name__, _DEFERRED["refine_ratio"]),
+                            collect_stack=False)
+        dev = resolve_device(device)
+        expects(k >= 1, "ANNService: k=%d", k)
+        self.k = int(k)
+        index = _index_on(index, dev)
+        self._nlist = int(index.centroids.shape[0])
+        dim = int(index.centroids.shape[1])
+        dtype = index.centroids.dtype
+        self._slot_multiple = int(slot_multiple)
+        # the stream the worker adopts (the current one at construction):
+        # the delta is published, and compaction runs, on it
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        if nprobe is None:
+            nprobe = _knob_int("serve_ann_nprobe")
+            if nprobe == 0:
+                nprobe = int(index.nprobe)
+        expects(nprobe >= 1, "ANNService: nprobe=%d", int(nprobe))
+        self._nprobe = min(int(nprobe), self._nlist)
+        if nprobe_ladder is None:
+            nprobe_ladder = config.get_int_list("serve_ann_nprobe_ladder")
+        self._nprobe_ladder = _parse_ladder(nprobe_ladder, self._nlist)
+        if self._nprobe not in self._nprobe_ladder:
+            self._nprobe_ladder = tuple(sorted(self._nprobe_ladder + (self._nprobe,)))
+
+        if delta_cap is None:
+            delta_cap = _knob_int("serve_ann_delta_cap")
+        expects(delta_cap >= 1, "ANNService: delta_cap=%d", delta_cap)
+        self._delta_cap = int(delta_cap)
+        if compact_rows is None:
+            compact_rows = _knob_int("serve_ann_compact_rows")
+        expects(compact_rows >= 0, "ANNService: compact_rows=%d", compact_rows)
+        self._compact_rows = min(int(compact_rows), self._delta_cap)
+        if degrade_queue_frac is None:
+            degrade_queue_frac = _knob_float("serve_ann_degrade_frac")
+        expects(0.0 <= degrade_queue_frac <= 1.0, "ANNService: degrade_queue_frac=%r",
+                degrade_queue_frac)
+        self._degrade_frac = float(degrade_queue_frac)
+        # the manual brownout lever (ladder steps); the pressure and
+        # breaker checks raise the level per batch without touching it
+        self._degrade_hold = 0
+
+        # the delta segment: a host mirror (the append target) and the
+        # device copy published in _ann_state; rows past the count carry -1
+        self._delta_lock = threading.Lock()
+        self._compact_lock = threading.Lock()
+        self._delta_vecs = torch.zeros((self._delta_cap, dim), dtype=dtype)
+        self._delta_ids = torch.full((self._delta_cap,), -1, dtype=torch.int32)
+        self._delta_count = 0
+        # the last compaction's duration: the retry_after_s hint of a
+        # full-delta shed
+        self._last_compact_s = 0.0
+        self._index = index
+        self.device = dev
+        self.name = name or "ann%d" % next(_service_seq)
+        self._publish_state_locked()
+
+        def execute(padded):
+            st = self._ann_state        # one snapshot per batch
+            nprobe_now, degraded = self._effective_nprobe()
+            delta = (st.delta_vecs, st.delta_ids) if st.delta_rows else None
+            _labeled("counter", "raft_tpu_serve_ann_calls_total",
+                     "ANN batches dispatched per probe count", self.name,
+                     nprobe=nprobe_now).inc()
+            if degraded:
+                _labeled("counter", "raft_tpu_serve_degraded_batches_total",
+                         "batches served below the calibrated quality cell (nprobe "
+                         "brownout)", self.name).inc()
+            self._degraded_gauge().set(1 if degraded else 0)
+            return self._snapshot_search(st, padded, nprobe_now, delta)
+
+        super().__init__(self.name, execute, dim=dim, dtype=dtype, device=dev,
+                         maintenance=self._maintenance_tick, **opts)
+
+    # ------------------------------------------------------------------ #
+    # snapshot plumbing
+    # ------------------------------------------------------------------ #
+    def _snapshot_search(self, st: _AnnState, q, nprobe, delta):
+        """The one search entry of dispatch, warmup and calibrate."""
+        return _ann.approx_knn_search(st.index, q, self.k, nprobe=nprobe, delta=delta,
+                                      device=self.device)
+
+    def _publish_state_locked(self) -> None:
+        """Rebuild the immutable snapshot from the host mirror (callers
+        hold ``_delta_lock``, or are in ``__init__``).  The device copy is
+        made from a private copy of the mirror, synchronously, on the
+        worker's stream (module doc)."""
+        vecs, ids = self._delta_vecs.clone(), self._delta_ids.clone()
+        with torch.cuda.stream(self._stream):
+            vecs, ids = vecs.to(self.device), ids.to(self.device)
+        self._ann_state = _AnnState(self._index, vecs, ids, self._delta_count)
+        _labeled("gauge", "raft_tpu_serve_ann_delta_rows",
+                 "rows in the append-only delta segment", self.name).set(self._delta_count)
+
+    @property
+    def nprobe(self) -> int:
+        return self._nprobe
+
+    @property
+    def nprobe_ladder(self) -> tuple:
+        return self._nprobe_ladder
+
+    @property
+    def delta_rows(self) -> int:
+        return self._ann_state.delta_rows
+
+    @property
+    def index(self) -> _ann.IVFFlatIndex:
+        """The index served now (compaction swaps visible)."""
+        return self._ann_state.index
+
+    def set_nprobe(self, nprobe: int) -> int:
+        """Retarget the served probe count (clamped to ``nlist``); takes
+        effect on the next formed batch."""
+        expects(int(nprobe) >= 1, "set_nprobe: nprobe=%d", int(nprobe))
+        self._nprobe = min(int(nprobe), self._nlist)
+        return self._nprobe
+
+    # ------------------------------------------------------------------ #
+    # degraded dispatch
+    # ------------------------------------------------------------------ #
+    def _degraded_gauge(self):
+        return _labeled("gauge", "raft_tpu_serve_degraded_active",
+                        "whether the last dispatched batch was served below the calibrated "
+                        "cell (per-batch signal; idle services keep the last value)",
+                        self.name)
+
+    def _degrade_level(self) -> int:
+        """Ladder steps to walk down for the next batch: the manual hold,
+        and at least one while the queue holds ``degrade_queue_frac`` of
+        its cap or the breaker is half-open."""
+        level = self._degrade_hold
+        if (self._degrade_frac > 0.0
+                and self.batcher.depth() >= self._degrade_frac * self.batcher.queue_cap):
+            level = max(level, 1)
+        br = self.breaker
+        if br is not None and br.state is BreakerState.HALF_OPEN:
+            level = max(level, 1)
+        return level
+
+    def _effective_nprobe(self):
+        """(nprobe, degraded) for the next batch: the served cell, or
+        ``level`` ladder steps below it (every cell is warmed)."""
+        base = self._nprobe
+        level = self._degrade_level()
+        if level <= 0:
+            return base, False
+        ladder = self._nprobe_ladder
+        # the served cell's place; an off-ladder value maps to the
+        # nearest cell at or below it
+        i = 0
+        for j, cell in enumerate(ladder):
+            if cell <= base:
+                i = j
+        eff = ladder[max(0, i - level)]
+        return min(eff, base), eff < base
+
+    def degrade(self, levels: int = 1) -> None:
+        """Hold dispatch ``levels`` ladder steps below the calibrated cell
+        (``levels=0`` is :meth:`restore`)."""
+        expects(levels >= 0, "degrade: levels=%d", levels)
+        self._degrade_hold = int(levels)
+
+    def restore(self) -> None:
+        """Release the manual hold (pressure and breaker degradation still
+        apply while their cause lasts)."""
+        self._degrade_hold = 0
+        if self._degrade_level() == 0:
+            self._degraded_gauge().set(0)
+
+    # ------------------------------------------------------------------ #
+    # warmup: every bucket rung x every nprobe cell, both delta arms
+    # ------------------------------------------------------------------ #
+    def warmup(self) -> "ANNService":
+        """Run every (bucket rung x nprobe cell) search on zeros, with an
+        empty and with a blank delta, and the brute-force ground truth
+        of :meth:`calibrate` once on the centroids, on the worker's
+        stream, and wait.  Every kernel library serving, calibration
+        and compaction reach is then built and loaded; the count taken
+        here is what ``stats()`` holds still."""
+        st = self._ann_state
+        dev = self.device
+        with torch.cuda.stream(self._stream):
+            blank = (torch.zeros((self._delta_cap, self.dim), dtype=self.dtype, device=dev),
+                     torch.full((self._delta_cap,), -1, dtype=torch.int32, device=dev))
+            for rung in self.policy.rungs:
+                for cell in self._nprobe_ladder:
+                    for delta in (None, blank):
+                        self._snapshot_search(
+                            st, torch.zeros((rung, self.dim), dtype=self.dtype, device=dev),
+                            cell, delta)
+            brute_force_knn(st.index.centroids, torch.zeros((1, self.dim), dtype=self.dtype,
+                                                            device=dev),
+                            min(self.k, self._nlist), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._warmed = self.policy.rungs
+        self._warm_kernels = _build.stats()
+        return self
+
+    # ------------------------------------------------------------------ #
+    # streaming ingestion
+    # ------------------------------------------------------------------ #
+    def insert(self, ids, vectors) -> int:
+        """Append vectors to the delta segment under caller-owned global
+        ids (non-negative, disjoint from the index's: the caller's
+        contract).  Visible to the next formed batch; returns the delta's
+        row count after the append.
+
+        Raises :class:`~raft_tpu_torch.core.error.ServiceOverloadError`
+        when the segment lacks room: retry after compaction (automatic at
+        ``compact_rows``, or :meth:`compact`)."""
+        expects(self.is_open(), "%s.insert: service is closed", self.name)
+        v = as_tensor(vectors, _CPU)
+        if v.ndim == 1:
+            v = v[None, :]
+        expects(v.ndim == 2 and v.shape[1] == self.dim,
+                "%s.insert: expected (rows, %d) vectors, got %r", self.name, self.dim,
+                tuple(v.shape))
+        v = v.to(self.dtype)
+        key = as_tensor(ids, _CPU).reshape(-1).to(torch.int32)
+        expects(key.shape[0] == v.shape[0], "%s.insert: %d ids for %d vectors", self.name,
+                key.shape[0], v.shape[0])
+        expects(key.shape[0] == 0 or bool((key >= 0).all()),
+                "%s.insert: negative ids (the delta reserves -1 for unfilled capacity)",
+                self.name)
+        n = int(v.shape[0])
+        if n == 0:
+            return self._delta_count
+        expects(n <= self._delta_cap, "%s.insert: %d rows exceed the whole delta capacity %d",
+                self.name, n, self._delta_cap)
+        with self._delta_lock:
+            at = self._delta_count
+            if at + n > self._delta_cap:
+                raise ServiceOverloadError(
+                    "%s.insert: delta segment full (%d + %d > cap %d); wait for compaction "
+                    "and retry" % (self.name, at, n, self._delta_cap), at, self._delta_cap,
+                    retry_after_s=max(self._last_compact_s, 0.05))
+            self._delta_vecs[at:at + n] = v
+            self._delta_ids[at:at + n] = key
+            self._delta_count = at + n
+            self._publish_state_locked()
+        _labeled("counter", "raft_tpu_serve_ann_inserts_total",
+                 "vectors ingested into the delta segment", self.name).inc(n)
+        return at + n
+
+    def _maintenance_tick(self) -> None:
+        """Worker-loop hook: compact when the delta crosses the threshold
+        (never while draining: drain serves out, it starts no rebuild)."""
+        if (self._compact_rows and self._delta_count >= self._compact_rows
+                and not self.batcher.draining()):
+            self.compact()
+
+    def compact(self) -> bool:
+        """Fold the delta segment into the IVF slots and swap the served
+        index (module doc); False when the delta was empty.  Safe from
+        any thread (serialised by a lock); rows inserted during the
+        rebuild stay in the delta for the next round."""
+        with self._compact_lock:
+            with self._delta_lock:
+                n0 = self._delta_count
+                if n0 == 0:
+                    return False
+                vecs = self._delta_vecs[:n0].clone()
+                keys = self._delta_ids[:n0].numpy().copy()
+                old_index = self._index
+            t0 = self._clock()
+            with torch.cuda.stream(self._stream):
+                new_index = _ann.ivf_flat_extend(old_index, vecs, keys,
+                                                 slot_multiple=self._slot_multiple,
+                                                 device=self.device)
+            if self._stream is not None:
+                self._stream.synchronize()
+            with self._delta_lock:
+                rem = self._delta_count - n0
+                if rem:
+                    self._delta_vecs[:rem] = self._delta_vecs[n0:self._delta_count].clone()
+                    self._delta_ids[:rem] = self._delta_ids[n0:self._delta_count].clone()
+                self._delta_ids[rem:] = -1
+                self._delta_count = rem
+                self._index = new_index
+                self._publish_state_locked()   # the atomic swap
+        _labeled("counter", "raft_tpu_serve_ann_compactions_total",
+                 "delta-to-slots compactions", self.name).inc()
+        _labeled("counter", "raft_tpu_serve_ann_compacted_rows_total",
+                 "rows folded into IVF slots by compaction", self.name).inc(n0)
+        self._last_compact_s = self._clock() - t0
+        _labeled("timer", "raft_tpu_serve_ann_compact_seconds",
+                 "compaction latency (re-cluster + swap)", self.name).observe(
+                     self._last_compact_s)
+        flight.record("compaction", service=self.name, rows=int(n0),
+                      seconds=round(self._last_compact_s, 6))
+        return True
+
+    # ------------------------------------------------------------------ #
+    # recall-targeted dispatch
+    # ------------------------------------------------------------------ #
+    def ground_truth_store(self, reference=None, *, state: Optional[_AnnState] = None):
+        """(vectors, int64 global ids) as numpy for an exact ground truth:
+        the caller's reference matrix (ids = row numbers) or the index's
+        own content, plus the live delta rows, all read from one
+        snapshot (``state``, by default the current one)."""
+        st = state if state is not None else self._ann_state
+        if reference is not None:
+            vecs = as_tensor(reference, _CPU).numpy()
+            ids = np.arange(vecs.shape[0], dtype=np.int64)
+        else:
+            vecs, ids = _ann.ivf_flat_reconstruct(st.index)
+        if st.delta_rows:
+            vecs = np.concatenate([vecs, st.delta_vecs[:st.delta_rows].cpu().numpy()])
+            ids = np.concatenate([ids, st.delta_ids[:st.delta_rows].cpu().numpy()
+                                  .astype(np.int64)])
+        return vecs, ids
+
+    def calibrate(self, queries, target_recall: float = 0.9, *, reference=None,
+                  set_default: bool = True, measure_all: bool = False) -> dict:
+        """Walk the nprobe ladder for the smallest cell that reaches
+        ``target_recall`` (recall@k against a brute-force ground truth
+        computed once), timing each cell through the serving search.
+
+        Returns ``{"chosen_nprobe", "target_recall", "met_target", "k",
+        "table": [{nprobe, recall_at_k, latency_s}, ...]}``; with
+        ``set_default`` the chosen cell becomes the served ``nprobe``.
+        The walk stops at the first cell that meets the target unless
+        ``measure_all``."""
+        q = self._check_payload(queries)
+        expects(0.0 < target_recall <= 1.0, "%s.calibrate: target_recall=%r", self.name,
+                target_recall)
+        # one snapshot for the ground truth and every measured search
+        st = self._ann_state
+        gt_vecs, gt_ids = self.ground_truth_store(reference, state=st)
+        expects(gt_vecs.shape[0] >= self.k, "%s.calibrate: ground-truth store has %d rows "
+                "< k=%d", self.name, gt_vecs.shape[0], self.k)
+        _, gt_rows = brute_force_knn(gt_vecs, q, self.k, device=self.device)
+        gt = gt_ids[gt_rows.cpu().numpy()]
+        delta = (st.delta_vecs, st.delta_ids) if st.delta_rows else None
+        table = []
+        chosen = None
+        for cell in self._nprobe_ladder:
+            t0 = self._clock()
+            out = self._snapshot_search(st, q, cell, delta)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = self._clock() - t0
+            got = out[1].cpu().numpy()
+            recall = float(np.mean([len(set(got[r]) & set(gt[r])) / self.k
+                                    for r in range(got.shape[0])]))
+            _labeled("timer", "raft_tpu_serve_ann_nprobe_seconds",
+                     "calibration search latency per probe count", self.name,
+                     nprobe=cell).observe(dt)
+            _labeled("gauge", "raft_tpu_serve_ann_recall", "calibration recall@k per probe "
+                     "count", self.name, nprobe=cell).set(recall)
+            table.append({"nprobe": cell, "recall_at_k": round(recall, 4),
+                          "latency_s": round(dt, 5)})
+            if chosen is None and recall >= target_recall:
+                chosen = cell
+                if not measure_all:
+                    break   # the ladder ascends: the first hit is the cheapest
+        met = chosen is not None
+        if chosen is None:
+            chosen = self._nprobe_ladder[-1]
+        if set_default:
+            self.set_nprobe(chosen)
+        return {"chosen_nprobe": chosen, "target_recall": target_recall, "met_target": met,
+                "k": self.k, "table": table}
+
+    # ------------------------------------------------------------------ #
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update({
+            "kind": type(self._index).__name__,
+            "nprobe": self._nprobe,
+            "nprobe_ladder": list(self._nprobe_ladder),
+            "delta_rows": self.delta_rows,
+            "delta_cap": self._delta_cap,
+            "compact_rows": self._compact_rows,
+            "degrade_queue_frac": self._degrade_frac,
+            "degrade_hold": self._degrade_hold,
+            "last_compact_s": self._last_compact_s,
+        })
+        return out

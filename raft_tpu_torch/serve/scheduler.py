@@ -162,6 +162,11 @@ class ServeWorker:
         ``execute(padded_batch) -> tensor or tuple of tensors``, each
         with the padded batch's rows as its leading dimension (the
         contract that makes per-request splitting mechanical).
+    device:
+        The device the service runs on (required: no default stands for
+        the CPU).  For a CUDA device the worker coalesces, pads and
+        launches on the stream that is current for it at construction
+        (:attr:`stream`).
     retry_policy:
         Optional :class:`~raft_tpu_torch.comms.resilience.RetryPolicy` around
         each device call — per-attempt watchdog deadline + backoff
@@ -188,10 +193,6 @@ class ServeWorker:
         it open re-enqueues its riders **once** (``_Request.requeued``)
         instead of failing them — the in-flight-futures-survive-
         recovery guarantee.
-    device:
-        The device the service runs on.  For a CUDA device the worker
-        coalesces, pads and launches on the stream that is current for
-        it at construction (:attr:`stream`).
     clock:
         Shared with the batcher for deadline math.
     """
@@ -199,12 +200,12 @@ class ServeWorker:
     def __init__(self, name: str, batcher: MicroBatcher,
                  policy: BucketPolicy,
                  execute: Callable,
+                 device,
                  retry_policy=None,
                  maintenance: Optional[Callable[[], None]] = None,
                  maintenance_interval_s: float = 0.05,
                  breaker=None,
                  slo=None,
-                 device=None,
                  clock: Callable[[], float] = time.monotonic):
         self.name = name
         self._batcher = batcher
@@ -212,7 +213,7 @@ class ServeWorker:
         self._execute = execute
         # the stream every batch is coalesced, padded and launched on
         # (None = the CPU: nothing runs asynchronously there)
-        device = torch.device("cpu") if device is None else torch.device(device)
+        device = torch.device(device)
         self.stream = (torch.cuda.current_stream(device)
                        if device.type == "cuda" else None)
         self._retry_policy = retry_policy

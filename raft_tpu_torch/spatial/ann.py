@@ -11,9 +11,11 @@ seeded row subsample (``train_rows``, the same rows as the JAX package
 draws), then one chunked nearest-centroid pass over all rows.  Lists are
 cut on the host into fixed-length *slots* of ``cap`` rows (cap = mean list
 size rounded up to 8): a hot list owns several slots, and storage stays
-below ``n_rows + nlist * cap`` whatever the skew.  The packing is the JAX
-package's numpy route; its native ``cpp/src/host_runtime.cpp`` binding
-waits.  Squared slot norms are stored with the index.  Each stage runs
+below ``n_rows + nlist * cap`` whatever the skew.  The lists are packed by
+the native host runtime (``rt_build_lists`` through
+:mod:`raft_tpu_torch.core.native`), as in the JAX package; the numpy
+route runs only on a machine without ``g++``.  Squared slot norms are
+stored with the index.  Each stage runs
 in a named ``torch.profiler`` range (``ivf_flat_build.*``, ``kmeans.*``),
 so a trace of one build times its stages.
 
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import native, precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import round_up_safe
@@ -123,10 +125,19 @@ def _coarse_assign(X: torch.Tensor, nlist: int, seed: int,
 
 
 # --------------------------------------------------------------------- #
-# host packing (numpy)
+# host packing
 # --------------------------------------------------------------------- #
 def _pack_lists(labels: np.ndarray, nlist: int) -> Tuple[np.ndarray, int]:
-    """(nlist, max_len) row-id table, -1 padded, and max_len."""
+    """(nlist, max_len) row-id table, -1 padded, and max_len: the native
+    ``rt_build_lists``, or the numpy route where there is no ``g++``."""
+    nat = native.build_lists(labels, nlist)
+    if nat is not None:
+        return nat
+    return _pack_lists_numpy(labels, nlist)
+
+
+def _pack_lists_numpy(labels: np.ndarray, nlist: int) -> Tuple[np.ndarray, int]:
+    """The numpy route of :func:`_pack_lists`."""
     counts = np.bincount(labels, minlength=nlist)
     max_len = max(int(counts.max()), 1)
     order = np.argsort(labels, kind="stable")

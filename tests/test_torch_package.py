@@ -15,7 +15,10 @@ import pytest
 import torch
 
 import raft_tpu_torch
-from raft_tpu_torch import RaftError
+from raft_tpu_torch import RaftError, linalg, matrix, stats
+from raft_tpu_torch.cache import VecCache
+from raft_tpu_torch.core.handle import Handle
+from raft_tpu_torch.serve import BucketPolicy, MicroBatcher, ServeWorker
 from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build
@@ -46,7 +49,11 @@ def test_import_pulls_in_no_jax():
 @pytest.mark.parametrize("module", ["raft_tpu_torch.serve", "raft_tpu_torch.cache",
                                     "raft_tpu_torch.comms.faults", "raft_tpu_torch.config",
                                     "raft_tpu_torch.core.tracing",
-                                    "raft_tpu_torch.comms.resilience"])
+                                    "raft_tpu_torch.comms.resilience",
+                                    "raft_tpu_torch.serve.ann_service",
+                                    "raft_tpu_torch.core.native", "raft_tpu_torch.core.handle",
+                                    "raft_tpu_torch.core.debug", "raft_tpu_torch.linalg",
+                                    "raft_tpu_torch.matrix", "raft_tpu_torch.stats"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
@@ -87,6 +94,14 @@ ENTRY_POINTS = {
     "approx_knn_search": lambda x, q: raft_tpu_torch.approx_knn_search(_cpu_index(x), q, 3),
     "KNNService": lambda x, q: raft_tpu_torch.KNNService(x, 3, start=False),
     "PairwiseService": lambda x, q: raft_tpu_torch.PairwiseService(x, start=False),
+    "ANNService": lambda x, q: raft_tpu_torch.ANNService(_cpu_index(x), 3, start=False),
+    "VecCache": lambda x, q: VecCache(4, 8),
+    "Handle": lambda x, q: Handle(),
+    "linalg.gemm": lambda x, q: linalg.gemm(x, q, trans_b=True),
+    "linalg.compute_smallest_eigenvectors": lambda x, q: linalg.compute_smallest_eigenvectors(
+        x[:4, :4] + x[:4, :4].T, 4, 1),
+    "matrix.copy_rows": lambda x, q: matrix.copy_rows(x, np.array([0, 1])),
+    "stats.mean": lambda x, q: stats.mean(x),
 }
 
 
@@ -112,6 +127,15 @@ def test_services_run_on_the_cpu_when_asked(cls, monkeypatch):
     fut = svc.submit(x[:2])
     svc.close()
     assert fut.exception(timeout=0) is None
+
+
+def test_serve_worker_takes_its_device_explicitly():
+    # no default device stands for the CPU
+    batcher = MicroBatcher(max_batch_rows=8, max_wait_s=0.0, queue_cap=4)
+    with pytest.raises(TypeError, match="device"):
+        ServeWorker("w", batcher, BucketPolicy((8,)), lambda p: p)
+    worker = ServeWorker("w", batcher, BucketPolicy((8,)), lambda p: p, device="cpu")
+    assert worker.stream is None
 
 
 def _no_build(monkeypatch):

@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch import DistanceType, IVFFlatParams, ivf_flat_build, ivf_flat_search, kmeans
+from raft_tpu_torch import (DistanceType, IVFFlatParams, RaftError, ivf_flat_build,
+                            ivf_flat_search, kmeans,
+                            linalg)
 from raft_tpu_torch.core import precision
 from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan_plain
@@ -116,6 +118,27 @@ def _site_ivf_scan_plain():
     fused_ivf_scan_plain(_f32(nq, d, seed=1), sv, (sv * sv).sum(-1), si, slots, 3)
 
 
+def _site_gemm():
+    linalg.gemm(_f32(9, 8), _f32(8, 5, seed=1), device="cpu")
+
+
+def _site_gemv():
+    linalg.gemv(_f32(9, 8), _f32(8, seed=1), device="cpu")
+
+
+def _site_svd_eig():
+    linalg.svd_eig(_f32(12, 5), device="cpu")
+
+
+def _site_svd_reconstruction():
+    linalg.svd_reconstruction(_f32(6, 3), _f32(3, seed=1), _f32(4, 3, seed=2), device="cpu")
+
+
+def _site_lanczos():
+    a = _f32(40, 40)
+    linalg.compute_smallest_eigenvectors(a + a.T, 40, 2, maxiter=60, device="cpu")
+
+
 SITES = {
     "distance/pairwise.py matmul": _site_pairwise,
     "spectral/kmeans.py _assign": _site_kmeans_assign,
@@ -125,6 +148,11 @@ SITES = {
     "ops/knn_tile.py twophase_tiles_plain": _site_twophase_plain,
     "ops/nn_tile.py nn_tile_plain": _site_nn_tile_plain,
     "ops/ivf_tile.py plain scan": _site_ivf_scan_plain,
+    "linalg/gemm.py gemm": _site_gemm,
+    "linalg/gemm.py gemv": _site_gemv,
+    "linalg/svd.py svd_eig": _site_svd_eig,
+    "linalg/svd.py svd_reconstruction": _site_svd_reconstruction,
+    "linalg/lanczos.py": _site_lanczos,
 }
 
 
@@ -134,6 +162,90 @@ def test_site_runs_in_ieee_float32(site, tf32_caller, spy):
     SITES[site]()
     assert spy, "%s made no product through torch.matmul or torch.bmm" % site
     assert all(ieee for _, ieee in spy), spy
+    assert _flags() == tf32_caller
+
+
+def test_gemm_default_precision_pins_tf32_for_the_call(tf32_caller, spy, monkeypatch):
+    # the JAX default precision: the card's TF32 mode, pinned for that call
+    # only, whatever the caller set, and the caller's setting back after
+    torch.set_float32_matmul_precision("highest")
+    before = _flags()
+    seen = []
+    real = torch.matmul
+    monkeypatch.setattr(torch, "matmul", lambda *a: (seen.append(precision._is("tf32")),
+                                                     real(*a))[1])
+    linalg.gemm(_f32(9, 8), _f32(8, 5, seed=1), precision="default", device="cpu")
+    assert seen == [True]
+    assert _flags() == before and precision.is_ieee()
+
+
+def test_the_two_modes_wait_for_each_other(tf32_caller):
+    # a TF32 call in one thread, an IEEE call in another: the second waits
+    # until the first pin is released, so neither runs under the other's
+    inside, release, order = threading.Event(), threading.Event(), []
+
+    def worker():
+        with precision.tf32():
+            inside.set()
+            release.wait(10)
+            order.append(("tf32", precision._is("tf32")))
+
+    t = threading.Thread(target=worker)
+    t.start()
+    assert inside.wait(10)
+    threading.Timer(0.2, release.set).start()
+    with precision.ieee_fp32():
+        order.append(("ieee", precision.is_ieee()))
+    t.join(10)
+    assert not t.is_alive()
+    assert order == [("tf32", True), ("ieee", True)]
+    assert _flags() == tf32_caller
+
+
+def test_the_other_mode_inside_a_pin_of_the_same_thread_raises(tf32_caller):
+    # a thread that holds a pin would wait on itself for the other mode:
+    # it raises instead, and the pin it holds is released as usual
+    with precision.ieee_fp32():
+        with precision.ieee_fp32():                 # the same mode nests
+            assert precision.is_ieee()
+        with pytest.raises(RaftError, match="do not nest"):
+            with precision.tf32():
+                pass
+        assert precision.is_ieee()
+    with precision.tf32():
+        with pytest.raises(RaftError, match="do not nest"):
+            precision.matmul(_f32(3, 3), _f32(3, 3))
+    assert _flags() == tf32_caller
+
+
+def test_lanczos_holds_no_pin_around_the_callers_operator(tf32_caller):
+    # the operator makes TF32 products (gemv at precision="default") and
+    # waits, in its first call, for a TF32 product of another thread: with
+    # a pin held over the whole solve the first would raise and the second
+    # would wait for the solve to end
+    a = _f32(48, 48)
+    a = a + a.T
+    seen = []
+
+    def other_thread_tf32():
+        t = threading.Thread(target=lambda: seen.append(
+            ("thread", linalg.gemm(a, a, precision="default", device="cpu").shape)))
+        t.start()
+        t.join(10)
+        assert not t.is_alive(), "a TF32 product of another thread waited for the solve"
+
+    def mv(x):
+        if not seen:
+            other_thread_tf32()
+        seen.append(("mv", precision.is_ieee()))
+        return linalg.gemv(a, x, precision="default", device="cpu")
+
+    vals, vecs, _ = linalg.compute_smallest_eigenvectors(mv, 48, 3, maxiter=480, device="cpu")
+    ref, _, _ = linalg.compute_smallest_eigenvectors(a, 48, 3, maxiter=480, device="cpu")
+    torch.testing.assert_close(vals, ref, rtol=1e-4, atol=1e-4)
+    assert seen[0] == ("thread", (48, 48))
+    # the operator runs with the caller's own setting (TF32), pinned by no one
+    assert all(mode is False for tag, mode in seen[1:]), seen
     assert _flags() == tf32_caller
 
 

@@ -513,7 +513,7 @@ def test_submit_keys_equals_submit(index, rng):
 
 @pytest.mark.parametrize("n_vecs,assoc", [(64, 8), (12, 4), (8, 32)])
 def test_vec_cache_matches_jax(rng, n_vecs, assoc):
-    ours, theirs = VecCache(4, n_vecs, assoc), JaxVecCache(4, n_vecs, assoc)
+    ours, theirs = VecCache(4, n_vecs, assoc, device="cpu"), JaxVecCache(4, n_vecs, assoc)
     s, js = ours.init(), theirs.init()
     for step in range(6):
         keys = rng.integers(0, 40, size=7).astype(np.int32)

@@ -2,6 +2,7 @@
 """Where the time of the IVF-Flat paths of raft_tpu_torch goes on the card.
 
     python3 tools/torch_ivf_profile.py [--out build/ivf_profile] [--widths 64,32,16]
+        [--serve-ann] [--ann-nprobe 4,8]
 
 Draws the Gaussian mixture of ``chip_smoke.py`` on the card (1M x 128,
 256 blobs, spread 0.35, seed 0; the last 1024 rows are the queries), then
@@ -32,6 +33,15 @@ holds: the search's scan lists cut by ``scan_work_list`` at that width),
 K3's kernel alone at k = 100 and at k = 1 (where the selection costs
 next to nothing), with the item count.
 
+With ``--serve-ann``, one more line: ``ANNService`` over the same index
+at the settings of ``chip_smoke.py``'s ``serve_ann_1M`` (k 100, rungs
+8/32/64/128), served threadless: the host and device time of one
+128-row search at each ``--ann-nprobe`` (a host clock up to a
+synchronize, the host clock of the enqueue alone, and CUDA events), then
+a trace of 20 full batches of 128 rows formed and dispatched by the
+worker (``worker.run_once``): the device's busy and idle share, time by
+kernel, and the stages as above.
+
 Prints the card (``nvidia-smi``) and one JSON line per path and per
 width; the traces go to ``--out``.  Needs a CUDA device; imports nothing
 of JAX.
@@ -51,7 +61,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from raft_tpu_torch import IVFFlatParams, ivf_flat_build, ivf_flat_search  # noqa: E402
+from raft_tpu_torch import (ANNService, IVFFlatParams, approx_knn_search,  # noqa: E402
+                            ivf_flat_build, ivf_flat_search)
 from raft_tpu_torch.ops import _build  # noqa: E402
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, ivf_items, scan_work_list  # noqa: E402
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile  # noqa: E402
@@ -145,6 +156,10 @@ def main():
     ap.add_argument("--out", default="build/ivf_profile")
     ap.add_argument("--widths", default="64,32,16",
                     help="comma-separated work-item widths for K3")
+    ap.add_argument("--serve-ann", action="store_true",
+                    help="also profile ANNService's served batches")
+    ap.add_argument("--ann-nprobe", default="4,8",
+                    help="comma-separated probe counts of the served batches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_ivf_profile: no CUDA device")
@@ -204,6 +219,49 @@ def main():
                           "k3_kernel_ms": events_ms(lambda: ivf_items(*store, K, n_out)),
                           # k = 1: the selection's share is the difference
                           "k3_kernel_k1_ms": events_ms(lambda: ivf_items(*store, 1, n_out))}))
+    if args.serve_ann:
+        serve_ann(index, X, gen, [int(p) for p in args.ann_nprobe.split(",")], out)
+
+
+def serve_ann(index, X, gen, cells, out):
+    """Time and trace ANNService's batches of 128 rows (module doc)."""
+    rows, riders, batches = 128, 8, 20
+    dev = X.device
+    pool = X[torch.randint(0, N, (batches * rows,), device=dev, generator=gen)]
+    pool = pool + torch.randn(pool.shape, device=dev, generator=gen) * 0.35
+    for nprobe in cells:
+        svc = ANNService(index, K, nprobe=nprobe, nprobe_ladder=(nprobe,),
+                         bucket_rungs=(8, 32, 64, 128), max_batch_rows=rows, max_wait_ms=2.0,
+                         compact_rows=0, start=False, device=dev)
+        svc.warmup()
+        q = pool[:rows]
+        _, search_ms = wall_ms(lambda: approx_knn_search(index, q, K, nprobe=nprobe, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        approx_knn_search(index, q, K, nprobe=nprobe, device=dev)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = events_ms(lambda: approx_knn_search(index, q, K, nprobe=nprobe, device=dev))
+
+        def serve_batches():
+            for b in range(batches):
+                futs = [svc.submit(x) for x in pool[b * rows:(b + 1) * rows].split(rows // riders)]
+                assert svc.worker.run_once()
+                for f in futs:
+                    f.result(timeout=60)
+
+        serve_batches()
+        _, served_ms = wall_ms(serve_batches)
+        window, busy, top, stages = traced(serve_batches, out / ("serve_ann_%d.json" % nprobe))
+        svc.close()
+        per_batch = {name: {key: v / batches for key, v in st.items()}
+                     for name, st in stages.items()}
+        print(json.dumps({"path": "serve_ann_1M batches", "nprobe": nprobe, "rows": rows,
+                          "search_ms": search_ms, "search_enqueue_ms": enqueue_ms,
+                          "search_events_ms": device_ms, "served_ms_per_batch": served_ms / batches,
+                          "traced_ms_per_batch": window / batches,
+                          "device_busy_ms_per_batch": busy / batches,
+                          "device_idle_share": 1.0 - busy / window,
+                          "stages_traced_per_batch": per_batch, "top_kernels": top}))
 
 if __name__ == "__main__":
     main()
