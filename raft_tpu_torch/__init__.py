@@ -12,8 +12,13 @@ approximate index (``ivf_flat_build``, ``ivf_flat_search``,
 kNN, pairwise distances and IVF-Flat (``KNNService``, ``PairwiseService``,
 ``ANNService``; more in :mod:`raft_tpu_torch.serve`), and the dense
 library (:mod:`raft_tpu_torch.linalg`, :mod:`raft_tpu_torch.matrix`,
-:mod:`raft_tpu_torch.stats`, with ``Handle`` in
-:mod:`raft_tpu_torch.core.handle`).  Each entry point takes ``device=``
+:mod:`raft_tpu_torch.stats`, :mod:`raft_tpu_torch.random`,
+:mod:`raft_tpu_torch.label`, :mod:`raft_tpu_torch.lap`, with ``Handle`` in
+:mod:`raft_tpu_torch.core.handle`), the sparse core
+(:mod:`raft_tpu_torch.sparse`: COO and CSR, conversions, element ops,
+linear algebra, ``fit_embedding``) and spectral partitioning on CSR
+(:mod:`raft_tpu_torch.spectral`: ``partition``,
+``modularity_maximization``).  Each entry point takes ``device=``
 (default ``"cuda"``) and raises when CUDA is asked for and missing;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.  The
 kernels (``ops/``) are CUDA C++ for ``sm_90a``, built with ``nvcc`` at

@@ -20,7 +20,8 @@ the device's properties.  On the card those are PyTorch's own:
 
 :func:`takes_handle` gives a primitive the reference's ``handle_t&``
 contract: it appends ``handle=None`` and ``device=None`` keywords, moves
-every array argument (numpy array or tensor) to the handle's device (or
+every array argument (numpy array, tensor, or a sparse container with a
+``to_device`` method) to the handle's device (or
 ``device``, default ``"cuda"``; a primitive with a ``device`` parameter
 of its own, one that makes tensors from no array, is given it), and on
 the card runs the call on the handle's main stream.  That stream first
@@ -192,11 +193,15 @@ def _tensors(tree) -> List[torch.Tensor]:
         return [tree]
     if isinstance(tree, (list, tuple)):
         return [t for x in tree for t in _tensors(x)]
+    if hasattr(tree, "to_device"):       # a sparse container
+        return list(tree.tensors())
     return []
 
 
 def _on_device(x, dev: torch.device):
-    return as_tensor(x, dev) if isinstance(x, (np.ndarray, torch.Tensor)) else x
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        return as_tensor(x, dev)
+    return x.to_device(dev) if hasattr(x, "to_device") else x
 
 
 @contextlib.contextmanager

@@ -28,6 +28,14 @@ where fewer than k candidates exist.
    step-major and K2 keeps the smaller column on ties, so ties resolve to
    the earlier step, then the smaller row.
 
+The queries go through the three steps in chunks, so that the partial
+buffers of a chunk, ``chunk * n_steps`` rows of k float32 distances and
+k int32 ids, stay within :data:`PARTIAL_BUDGET_BYTES` (one query a chunk
+at least; :func:`queries_per_chunk`).  A full probe of a 1M-row index in
+1024 lists of up to 5 slots (1024 queries, 5,120 scan steps, k 100)
+would otherwise hold 4.2 GB of partial rows.  Each entry's top-k depends on its own (query, slot) pair
+alone and K2 works a row at a time, so the chunking changes no result.
+
 On the CPU the same steps run with :func:`ivf_items_plain` in the
 kernel's place (and K2's plain version), so the CPU tests hold the glue
 that the card runs against the JAX package; :func:`fused_ivf_scan_plain`
@@ -59,6 +67,8 @@ from raft_tpu_torch.ops.knn_tile import DEPTH_UNIT, pad_depth
 from raft_tpu_torch.ops.select_tile import select_tile
 
 MAX_K = 128
+# bytes of one chunk's partial buffers (module doc)
+PARTIAL_BUDGET_BYTES = 256 << 20
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -216,6 +226,16 @@ def item_queries(d: int, device: torch.device) -> int:
     return fn(ceildiv(d, DEPTH_UNIT) * DEPTH_UNIT)
 
 
+def queries_per_chunk(n_steps: int, k: int, n_q: int) -> int:
+    """Queries a chunk of :func:`fused_ivf_scan` takes: as many as the
+    budget holds, rounded down to a multiple of the item width ``n_q``
+    where it holds that many (a chunk of 65 queries that all probe a slot
+    would cut it into four full items and one of a single entry, each
+    reading the slot's rows), and one at least."""
+    chunk = max(1, PARTIAL_BUDGET_BYTES // (n_steps * k * 8))
+    return chunk - chunk % n_q if chunk >= n_q else chunk
+
+
 def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
                    slot_norms: torch.Tensor, slot_ids: torch.Tensor,
                    slots: torch.Tensor, k: int,
@@ -255,13 +275,26 @@ def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
     expects(d > 0 and cap > 0, "fused_ivf_scan: empty slots")
+    store = (slot_vecs.reshape(S * cap, d), slot_norms.reshape(-1), slot_ids.reshape(-1))
+    chunk = queries_per_chunk(n_steps, k, n_q)
+    if chunk >= nq:
+        return _scan_chunk(queries, store, slots, cap, k, n_q, accum_bf16)
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    for q0 in range(0, nq, chunk):
+        out_d[q0:q0 + chunk], out_i[q0:q0 + chunk] = _scan_chunk(
+            queries[q0:q0 + chunk], store, slots[q0:q0 + chunk], cap, k, n_q, accum_bf16)
+    return out_d, out_i
+
+
+def _scan_chunk(queries, store, slots, cap, k, n_q, accum_bf16):
+    """The three steps of :func:`fused_ivf_scan` for one chunk of queries."""
+    nq, n_steps = slots.shape
     # one profiler range a step, so that a trace splits the function's time
     with record_function("fused_ivf_scan.work_list"):
-        work = scan_work_list(slots, S, cap, n_q)
+        work = scan_work_list(slots, store[0].shape[0] // cap, cap, n_q)
     with record_function("fused_ivf_scan.kernel"):
-        part_d, part_i = ivf_items(queries, slot_vecs.reshape(S * cap, d),
-                                   slot_norms.reshape(-1), slot_ids.reshape(-1), work, cap, k,
-                                   nq * n_steps, accum_bf16)
+        part_d, part_i = ivf_items(queries, *store, work, cap, k, nq * n_steps, accum_bf16)
     with record_function("fused_ivf_scan.merge"):
         out_d, pos = select_tile(part_d.view(nq, n_steps * k), k)
         return out_d, torch.gather(part_i.view(nq, n_steps * k), 1, pos.long())

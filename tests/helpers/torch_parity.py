@@ -28,3 +28,32 @@ def assert_knn_close(d_ref, i_ref, d_got, i_got, rtol, atol):
             assert abs(d - kth) <= atol + rtol * abs(kth), (
                 "row %d: id %d at distance %r is not a tie with the k-th "
                 "reference distance %r" % (row, idx, d, kth))
+
+
+def adjusted_rand_index(a, b) -> float:
+    """The adjusted Rand index of two labellings (the contingency-table
+    formula of tests/test_scale_stress.py)."""
+    a, b = np.asarray(a).ravel(), np.asarray(b).ravel()
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    c = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
+    np.add.at(c, (ai, bi), 1)
+
+    def comb2(x):
+        return x * (x - 1) / 2.0
+
+    sum_ij = comb2(c.astype(np.float64)).sum()
+    sum_a = comb2(c.sum(axis=1).astype(np.float64)).sum()
+    sum_b = comb2(c.sum(axis=0).astype(np.float64)).sum()
+    expected = sum_a * sum_b / comb2(float(a.size))
+    top = 0.5 * (sum_a + sum_b)
+    return 1.0 if top == expected else float((sum_ij - expected) / (top - expected))
+
+
+def max_principal_angle(u, v) -> float:
+    """The largest principal angle (radians) between the column spans of
+    ``u`` and ``v`` (float64)."""
+    qu, _ = np.linalg.qr(np.asarray(u, np.float64))
+    qv, _ = np.linalg.qr(np.asarray(v, np.float64))
+    s = np.linalg.svd(qu.T @ qv, compute_uv=False)
+    return float(np.arccos(np.clip(s.min(), -1.0, 1.0)))

@@ -16,6 +16,7 @@ from helpers.torch_parity import assert_knn_close
 from raft_tpu.ops.ivf_tile import fused_ivf_scan as jax_fused_ivf_scan
 from raft_tpu.ops.ivf_tile import fused_ivf_scan_xla
 from raft_tpu_torch import LogicError
+from raft_tpu_torch.ops import ivf_tile
 from raft_tpu_torch.ops.ivf_tile import (fused_ivf_scan, fused_ivf_scan_plain, ivf_items_plain,
                                          scan_work_list)
 from raft_tpu_torch.ops.select_tile import select_tile
@@ -236,3 +237,52 @@ def test_items_plain_leaves_unnamed_rows_unfilled():
     named[work.out_rows[:int((torch.from_numpy(slots) >= 0).sum())].long()] = True
     assert torch.isinf(out_d[~named]).all() and (out_i[~named] == -1).all()
     assert (out_i[named] >= 0).all()                # 21 live rows in each slot, k = 5
+
+
+# (case of ROUTE_CASES, queries a chunk's budget holds; 0: less than one
+# query's partial rows, so each chunk takes one query)
+CHUNK_CASES = [("crowded", 7), ("crowded", 64), ("k128", 0), ("d13", 2)]
+
+
+@pytest.mark.parametrize("budget_queries,chunk", [(0, 1), (1, 1), (15, 15), (16, 16), (65, 64),
+                                                  (1000, 992)])
+def test_chunks_hold_whole_items(budget_queries, chunk, monkeypatch):
+    # a chunk of at least one item's queries is a multiple of the item
+    # width, so that no slot's last item in a chunk runs part-empty
+    n_steps, k = 40, 100
+    monkeypatch.setattr(ivf_tile, "PARTIAL_BUDGET_BYTES", budget_queries * n_steps * k * 8 + 7)
+    assert ivf_tile.queries_per_chunk(n_steps, k, 16) == chunk
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=lambda c: "%s-%d" % c)
+def test_chunked_scan_equals_the_unchunked_scan(case, monkeypatch):
+    # a budget of a few queries' partial rows cuts the queries into
+    # several chunks: no chunk's (rows, k) partial buffers exceed the
+    # budget, and the result is the one-chunk scan's.  Not bit for bit on
+    # the CPU: the plain per-item products are one bmm an item, and the
+    # CPU's bmm rounds a row by a few ulps otherwise at another batch
+    # count (the card's kernel computes each entry alone; chip_smoke.py
+    # holds its chunked scan bitwise to one chunk)
+    name, per_chunk = case
+    _, S, cap, d, k, nq, n_steps, vac, _ = next(c for c in ROUTE_CASES if c[0] == name)
+    args = [torch.from_numpy(a) for a in _route_case(S, cap, d, nq, n_steps, vac,
+                                                     crowded=name == "crowded")]
+    whole = fused_ivf_scan(*args, k)
+    budget = max(per_chunk * n_steps * k * 8 + 5, 8)
+    monkeypatch.setattr(ivf_tile, "PARTIAL_BUDGET_BYTES", budget)
+    buffer_rows = []
+    items = ivf_tile.ivf_items
+
+    def spy(*a):
+        buffer_rows.append(a[7])        # n_out, the rows of the partial buffers
+        return items(*a)
+
+    monkeypatch.setattr(ivf_tile, "ivf_items", spy)
+    got = fused_ivf_scan(*args, k)
+    chunk = max(1, per_chunk)
+    assert ivf_tile.queries_per_chunk(n_steps, k, 16) == chunk   # 16 entries an item on the CPU
+    assert len(buffer_rows) == -(-nq // chunk) > 1
+    assert all(r <= chunk * n_steps for r in buffer_rows)
+    assert all(r * k * 8 <= budget for r in buffer_rows) or chunk == 1
+    assert_knn_close(whole[0].numpy(), whole[1].numpy(), got[0].numpy(), got[1].numpy(),
+                     RTOL, ATOL)

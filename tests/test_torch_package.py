@@ -18,6 +18,16 @@ import raft_tpu_torch
 from raft_tpu_torch import RaftError, linalg, matrix, stats
 from raft_tpu_torch.cache import VecCache
 from raft_tpu_torch.core.handle import Handle
+from raft_tpu_torch.label import make_monotonic, merge_labels
+from raft_tpu_torch.lap import LinearAssignmentProblem, solve_lap
+from raft_tpu_torch.random import Rng
+from raft_tpu_torch.sparse import COO, CSR
+from raft_tpu_torch.sparse import convert as sparse_convert
+from raft_tpu_torch.sparse import linalg as sparse_linalg
+from raft_tpu_torch.sparse import op as sparse_op
+from raft_tpu_torch.sparse.spectral import fit_embedding
+from raft_tpu_torch import spectral
+from raft_tpu_torch.spectral.spectral_util import transform_eigen_matrix
 from raft_tpu_torch.serve import BucketPolicy, MicroBatcher, ServeWorker
 from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
@@ -53,7 +63,11 @@ def test_import_pulls_in_no_jax():
                                     "raft_tpu_torch.serve.ann_service",
                                     "raft_tpu_torch.core.native", "raft_tpu_torch.core.handle",
                                     "raft_tpu_torch.core.debug", "raft_tpu_torch.linalg",
-                                    "raft_tpu_torch.matrix", "raft_tpu_torch.stats"])
+                                    "raft_tpu_torch.matrix", "raft_tpu_torch.stats",
+                                    "raft_tpu_torch.random", "raft_tpu_torch.label",
+                                    "raft_tpu_torch.lap", "raft_tpu_torch.sparse",
+                                    "raft_tpu_torch.sparse.spectral",
+                                    "raft_tpu_torch.spectral"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
@@ -71,6 +85,17 @@ def test_sources_import_no_jax():
 
 def _cpu_index(x):
     return raft_tpu_torch.ivf_flat_build(x, raft_tpu_torch.IVFFlatParams(nlist=2), device="cpu")
+
+
+def _cpu_graph(x):
+    """A symmetric CSR on the CPU (asked for explicitly) of x's 20 rows."""
+    adj = (np.abs(x[:, None, 0] - x[None, :, 0]) < 0.5).astype(np.float32)
+    np.fill_diagonal(adj, 0)
+    return CSR.from_dense(adj, device="cpu")
+
+
+def _cpu_coo(x):
+    return sparse_convert.csr_to_coo(_cpu_graph(x))
 
 
 ENTRY_POINTS = {
@@ -102,6 +127,29 @@ ENTRY_POINTS = {
         x[:4, :4] + x[:4, :4].T, 4, 1),
     "matrix.copy_rows": lambda x, q: matrix.copy_rows(x, np.array([0, 1])),
     "stats.mean": lambda x, q: stats.mean(x),
+    "Rng": lambda x, q: Rng(0),
+    "label.make_monotonic": lambda x, q: make_monotonic(np.array([3, 1, 3], np.int32)),
+    "label.merge_labels": lambda x, q: merge_labels(np.array([1, 2]), np.array([2, 2]),
+                                                    np.array([True, True])),
+    "lap.solve_lap": lambda x, q: solve_lap(x[:4, :4]),
+    "lap.LinearAssignmentProblem": lambda x, q: LinearAssignmentProblem().solve(
+        np.stack([x[:4, :4]] * 2)),
+    "sparse.COO": lambda x, q: COO(np.array([0]), np.array([1]), np.array([1.0]), (2, 2)),
+    "sparse.CSR.from_dense": lambda x, q: CSR.from_dense(x),
+    "sparse.convert.dense_to_csr": lambda x, q: sparse_convert.dense_to_csr(x),
+    "sparse.op.max_duplicates": lambda x, q: sparse_op.max_duplicates(_cpu_coo(x)),
+    "sparse.linalg.csr_spmv": lambda x, q: sparse_linalg.csr_spmv(_cpu_graph(x),
+                                                                  np.ones(20, np.float32)),
+    "sparse.linalg.weak_cc": lambda x, q: sparse_linalg.weak_cc(_cpu_graph(x)),
+    "sparse.spectral.fit_embedding": lambda x, q: fit_embedding(_cpu_coo(x), 2),
+    "spectral.partition": lambda x, q: spectral.partition(_cpu_graph(x)),
+    "spectral.analyze_partition": lambda x, q: spectral.analyze_partition(
+        _cpu_graph(x), 2, np.zeros(20, np.int32)),
+    "spectral.modularity_maximization": lambda x, q: spectral.modularity_maximization(
+        _cpu_graph(x)),
+    "spectral.analyze_modularity": lambda x, q: spectral.analyze_modularity(
+        _cpu_graph(x), 2, np.zeros(20, np.int32)),
+    "spectral.transform_eigen_matrix": lambda x, q: transform_eigen_matrix(x),
 }
 
 

@@ -25,6 +25,8 @@ from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan_plain
 from raft_tpu_torch.ops.knn_tile import knn_tile_plain, twophase_tiles_plain
 from raft_tpu_torch.ops.nn_tile import nn_tile_plain
 from raft_tpu_torch.spatial.ann import _delta_merge_impl
+from raft_tpu_torch import spectral
+from raft_tpu_torch.sparse import CSR
 
 D = DistanceType
 
@@ -139,6 +141,21 @@ def _site_lanczos():
     linalg.compute_smallest_eigenvectors(a + a.T, 40, 2, maxiter=60, device="cpu")
 
 
+def _graph():
+    adj = (_f32(30, 30) < 0.3).to(torch.float32)
+    return CSR.from_dense(torch.triu(adj, 1) + torch.triu(adj, 1).T, device="cpu")
+
+
+def _site_dense_operator():
+    spectral.LaplacianMatrix(_graph(), densify=True).mv(_f32(30, seed=1))
+
+
+def _site_partition():
+    # the sparse operator makes no product; Lanczos and the k-means
+    # assignment do
+    spectral.partition(_graph(), device="cpu")
+
+
 SITES = {
     "distance/pairwise.py matmul": _site_pairwise,
     "spectral/kmeans.py _assign": _site_kmeans_assign,
@@ -153,6 +170,8 @@ SITES = {
     "linalg/svd.py svd_eig": _site_svd_eig,
     "linalg/svd.py svd_reconstruction": _site_svd_reconstruction,
     "linalg/lanczos.py": _site_lanczos,
+    "spectral/matrix_wrappers.py dense operator": _site_dense_operator,
+    "spectral/partition.py": _site_partition,
 }
 
 
