@@ -59,7 +59,25 @@ paths through the public entry points with ``device="cuda"``:
   the device's busy share of a third solve from a trace;
   ``modularity_maximization`` at 100k (Q against float64); and
   ``fit_embedding`` on the 2,048-vertex graph of ``bench.py:_bench_spectral``,
-  its span against the float64 eigenvectors.
+  its span against the float64 eigenvectors;
+- single linkage (``sparse.hierarchy.single_linkage``) on the blobs of
+  ``bench.py:make_blobs`` (a numpy copy): the JAX rung at 50,000 x 2
+  (``single_linkage_50k``) and 1,000,000 x 16 (``single_linkage_1M``),
+  3 clusters, kNN graph with c = 15 (K1): three labels, ARI above 0.99
+  against the blobs and against scipy's single linkage on a 2,000-point
+  subsample, two runs bitwise equal, each stage's time, the peak
+  allocation, and at 1M the device's busy share of a traced run; K1 at
+  the kNN graph's shape against its plain version, and at 50k the host
+  runtime's cut timed beside the port's, the labels equal;
+- the sparse engine at the 20 newsgroups shape (``sparse_l1_newsgroups``,
+  11,314 x 130,107, 150 Zipf terms a row drawn on the card): the L1
+  ``sparse.distance.pairwise_distance`` (column-tiled, K5 without its
+  epilog over two column tiles) against scipy in float64 on 4,096 pairs,
+  and ``sparse.selection.brute_force_knn`` (k = 10, K5 then K2) against
+  the pairwise matrix's top-k, each twice bitwise equal, with K5's share
+  of each call from a trace; K5 against its plain version on the path's
+  own densified blocks (the kNN's, at the whole depth with the epilog;
+  the pairwise engine's, over each column tile without it).
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -82,7 +100,9 @@ w = k, and at every shape the paths launched it at with k = 1, 32, 64,
 100 and 128; its row times each of those shapes on keys like the path's
 beside ``torch.topk``, with their launch-weighted total.  K5 is held
 against its plain version for every metric at ragged shapes, depths 1,
-3, 77, 128, 300 and 4096 and rows off 16-byte alignment; its bound counts
+3, 77, 128, 300 and 4096 and rows off 16-byte alignment, with and without
+its epilog (the accumulate-only mode, also timed at the column-tiled
+engine's 1024 x 1024 x 65,536); its bound counts
 the FP32 instructions a step issues at the SM clock read after its
 timing.  ``ivf_flat_build`` runs twice with one seed and must give the
 same index bit for bit.  Any failure raises, and the script exits
@@ -162,6 +182,26 @@ CUMSUM_RTOL = 1e-4         # the "cumsum" SpMV: a float32 running sum of up to 6
 # the SpMV's least bytes: a column id, a value and a gathered x element an
 # entry; an indptr entry, an x and a y element a row
 SPMV_BYTES_PER_NNZ, SPMV_BYTES_PER_ROW = 12, 12
+# single linkage: the JAX rung (bench.py:2576-2595: make_blobs at 50,000 x
+# 2, 3 blobs, seed 0, kNN graph with c = 15) and the same generator at
+# 1,000,000 x 16; the checks of tests/test_scale_stress.py:42-70
+LINKAGE_SIZES = {"50k": (50_000, 2), "1M": (1_000_000, 16)}
+LINKAGE_BLOBS, LINKAGE_SUBSAMPLE, LINKAGE_MIN_ARI = 3, 2_000, 0.99
+# the sizes at which the host runtime's cut (rt_extract_clusters, a walk
+# from every leaf to its root) is timed beside the port's and must give
+# the same labels; it grows with m times the tree's depth
+LINKAGE_HOST_CUT_SIZES = ("50k",)
+# the sparse engine at the shape of scikit-learn's
+# fetch_20newsgroups_vectorized train split (synthetic data, Zipf s = 1)
+NEWS_ROWS, NEWS_COLS, NEWS_TERMS, NEWS_ZIPF = 11_314, 130_107, 150, 1.0
+NEWS_K, NEWS_PAIRS, NEWS_PAIR_RTOL, NEWS_KNN_RTOL = 10, 4096, 1e-4, 1e-5
+# the row blocks of sparse pairwise_distance and brute_force_knn (their
+# defaults), at which K5 is held against its plain version on the path's
+# own densified blocks
+NEWS_PAIRWISE_BLOCK, NEWS_KNN_BLOCK = 1024, 2048
+# K5's accumulate-only launch of the column-tiled engine at that shape,
+# and its tolerance against the plain version, of the largest sum
+K5_RAW_SHAPE, K5_RAW_RTOL = (1024, 1024, 65_536), 1e-4
 
 
 def card_line():
@@ -446,6 +486,241 @@ def traced_busy(fn, trace_path):
     return wall, busy / 1e3, top
 
 
+def make_blobs(rng, m, d, n_blobs, spread=0.15):
+    """(X, labels): Gaussian blobs, a numpy copy of ``bench.py:make_blobs``
+    (the generator of the JAX linkage rung and tests/test_scale_stress.py)."""
+    centers = rng.standard_normal((n_blobs, d)) * 4.0
+    labels = rng.integers(0, n_blobs, m)
+    X = (centers[labels] + rng.standard_normal((m, d)) * spread).astype(np.float32)
+    return X, labels
+
+
+def purity(labels, truth, n_clusters):
+    """Each cluster's majority share of the planted labels (bench.py:2590-2594)."""
+    correct = sum(np.bincount(truth[labels == c]).max()
+                  for c in range(n_clusters) if (labels == c).any())
+    return float(correct) / len(labels)
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def linkage_path(size, dev, reset, counts, mods, trace_path=None):
+    """``single_linkage`` of make_blobs at LINKAGE_SIZES[size], twice (the
+    second traced when ``trace_path`` is given): stage times, peak bytes
+    above the call's start, the checks of tests/test_scale_stress.py:42-70
+    (three labels, ARI against the blobs and against scipy's single
+    linkage on a 2,000-point subsample), purity, the two runs bitwise
+    equal.  Then K1 at the kNN graph's shape against its plain version,
+    and at LINKAGE_HOST_CUT_SIZES the host runtime's cut beside the
+    port's.  ``mods``: the port's functions this path calls."""
+    import scipy.cluster.hierarchy as sch
+
+    single_linkage = mods["single_linkage"]
+
+    m, d = LINKAGE_SIZES[size]
+    name = "single_linkage_" + size
+    X_np, truth = make_blobs(np.random.default_rng(SEED), m, d, LINKAGE_BLOBS)
+    X = torch.from_numpy(X_np).to(dev)
+    out = {"rows": m, "dim": d, "blobs": LINKAGE_BLOBS, "k": int(np.log2(m)) + 15}
+    runs = []
+    for run in range(2):
+        stages = {} if run == 0 else None
+        reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if run == 1 and trace_path is not None:
+            box = []
+            wall, busy, top = traced_busy(
+                lambda: box.append(single_linkage(X, LINKAGE_BLOBS, device=dev)), trace_path)
+            res = box[0]
+            out.update({"traced_ms": wall, "traced_device_busy_ms": busy,
+                        "traced_device_idle_share": 1.0 - busy / wall,
+                        "traced_top_kernels": top})
+        else:
+            t0 = time.perf_counter()
+            try:
+                res = single_linkage(X, LINKAGE_BLOBS, stages=stages, device=dev)
+            except Exception:
+                # where it stopped: the stages and fix-ups it reached
+                print("%s stopped: %s" % (name, json.dumps(stages)), flush=True)
+                raise
+            torch.cuda.synchronize()
+            out["ms" if run == 0 else "second_ms"] = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        out["peak_bytes" if run == 0 else "second_peak_bytes"] = peak
+        launched = counts(name)
+        if run == 0:
+            out["launches"], out["stages"] = launched, stages
+        runs.append(res)
+    res, res2 = runs
+    labels = np.asarray(res.labels)
+    assert labels.shape == (m,) and len(np.unique(labels)) == LINKAGE_BLOBS, (name, labels)
+    assert res.children.shape == (m - 1, 2) and res.sizes[-1] == m, name
+    assert np.isfinite(res.deltas).all() and (np.diff(res.deltas) >= 0).all(), name
+    for field in ("labels", "children", "deltas", "sizes"):
+        assert same_bits(getattr(res, field), getattr(res2, field)), (
+            "%s: a second run differs in %s" % (name, field))
+    assert out["launches"]["knn_tile"] > 0, (name, out["launches"])
+    ari_truth = adjusted_rand_index(labels, truth)
+    sub = np.random.default_rng(SEED).choice(m, LINKAGE_SUBSAMPLE, replace=False)
+    scipy_labels = sch.fcluster(sch.linkage(X_np[sub], method="single"), t=LINKAGE_BLOBS,
+                                criterion="maxclust")
+    ari_scipy = adjusted_rand_index(labels[sub], scipy_labels)
+    assert ari_truth > LINKAGE_MIN_ARI and ari_scipy > LINKAGE_MIN_ARI, (
+        name, ari_truth, ari_scipy)
+    out.update({"second_run_bitwise_equal": True, "ari_truth": ari_truth,
+                "ari_scipy_subsample": ari_scipy,
+                "purity": purity(labels, truth, LINKAGE_BLOBS),
+                "max_delta": float(res.deltas[-1]), "median_delta": float(np.median(res.deltas))})
+    # K1 at the path's shape: knn_graph's call (every row against X, k =
+    # log2(m) + 15), its first N_CHECK rows against the plain version
+    dist, ids = mods["knn"]([X], X, out["k"], mods["metric"], device=dev)
+    torch.cuda.synchronize()
+    ref_d, ref_i = mods["knn_plain"](X, X[:N_CHECK], out["k"])
+    atol = l2_atol(X, X)
+    out["k1_check"] = {"rows": N_CHECK, "atol": atol, "max_abs_err": check_knn(
+        name + " K1 vs its plain version (squared)", dist[:N_CHECK] ** 2, ids[:N_CHECK],
+        ref_d, ref_i, atol)}
+    del dist, ids, ref_d, ref_i
+    if size in LINKAGE_HOST_CUT_SIZES:
+        t0 = time.perf_counter()
+        ours = mods["cut"](res.children, LINKAGE_BLOBS, m)
+        cut_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = mods["native"].extract_clusters(res.children, LINKAGE_BLOBS, m)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        assert host is not None, "%s: the host runtime is not built" % name
+        assert np.array_equal(host, ours), "%s: the two cuts differ" % name
+        out["cut_vs_host_runtime"] = {"pointer_jumping_ms": cut_ms, "host_runtime_ms": host_ms,
+                                      "labels_equal": True}
+    return out
+
+
+def newsgroups_csr(dev, gen, CSR):
+    """A synthetic CSR at the shape of scikit-learn's
+    ``fetch_20newsgroups_vectorized`` train split: NEWS_ROWS x NEWS_COLS,
+    NEWS_TERMS distinct terms a row drawn on the card from a Zipf law over
+    the columns, tf-idf-like values (tf 1 + floor(Exp(1)), idf 1 + s
+    log(rank)), rows L1-normalised."""
+    rank = torch.arange(1, NEWS_COLS + 1, device=dev, dtype=torch.float64)
+    probs = (rank ** -NEWS_ZIPF / (rank ** -NEWS_ZIPF).sum()).float()
+    cols = torch.cat([torch.multinomial(probs.expand(min(1024, NEWS_ROWS - r0), -1), NEWS_TERMS,
+                                        replacement=False, generator=gen)
+                      for r0 in range(0, NEWS_ROWS, 1024)])
+    cols = torch.sort(cols, dim=1).values
+    tf = 1.0 + torch.floor(torch.empty(cols.shape, device=dev).exponential_(generator=gen))
+    vals = tf * (1.0 + NEWS_ZIPF * torch.log(rank.float()))[cols]
+    vals = vals / vals.sum(dim=1, keepdim=True)
+    indptr = torch.arange(0, (NEWS_ROWS + 1) * NEWS_TERMS, NEWS_TERMS, dtype=torch.int32,
+                          device=dev)
+    return CSR(indptr, cols.reshape(-1).to(torch.int32), vals.reshape(-1),
+               (NEWS_ROWS, NEWS_COLS), device=dev)
+
+
+def k5_share(top):
+    """Device milliseconds of K5 among a trace's top kernels."""
+    return sum(ms for name, ms, _ in top if "pairwise_tile" in name)
+
+
+def sparse_l1_path(csr, dev, reset, counts, sdist, ssel, L1, trace_path, k5, k5_plain):
+    """The sparse engine at the newsgroups shape: ``pairwise_distance``
+    (L1, column-tiled: K5 in accumulate-only mode over two column tiles)
+    and ``brute_force_knn`` (k = NEWS_K, full width: K5 on densified
+    2048-row blocks, then K2), each twice (the second traced, bitwise
+    equal to the first); sampled pairs against scipy in float64, the kNN
+    against the top-k of the pairwise matrix; K5 (``k5``) against its
+    plain version (``k5_plain``) on blocks of both calls."""
+    import scipy.sparse as sps
+
+    n = csr.n_rows
+    out = {"rows": n, "cols": csr.n_cols, "stored_entries": int(csr.nnz),
+           "column_tile": sdist.column_tile(n, n, csr.n_cols, 1024, 1024, None)}
+    # the column-tiled engine, over more than one column tile
+    assert out["column_tile"] is not None and out["column_tile"] < csr.n_cols, out
+    calls = {"pairwise": lambda: sdist.pairwise_distance(csr, csr, L1, device=dev),
+             "knn": lambda: ssel.brute_force_knn(csr, csr, NEWS_K, L1, device=dev)}
+    got = {}
+    for name, fn in calls.items():
+        path = "sparse_l1_newsgroups_" + name
+        reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        first = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts(path)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        box = []
+        wall, busy, top = traced_busy(lambda: box.append(fn()), trace_path)
+        firsts = first if isinstance(first, tuple) else (first,)
+        seconds = box[0] if isinstance(box[0], tuple) else (box[0],)
+        for a, b in zip(firsts, seconds):
+            assert torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32)), (
+                "%s: a second call differs" % path)
+        assert launched["pairwise_tile"] > 0, (path, launched)
+        out[name] = {"launches": launched, "ms": ms, "peak_bytes": peak,
+                     "second_call_bitwise_equal": True, "traced_ms": wall,
+                     "traced_device_busy_ms": busy, "k5_device_ms": k5_share(top),
+                     "k5_share_of_traced_wall": k5_share(top) / wall, "traced_top_kernels": top}
+        got[name] = first
+    assert out["knn"]["launches"]["select_tile"] > 0, out["knn"]["launches"]
+    out["launches"] = {k: out["pairwise"]["launches"][k] + out["knn"]["launches"][k]
+                       for k in out["knn"]["launches"]}
+    # sampled pairs against scipy in float64
+    host = sps.csr_matrix((csr.data.double().cpu().numpy(), csr.indices.cpu().numpy(),
+                           csr.indptr.cpu().numpy()), shape=(n, csr.n_cols))
+    rng = np.random.default_rng(SEED)
+    i, j = rng.integers(0, n, NEWS_PAIRS), rng.integers(0, n, NEWS_PAIRS)
+    ref = np.asarray(abs(host[i] - host[j]).sum(axis=1)).ravel()
+    pw = got["pairwise"]
+    err = np.abs(pw[torch.from_numpy(i).to(dev), torch.from_numpy(j).to(dev)].double().cpu().numpy()
+                 - ref)
+    assert (err <= NEWS_PAIR_RTOL * ref).all(), (err / np.maximum(ref, 1e-30)).max()
+    out["pairwise"]["max_rel_err_sampled_pairs"] = float((err / np.maximum(ref, 1e-30)).max())
+    # the kNN: the top-k of the pairwise matrix, as sets up to ties
+    ref_d, ref_i = torch.topk(pw, NEWS_K, dim=1, largest=False)
+    d, ids = got["knn"]
+    atol = NEWS_KNN_RTOL * ref_d.max().item()
+    out["knn"]["max_err_vs_pairwise_topk"] = check_knn(
+        "sparse_l1_newsgroups knn vs the pairwise top-k", d, ids, ref_d, ref_i.to(torch.int32),
+        atol)
+    del pw, ref_d, ref_i
+    # K5 on the path's own blocks, against its plain version: the kNN's
+    # launch of query block 0 against index block 1 (the whole depth, with
+    # the epilog), and the pairwise engine's launch of row block 0 against
+    # row block 1 over each column tile (without it), of the largest value
+    ent = sdist.unique_entries(csr)
+    bq = NEWS_KNN_BLOCK
+    xq = sdist.densify(ent, 0, bq, 0, csr.n_cols)
+    xi = sdist.densify(ent, bq, bq, 0, csr.n_cols)
+    got, ref = k5(xq, xi, L1), k5_plain(xq, xi, L1)
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    assert err <= NEWS_PAIR_RTOL * scale, ("K5 at the kNN's block", err, scale)
+    out["knn"]["k5_check"] = {"shape": "%dx%d, %dx%d" % (bq, csr.n_cols, bq, csr.n_cols),
+                              "max_abs_err": err, "max_rel_err": err / scale}
+    del xq, xi, got, ref
+    bm, bk = NEWS_PAIRWISE_BLOCK, out["column_tile"]
+    out["pairwise"]["k5_raw_checks"] = []
+    for c0 in range(0, csr.n_cols, bk):
+        cols = min(bk, csr.n_cols - c0)
+        width = -(-cols // 4) * 4        # as the engine pads a tile
+        xa = sdist.densify(ent, 0, bm, c0, cols, width)
+        xb = sdist.densify(ent, bm, bm, c0, cols, width)
+        got, ref = k5(xa, xb, L1, epilog=False), k5_plain(xa, xb, L1, epilog=False)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        assert err <= K5_RAW_RTOL * scale, ("K5 raw at a column tile", c0, err, scale)
+        out["pairwise"]["k5_raw_checks"].append({
+            "shape": "%dx%d, %dx%d" % (bm, width, bm, width), "max_abs_err": err,
+            "max_rel_err": err / scale})
+        del xa, xb, got, ref
+    return out
+
+
 def batch_order(flight, name):
     """The service's batches as lists of trace ids, riders in batch order:
     the worker records one ``resolved`` event a rider, in rider order."""
@@ -480,8 +755,11 @@ def main():
                                                   pairwise_tile_plain)
     from raft_tpu_torch.ops.select_tile import plan, select_tile, select_tile_plain, wide_chunks
     from raft_tpu_torch.serve import pad_rows
-    from raft_tpu_torch.sparse import COO
+    from raft_tpu_torch.sparse import COO, CSR
+    from raft_tpu_torch.sparse import distance as sparse_distance
     from raft_tpu_torch.sparse import linalg as sparse_linalg
+    from raft_tpu_torch.sparse import selection as sparse_selection
+    from raft_tpu_torch.sparse.hierarchy import extract_flattened_clusters, single_linkage
     from raft_tpu_torch.sparse.spectral import fit_embedding
     from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
 
@@ -644,13 +922,16 @@ def main():
         if skew:                                 # rows 4 bytes off 16-byte alignment
             x = torch.empty(m * d + 1, device=dev)[1:].view(m, d).copy_(x)
         for metric in METRICS:
-            got = pairwise_tile(x, y, metric, 3.0)
-            torch.cuda.synchronize()
-            ref = pairwise_tile_plain(x, y, metric, 3.0)
-            # float32 sums of d terms in another order
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
-        print("check pairwise_tile %dx%dx%d%s: %d metrics agree (rtol 1e-5, atol 1e-5)"
-              % (m, n, d, " skewed" if skew else "", len(METRICS)), flush=True)
+            # the epilog form and the accumulate-only mode (the raw reduce)
+            for epilog in (True, False):
+                got = pairwise_tile(x, y, metric, 3.0, epilog=epilog)
+                torch.cuda.synchronize()
+                ref = pairwise_tile_plain(x, y, metric, 3.0, epilog=epilog)
+                # float32 sums of d terms in another order
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        print("check pairwise_tile %dx%dx%d%s: %d metrics agree, with and without the epilog "
+              "(rtol 1e-5, atol 1e-5)" % (m, n, d, " skewed" if skew else "", len(METRICS)),
+              flush=True)
 
     for m, n, d, dup in [(1000, 1024, 128, False), (77, 1, 16, False),
                          (1031, 3001, 300, False), (500, 2000, 33, True),
@@ -1559,6 +1840,31 @@ def main():
     print("fit_embedding_2k: %s" % json.dumps(emb_out), flush=True)
     del coo, dense, lap64, v64, basis, emb
 
+    # 5f. single linkage (ROADMAP queue 1, item 3): the JAX rung at 50k x 2
+    # and 1M x 16, twice each (bitwise equal); the 1M run's second call
+    # traced for the device's busy share.  K1 builds the kNN graph; the
+    # MST and the components fix-up are torch.
+    linkage_mods = {"single_linkage": single_linkage, "knn": brute_force_knn,
+                    "metric": D.L2SqrtExpanded, "knn_plain": knn_tile_plain,
+                    "cut": extract_flattened_clusters, "native": native}
+    for size in LINKAGE_SIZES:
+        name = "single_linkage_" + size
+        trace = ROOT / "build" / ("%s_trace.json" % name) if size == "1M" else None
+        paths[name] = linkage_path(size, dev, reset, counts, linkage_mods, trace)
+        errs["knn_tile"] = max(errs["knn_tile"], paths[name]["k1_check"]["max_abs_err"])
+        print("%s: %s" % (name, json.dumps(paths[name])), flush=True)
+
+    # 5g. the sparse engine at the 20 newsgroups shape: L1 pairwise
+    # (column-tiled, K5 accumulate-only) and kNN (full width, K5 then K2)
+    news = newsgroups_csr(dev, gen, CSR)
+    trace = ROOT / "build" / "sparse_l1_newsgroups_trace.json"
+    news_out = sparse_l1_path(news, dev, reset, counts, sparse_distance, sparse_selection, D.L1,
+                              trace, pairwise_tile, pairwise_tile_plain)
+    errs["pairwise_tile"] = max(errs["pairwise_tile"], news_out["knn"]["k5_check"]["max_abs_err"])
+    paths["sparse_l1_newsgroups"] = news_out
+    print("sparse_l1_newsgroups: %s" % json.dumps(news_out), flush=True)
+    del news
+
     # 6. kernels at the main paths' shapes: kernel, plain version, yardstick
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
                 for name in wrappers}
@@ -1604,8 +1910,9 @@ def main():
     # on keys like the path's: concatenated sorted runs of k (of 128 for
     # K6's tiles) for the merges, normal keys for the probe and the L1
     # select.  Each shape is held bit for bit against the plain version at
-    # k = 1, 32, 64, 100 and 128, and timed at its own k beside torch.topk;
-    # the launch-weighted total is what the paths spend in it.
+    # k = 1, 32, 64, 100 and 128 (at most its width), and timed at its own
+    # k beside torch.topk; the launch-weighted total is what the paths
+    # spend in it.
     def k2_keys(m, w, run):
         if not run:
             return randn(m, w)
@@ -1624,7 +1931,7 @@ def main():
     k2_rows = []
     for (m, w, k, run), n_launch in sorted(k2_all.items(), key=lambda kv: kv[0][:3]):
         path_keys = k2_keys(m, w, run)
-        for kk in (1, 32, 64, 100, 128):
+        for kk in sorted({min(kk, w) for kk in (1, 32, 64, 100, 128)}):
             check_select("at a path's shape", path_keys, kk)
         chunks = plan(m, w, k)
         topk = lambda: torch.topk(path_keys, k, dim=1, largest=False)  # noqa: E731
@@ -1674,6 +1981,35 @@ def main():
                       "each of %d SMs at %.0f MHz" % (K5_INSTR_PER_STEP, n_sms, sm_hz / 1e6),
         "library_ms": time_ms(lambda: torch.cdist(queries, index_l1, p=1), reps=3)})
     del keys
+    # K5's accumulate-only mode at the column-tiled engine's launch shape
+    # (the newsgroups pairwise: 1024 x 1024 rows over a 65,536-column tile)
+    rm, rn, rk = K5_RAW_SHAPE
+    xa, xb = torch.rand(rm, rk, device=dev, generator=gen), torch.rand(rn, rk, device=dev,
+                                                                         generator=gen)
+    raw = pairwise_tile(xa, xb, D.L1, epilog=False)
+    raw_ref = pairwise_tile_plain(xa, xb, D.L1, epilog=False)
+    raw_err = (raw - raw_ref).abs().max().item()
+    raw_scale = raw_ref.abs().max().item()
+    # float32 sums of 65,536 terms in another order
+    assert raw_err <= K5_RAW_RTOL * raw_scale, ("K5 raw", raw_err, raw_scale)
+    del raw_ref
+    # L1's epilog is the identity: the two modes store the same bits
+    assert torch.equal(raw, pairwise_tile(xa, xb, D.L1)), "K5: raw and epilog L1 differ"
+    del raw
+    raw_ms = time_ms(lambda: pairwise_tile(xa, xb, D.L1, epilog=False), reps=5)
+    raw_clocks = clocks_line()
+    raw_hz = float(raw_clocks.split(",")[0].split()[0]) * 1e6
+    r_ops = 1.0 * rm * rn * rk * K5_INSTR_PER_STEP / (128.0 * n_sms * raw_hz) * 1e3
+    r_bytes = 4.0 * ((rm + rn) * rk + rm * rn) / PEAK_BYTES * 1e3
+    rows[-1]["raw_mode"] = {
+        "shape": "L1 without the epilog, x %dx%d, y %dx%d f32" % (rm, rk, rn, rk),
+        "max_abs_err": raw_err, "max_rel_err": raw_err / raw_scale, "ms": raw_ms,
+        "clocks_sm_power_after": raw_clocks,
+        "plain_ms": time_ms(lambda: pairwise_tile_plain(xa, xb, D.L1, epilog=False), reps=1),
+        "bound_ms": max(r_ops, r_bytes), "bound_by": "operations" if r_ops >= r_bytes else "bytes",
+        "library_ms": time_ms(lambda: torch.cdist(xa, xb, p=1), reps=1),
+        "newsgroups_tiles": paths["sparse_l1_newsgroups"]["pairwise"]["k5_raw_checks"]}
+    del xa, xb
 
     # K4 at the build's assignment: the training rows against the centroids
     xs, cents = X[:TRAIN_ROWS], ivf.centroids

@@ -16,8 +16,9 @@ library (:mod:`raft_tpu_torch.linalg`, :mod:`raft_tpu_torch.matrix`,
 :mod:`raft_tpu_torch.label`, :mod:`raft_tpu_torch.lap`, with ``Handle`` in
 :mod:`raft_tpu_torch.core.handle`), the sparse core
 (:mod:`raft_tpu_torch.sparse`: COO and CSR, conversions, element ops,
-linear algebra, ``fit_embedding``) and spectral partitioning on CSR
-(:mod:`raft_tpu_torch.spectral`: ``partition``,
+linear algebra, ``fit_embedding``; pairwise distances and the kNN over
+CSR, the kNN graph, the MST and ``single_linkage``) and spectral
+partitioning on CSR (:mod:`raft_tpu_torch.spectral`: ``partition``,
 ``modularity_maximization``).  Each entry point takes ``device=``
 (default ``"cuda"``) and raises when CUDA is asked for and missing;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.  The

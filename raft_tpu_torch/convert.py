@@ -17,7 +17,9 @@ package's ``COO`` (``rows``, ``cols``, ``vals``, ``shape``, ``nnz``) or
 :class:`~raft_tpu_torch.sparse.formats.CSR` with the same arrays, shape
 and nnz (ids int32, padding and capacity kept); :func:`to_numpy` turns
 the port's containers into :class:`COOArrays` and :class:`CSRArrays`,
-which carry back the same way.
+which carry back the same way.  An MST edge list with the JAX
+``GraphCOO``'s fields (``src``, ``dst``, ``weights``, ``n_edges``) becomes
+the port's :class:`~raft_tpu_torch.sparse.mst.GraphCOO`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.sparse.formats import COO, CSR
+from raft_tpu_torch.sparse.mst import GraphCOO
 from raft_tpu_torch.spatial.ann import IVFFlatIndex
 
 
@@ -81,6 +84,8 @@ def _walk(tree, leaf):
         return leaf(tree)
     if isinstance(tree, dict):
         return {key: _walk(v, leaf) for key, v in tree.items()}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == GraphCOO._fields:
+        return GraphCOO(*[_walk(v, leaf) for v in tree])
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*[_walk(v, leaf) for v in tree])
     if isinstance(tree, (list, tuple)):

@@ -44,8 +44,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kernels"
 KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile",
            "knn_twophase")
+# -split-compile=0 optimises a file's functions on all the host's
+# threads: K5 instantiates its unrolled tile 32 times (8 metrics, two
+# staging paths, with and without the epilog), and its build is the
+# longest of the six
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}

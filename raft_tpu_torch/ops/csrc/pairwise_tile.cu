@@ -17,6 +17,12 @@
 // of the depth (read as 0) stay harmless; rows and columns past the edge
 // are masked at the store.
 //
+// Accumulate-only mode (kEpilog false, `epilog` 0 at the entry point):
+// the raw reduce of the combine is stored, the epilog skipped.  The
+// column-tiled sparse engine (sparse/distance.py) adds or maxes these
+// partials across column tiles and applies the metric's epilog once, as
+// the TPU kernel's epilog=None does.  It is the same kernel otherwise.
+//
 // What bounds it on an H100: there is no tensor-core form of these
 // reductions, so it is m*n*d combine+reduce steps on the FP32 pipes
 // against reading (m + n)*d*4 bytes and writing m*n*4.  A step of L1,
@@ -198,7 +204,7 @@ __device__ __forceinline__ void step(float (&acc)[8][8], const Frag& f, float p)
     }
 }
 
-template <int M, bool kVec>
+template <int M, bool kVec, bool kEpilog>
 __global__ void __launch_bounds__(kThreads, 2)
 pairwise_tile_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                      int m, int n, int d, float p, float* __restrict__ out) {
@@ -256,9 +262,12 @@ pairwise_tile_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = j0 + 64 * h + 4 * tx;
-      float4 v = make_float4(Op::epilog(acc[i][4 * h], p, d), Op::epilog(acc[i][4 * h + 1], p, d),
-                             Op::epilog(acc[i][4 * h + 2], p, d),
-                             Op::epilog(acc[i][4 * h + 3], p, d));
+      float4 v = kEpilog ? make_float4(Op::epilog(acc[i][4 * h], p, d),
+                                       Op::epilog(acc[i][4 * h + 1], p, d),
+                                       Op::epilog(acc[i][4 * h + 2], p, d),
+                                       Op::epilog(acc[i][4 * h + 3], p, d))
+                         : make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                       acc[i][4 * h + 3]);
       if (vec_out && col + 3 < n) {
         __stcs((float4*)(orow + col), v);
       } else {
@@ -271,16 +280,25 @@ pairwise_tile_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
-template <int M>
+template <int M, bool kEpilog>
 void launch(const float* x, const float* y, int m, int n, int d, float p,
             float* out, cudaStream_t s) {
   // m tiles fastest, so the blocks of one y tile run together
   unsigned blocks = (unsigned)((m + kBM - 1) / kBM) * (unsigned)((n + kBN - 1) / kBN);
   bool vec = d % 4 == 0 && ((size_t)x & 15) == 0 && ((size_t)y & 15) == 0;
   if (vec)
-    pairwise_tile_kernel<M, true><<<blocks, kThreads, 0, s>>>(x, y, m, n, d, p, out);
+    pairwise_tile_kernel<M, true, kEpilog><<<blocks, kThreads, 0, s>>>(x, y, m, n, d, p, out);
   else
-    pairwise_tile_kernel<M, false><<<blocks, kThreads, 0, s>>>(x, y, m, n, d, p, out);
+    pairwise_tile_kernel<M, false, kEpilog><<<blocks, kThreads, 0, s>>>(x, y, m, n, d, p, out);
+}
+
+template <int M>
+void launch_metric(const float* x, const float* y, int m, int n, int d, float p, bool epilog,
+                   float* out, cudaStream_t s) {
+  if (epilog)
+    launch<M, true>(x, y, m, n, d, p, out, s);
+  else
+    launch<M, false>(x, y, m, n, d, p, out, s);
 }
 
 }  // namespace
@@ -288,9 +306,10 @@ void launch(const float* x, const float* y, int m, int n, int d, float p,
 
 // x (m, d), y (n, d) float32 row-major contiguous; out (m, n) float32.
 // metric is a DistanceType id from the table above; p is the Minkowski
-// exponent (read by LpUnexpanded only).  Returns cudaGetLastError().
+// exponent (read by LpUnexpanded only); epilog 0 stores the raw reduce
+// (accumulate-only mode).  Returns cudaGetLastError().
 extern "C" int pairwise_tile_launch(const void* x, const void* y, int m, int n,
-                                    int d, int metric, float p, void* out,
+                                    int d, int metric, float p, int epilog, void* out,
                                     void* stream) {
   using namespace raft_tpu_torch;
   if (m < 1 || n < 1 || d < 1) return (int)cudaErrorInvalidValue;
@@ -299,14 +318,14 @@ extern "C" int pairwise_tile_launch(const void* x, const void* y, int m, int n,
   auto o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (metric) {
-    case 3: launch<3>(a, b, m, n, d, p, o, s); break;
-    case 4: launch<4>(a, b, m, n, d, p, o, s); break;
-    case 5: launch<5>(a, b, m, n, d, p, o, s); break;
-    case 7: launch<7>(a, b, m, n, d, p, o, s); break;
-    case 8: launch<8>(a, b, m, n, d, p, o, s); break;
-    case 9: launch<9>(a, b, m, n, d, p, o, s); break;
-    case 15: launch<15>(a, b, m, n, d, p, o, s); break;
-    case 16: launch<16>(a, b, m, n, d, p, o, s); break;
+    case 3: launch_metric<3>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 4: launch_metric<4>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 5: launch_metric<5>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 7: launch_metric<7>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 8: launch_metric<8>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 9: launch_metric<9>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 15: launch_metric<15>(a, b, m, n, d, p, epilog != 0, o, s); break;
+    case 16: launch_metric<16>(a, b, m, n, d, p, epilog != 0, o, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

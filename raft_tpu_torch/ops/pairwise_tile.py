@@ -9,8 +9,14 @@ below takes the same id and computes the same function.
 
 Integer inputs are cast to float32 here, as the JAX kernel casts them;
 the output is float32.  Block sizes are constants of the kernel, chosen
-for Hopper: 128 x 128 output tiles of 8 x 8 a thread, the depth 16 at a
+for Hopper: 128 x 128 output tiles of 8 x 8 a thread, the depth 8 at a
 time through double-buffered shared memory (the source's note).
+
+``epilog=False`` is the accumulate-only mode: the raw reduce of the
+combine, without the metric's epilog (the JAX kernel's ``epilog=None``).
+The column-tiled sparse engine (:mod:`raft_tpu_torch.sparse.distance`)
+adds (or maxes) those partials over column tiles and applies
+:func:`apply_epilog` once.
 """
 
 from __future__ import annotations
@@ -58,7 +64,9 @@ def _combine(metric, xv, yv, p: float):
     return term(xv) + term(yv)
 
 
-def _epilog(metric, acc, p: float, d: int):
+def apply_epilog(metric: DistanceType, acc: torch.Tensor, p: float, d: int) -> torch.Tensor:
+    """The metric's epilog of a raw reduce ``acc`` over depth ``d``: what
+    the kernel applies at its store unless ``epilog=False``."""
     if metric == D.L2SqrtUnexpanded:
         return torch.sqrt(acc)
     if metric == D.LpUnexpanded:
@@ -71,9 +79,10 @@ def _epilog(metric, acc, p: float, d: int):
 
 
 def pairwise_tile_plain(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
-                        p: float = 2.0) -> torch.Tensor:
+                        p: float = 2.0, epilog: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function of the same
-    metric id, as a broadcast over row chunks of ``x``."""
+    metric id, as a broadcast over row chunks of ``x``; ``epilog=False``
+    returns the raw reduce."""
     metric = DistanceType(metric)
     x = x.to(torch.float32)
     y = y.to(torch.float32)
@@ -84,24 +93,25 @@ def pairwise_tile_plain(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
     for i in range(0, m, rows):
         term = _combine(metric, x[i:i + rows, None, :], y[None, :, :], p)
         acc = term.amax(dim=2) if metric == D.Linf else term.sum(dim=2)
-        out[i:i + rows] = _epilog(metric, acc, p, d)
+        out[i:i + rows] = apply_epilog(metric, acc, p, d) if epilog else acc
     return out
 
 
 def pairwise_tile(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
-                  p: float = 2.0) -> torch.Tensor:
+                  p: float = 2.0, epilog: bool = True) -> torch.Tensor:
     """``out[i, j] = epilog(reduce_k combine(x[i, k], y[j, k]))`` for the
     unexpanded ``metric`` (one of :data:`METRICS`); ``p`` is the
-    Minkowski exponent.  x (m, d) and y (n, d) of any real dtype; returns
-    (m, n) float32.  A CUDA tensor launches the kernel; a CPU tensor
-    takes :func:`pairwise_tile_plain`.
+    Minkowski exponent; ``epilog=False`` stores the raw reduce (the
+    accumulate-only mode).  x (m, d) and y (n, d) of any real dtype;
+    returns (m, n) float32.  A CUDA tensor launches the kernel; a CPU
+    tensor takes :func:`pairwise_tile_plain`.
     """
     expects(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1],
             "pairwise_tile: (m, d) and (n, d) inputs required")
     expects(metric in METRICS, "pairwise_tile: metric %r has no kernel", metric)
     expects(x.device == y.device, "pairwise_tile: x and y on different devices")
     if x.device.type == "cpu":
-        return pairwise_tile_plain(x, y, metric, p)
+        return pairwise_tile_plain(x, y, metric, p, epilog)
     fn = _entry()
     x = x.to(torch.float32).contiguous()
     y = y.to(torch.float32).contiguous()
@@ -113,7 +123,7 @@ def pairwise_tile(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
     expects(d > 0, "pairwise_tile: zero depth")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), m, n, d, int(metric), float(p),
+        code = fn(x.data_ptr(), y.data_ptr(), m, n, d, int(metric), float(p), int(epilog),
                   out.data_ptr(), stream)
     _build.check(code, "pairwise_tile")
     pairwise_tile.launches += 1
@@ -126,5 +136,5 @@ pairwise_tile.launches = 0
 def _entry():
     return _build.entry("pairwise_tile", "pairwise_tile_launch",
                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                         ctypes.c_void_p], ctypes.c_int)
+                         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)

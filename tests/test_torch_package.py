@@ -23,6 +23,9 @@ from raft_tpu_torch.lap import LinearAssignmentProblem, solve_lap
 from raft_tpu_torch.random import Rng
 from raft_tpu_torch.sparse import COO, CSR
 from raft_tpu_torch.sparse import convert as sparse_convert
+from raft_tpu_torch.sparse import distance as sparse_distance
+from raft_tpu_torch.sparse import hierarchy, linkage, selection
+from raft_tpu_torch.sparse.mst import mst
 from raft_tpu_torch.sparse import linalg as sparse_linalg
 from raft_tpu_torch.sparse import op as sparse_op
 from raft_tpu_torch.sparse.spectral import fit_embedding
@@ -67,6 +70,10 @@ def test_import_pulls_in_no_jax():
                                     "raft_tpu_torch.random", "raft_tpu_torch.label",
                                     "raft_tpu_torch.lap", "raft_tpu_torch.sparse",
                                     "raft_tpu_torch.sparse.spectral",
+                                    "raft_tpu_torch.sparse.distance",
+                                    "raft_tpu_torch.sparse.selection",
+                                    "raft_tpu_torch.sparse.mst", "raft_tpu_torch.sparse.linkage",
+                                    "raft_tpu_torch.sparse.hierarchy",
                                     "raft_tpu_torch.spectral"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
@@ -142,6 +149,15 @@ ENTRY_POINTS = {
                                                                   np.ones(20, np.float32)),
     "sparse.linalg.weak_cc": lambda x, q: sparse_linalg.weak_cc(_cpu_graph(x)),
     "sparse.spectral.fit_embedding": lambda x, q: fit_embedding(_cpu_coo(x), 2),
+    "sparse.distance.pairwise_distance": lambda x, q: sparse_distance.pairwise_distance(
+        _cpu_graph(x), _cpu_graph(x)),
+    "sparse.selection.brute_force_knn": lambda x, q: selection.brute_force_knn(
+        _cpu_graph(x), _cpu_graph(x), 3),
+    "sparse.selection.knn_graph": lambda x, q: selection.knn_graph(x, 3),
+    "sparse.mst.mst": lambda x, q: mst(_cpu_graph(x)),
+    "sparse.linkage.connect_components": lambda x, q: linkage.connect_components(
+        x, np.arange(20, dtype=np.int32) % 2),
+    "sparse.hierarchy.single_linkage": lambda x, q: hierarchy.single_linkage(x, 2),
     "spectral.partition": lambda x, q: spectral.partition(_cpu_graph(x)),
     "spectral.analyze_partition": lambda x, q: spectral.analyze_partition(
         _cpu_graph(x), 2, np.zeros(20, np.int32)),

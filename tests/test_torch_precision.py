@@ -27,6 +27,8 @@ from raft_tpu_torch.ops.nn_tile import nn_tile_plain
 from raft_tpu_torch.spatial.ann import _delta_merge_impl
 from raft_tpu_torch import spectral
 from raft_tpu_torch.sparse import CSR
+from raft_tpu_torch.sparse import distance as sparse_distance
+from raft_tpu_torch.sparse import linkage
 
 D = DistanceType
 
@@ -156,6 +158,29 @@ def _site_partition():
     spectral.partition(_graph(), device="cpu")
 
 
+def _sparse_pair():
+    a = _f32(9, 16) * (_f32(9, 16, seed=1) < 0.4)
+    b = _f32(7, 16, seed=2) * (_f32(7, 16, seed=3) < 0.4)
+    return CSR.from_dense(a, device="cpu"), CSR.from_dense(b, device="cpu")
+
+
+def _site_sparse_coltiled_mm():
+    # the column-tiled engine's cross term of the "mm" family
+    sparse_distance.pairwise_distance(*_sparse_pair(), D.CosineExpanded, batch_size_k=5,
+                                      device="cpu")
+
+
+def _site_sparse_binary_expanded():
+    # Jaccard on full-width blocks: binarised inner products
+    sparse_distance.pairwise_distance(*_sparse_pair(), D.JaccardExpanded, device="cpu")
+
+
+def _site_connect_scan():
+    # the components fix-up's masked 1-NN scan
+    colors = torch.arange(40, dtype=torch.int32) % 3
+    linkage.connect_components(_f32(40, 3), colors, device="cpu")
+
+
 SITES = {
     "distance/pairwise.py matmul": _site_pairwise,
     "spectral/kmeans.py _assign": _site_kmeans_assign,
@@ -172,6 +197,9 @@ SITES = {
     "linalg/lanczos.py": _site_lanczos,
     "spectral/matrix_wrappers.py dense operator": _site_dense_operator,
     "spectral/partition.py": _site_partition,
+    "sparse/distance.py column-tiled product": _site_sparse_coltiled_mm,
+    "sparse/distance.py _binary_expanded": _site_sparse_binary_expanded,
+    "sparse/linkage.py connect scan": _site_connect_scan,
 }
 
 
