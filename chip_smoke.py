@@ -77,7 +77,27 @@ paths through the public entry points with ``device="cuda"``:
   the pairwise matrix's top-k, each twice bitwise equal, with K5's share
   of each call from a trace; K5 against its plain version on the path's
   own densified blocks (the kNN's, at the whole depth with the epilog;
-  the pairwise engine's, over each column tile without it).
+  the pairwise engine's, over each column tile without it);
+- IVF-PQ and IVF-SQ on the IVF-Flat path's mixture, nlist and metric
+  (``ivf_pq_1M``: M 16, 8 bits, refine ratio 4, built in stages, searched
+  at k 10 and nprobe 32 refined and unrefined, the unrefined ADC
+  distances held in float64 to the vectors the returned codes decode to,
+  and the decoded vectors' own exact top-10 as the quantizer's ceiling;
+  ``ivf_sq_1M``: QT_8bit of the residuals), recall@10 against brute
+  force and the index bytes; their
+  ``ANNService`` arms under the ``serve_ann_1M`` traffic
+  (``serve_ann_pq_1M``, ``serve_ann_sq_1M``: every response bitwise equal
+  to its padded batch's search, ``compact()`` raising, each of 2,048
+  inserts found by a query of itself); ``persist_ann_1M``: for the three
+  kinds a persist directory under ``build/``, a snapshot on the
+  maintenance tick, a WAL tail, a crash and the restore from the
+  directory alone, served answers bitwise equal, then a flipped byte
+  refused with ``DataCorruptionError``;
+- the random ball cover: all-points kNN (k 8) of 1,000,000 uniform
+  lat/lon points under Haversine (``rbc_haversine_1M``) and 65,536
+  queries (k 16) against 1,000,000 uniform 3-D points
+  (``rbc_l2_3d_1M``), each exact on 1,024 rows against a float64 scan or
+  brute force, with the loop steps, chunks and peak bytes.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -90,8 +110,8 @@ against its plain version as a whole and as the kernel alone on the same
 work list, at every check store (one with a slot that every query
 probes, so that it takes several items) and at the search's shape, and
 its row times the inversion of the scan lists, the kernel and K2's merge
-apart.  K4 is checked to d = 300 and m = 9,000, and on a row with no
-finite distance.  K2 is held bit for bit against its plain version, and
+apart.  K4 is checked to d = 300 and m = 9,000, on a row with no
+finite distance, and at a PQ codebook's shape (1M x 8 against 256).  K2 is held bit for bit against its plain version, and
 its route against the Python mirror, on few wide rows, on rows of 4
 distinct values (ties across every chunk, and rows that take the whole
 row where the sampled bound keeps too many keys), on rows
@@ -121,6 +141,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -202,6 +223,21 @@ NEWS_PAIRWISE_BLOCK, NEWS_KNN_BLOCK = 1024, 2048
 # K5's accumulate-only launch of the column-tiled engine at that shape,
 # and its tolerance against the plain version, of the largest sum
 K5_RAW_SHAPE, K5_RAW_RTOL = (1024, 1024, 65_536), 1e-4
+# IVF-PQ and IVF-SQ on the IVF-Flat path's data, nlist, train_rows and
+# metric: the JAX ivf_pq rung (bench.py:2463-2477: M 16, 8 bits, refine
+# ratio 4), searched at k 10 and nprobe 32 (bench.py:_bench_ivf); the
+# served arms take the serve_ann_1M traffic at its k of 100
+PQ_M, PQ_BITS, PQ_REFINE, QK = 16, 8, 4, 10
+# the ADC distances against the decoded vectors' own, in float64, of the
+# largest squared distance, on the first PQ_DECODE_ROWS queries
+PQ_DECODE_TOL, PQ_DECODE_ROWS = 1e-4, 256
+# the ball cover: 1,000,000 uniform lat/lon points (tests/test_ann.py:299-302)
+# with all-points k 8, and 1,000,000 x 3 uniform points (tests/test_ann.py:318-319)
+# with 65,536 queries at k 16; L = sqrt(m) landmarks; exactness on 1024 rows
+RBC_M, RBC_HAV_K, RBC_L2_K, RBC_L2_QUERIES, RBC_CHECK = 1_000_000, 8, 16, 65_536, 1024
+RBC_HAV_ATOL = 1e-5
+QUANTIZED_PATHS = ("ivf_pq_1M", "ivf_sq_1M", "serve_ann_pq_1M", "serve_ann_sq_1M",
+                   "persist_ann_1M", "rbc_haversine_1M", "rbc_l2_3d_1M")
 
 
 def card_line():
@@ -730,17 +766,439 @@ def batch_order(flight, name):
     return list(batches.values())
 
 
+def index_bytes(index):
+    """Device bytes of an index's tensors (a tensor shared by two fields
+    counted once)."""
+    seen = {}
+    for v in index:
+        if isinstance(v, torch.Tensor):
+            seen[v.data_ptr()] = v.numel() * v.element_size()
+    return sum(seen.values())
+
+
+def build_labels(index, n_rows, dev):
+    """Each row's list, read back from an IVF index's slots."""
+    live = index.slot_ids >= 0
+    labels = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    labels[index.slot_ids[live].long()] = index.slot_centroid[:, None].expand_as(live)[live].long()
+    return labels
+
+
+def pq_decode(pq, n_rows, ids, dtype=torch.float32):
+    """The vectors that an IVF-PQ index's codes stand for, of the rows
+    ``ids`` (of ``n_rows``): each row's list centroid plus the codewords
+    its codes pick."""
+    M, _, dsub = pq.codebooks.shape
+    cap = pq.slot_ids.shape[1]
+    flat = pq.slot_ids.reshape(-1)
+    live = flat >= 0
+    pos = torch.empty(n_rows, dtype=torch.int64, device=flat.device)
+    pos[flat[live].long()] = torch.nonzero(live)[:, 0]
+    pos = pos[ids.long()]
+    codes = pq.slot_codes.reshape(-1, M)[pos].long()                       # (n, M)
+    words = pq.codebooks.to(dtype)[torch.arange(M, device=flat.device)[None, :], codes]
+    cent = pq.centroids.to(dtype)[pq.slot_centroid[pos // cap].long()]
+    return cent + words.reshape(len(ids), M * dsub)
+
+
+def quantized_paths(X, q, bf_i, dev, reset, counts, m):
+    """``ivf_pq_1M`` and ``ivf_sq_1M``: the builds (PQ's by stage), the
+    searches (PQ with and without its refinement), recall@10 against brute
+    force and against the decoded vectors' own exact top-10 (the
+    quantizer's ceiling), the index bytes and the launches.  The ADC
+    distances are held, in float64, to the distances of the vectors that
+    the returned codes decode to.  Returns (paths, the PQ index, the SQ index, the codebook check's
+    operands for K4)."""
+    D = m.D
+    out = {}
+    reset()
+    stages = {}
+    t0 = time.perf_counter()
+    pq = m.ivf_pq_build(X, m.IVFPQParams(nlist=NLIST, nprobe=NPROBE, M=PQ_M, n_bits=PQ_BITS,
+                                         refine_ratio=PQ_REFINE),
+                        D.L2SqrtExpanded, seed=SEED, train_rows=TRAIN_ROWS, device=dev,
+                        stages=stages)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n_q = len(q)
+    runs = {}
+    for name, kw in (("refined", {}), ("unrefined", {"refine_ratio": 1})):
+        runs[name] = m.ivf_pq_search(pq, q, QK, **kw, device=dev)
+    torch.cuda.synchronize()
+    launched = counts("ivf_pq_1M")
+    assert launched["nn_tile"] > 0 and launched["select_tile"] > 0, launched
+    for name, (d, i) in runs.items():
+        assert d.shape == (n_q, QK) and i.dtype == torch.int32, name
+        assert torch.isfinite(d).all() and i.min() >= 0 and i.max() < len(X), name
+    # the unrefined ADC distances against the returned rows' decoded
+    # vectors, in float64: a wrong table, probe rank or code layout shows
+    ud, ui = runs["unrefined"]
+    qs = q[:PQ_DECODE_ROWS].double()
+    dec64 = pq_decode(pq, len(X), ui[:PQ_DECODE_ROWS].reshape(-1),
+                      torch.float64).reshape(len(qs), QK, -1)
+    ref2 = ((qs[:, None, :] - dec64) ** 2).sum(-1)
+    adc_tol = PQ_DECODE_TOL * ref2.max().item()
+    adc_err = (ud[:PQ_DECODE_ROWS].double() ** 2 - ref2).abs().max().item()
+    assert adc_err <= adc_tol, ("ivf_pq_1M: ADC distances off the decoded vectors'", adc_err,
+                                adc_tol)
+    del dec64
+    # the quantizer's ceiling: the exact top-10 over the decoded vectors
+    every = torch.arange(len(X), device=dev)
+    _, dec_i = m.brute_force_knn(pq_decode(pq, len(X), every), q, QK, D.L2SqrtExpanded,
+                                 device=dev)
+    recall = {name: (i[:, :, None] == bf_i[:, None, :QK]).any(-1).float().mean().item()
+              for name, (_, i) in runs.items()}
+    recall["decoded_exact"] = (dec_i[:, :, None] == bf_i[:, None, :QK]).any(-1).float().mean().item()
+    recall["unrefined_of_decoded_exact"] = (
+        ui[:, :, None] == dec_i[:, None, :]).any(-1).float().mean().item()
+    assert recall["refined"] >= recall["unrefined"] > 0.0, recall
+    ms = {"refined": time_ms(lambda: m.ivf_pq_search(pq, q, QK, device=dev), reps=3),
+          "unrefined": time_ms(lambda: m.ivf_pq_search(pq, q, QK, refine_ratio=1, device=dev),
+                               reps=3)}
+    codes_bytes = pq.slot_codes.numel() * pq.slot_codes.element_size()
+    out["ivf_pq_1M"] = {
+        "launches": launched, "build_ms": build_ms, "build_stages_ms": stages,
+        "kmeans_assigns": launched["nn_tile"], "M": PQ_M, "n_bits": PQ_BITS,
+        "refine_ratio": PQ_REFINE, "k": QK, "nprobe": NPROBE,
+        "n_slots": pq.slot_ids.shape[0], "cap": pq.slot_ids.shape[1],
+        "search_ms": ms, "qps": {k: n_q / v * 1e3 for k, v in ms.items()},
+        "recall_at_10": recall, "adc_decoded_max_err": adc_err, "adc_decoded_tol": adc_tol,
+        "index_bytes": index_bytes(pq), "codes_bytes": codes_bytes,
+        "index_bytes_without_vectors": index_bytes(pq._replace(vectors=None))}
+    # K4 at a codebook's shape: subspace 0 of the residuals against its
+    # 256 codewords (depth 8), as the build's k-means assigns it
+    labels = build_labels(pq, len(X), dev)
+    dsub = X.shape[1] // PQ_M
+    sub = (X[:, :dsub] - pq.centroids[labels][:, :dsub]).contiguous()
+    codebook = (sub, pq.codebooks[0].contiguous())
+    del labels, runs, dec_i, every
+
+    reset()
+    t0 = time.perf_counter()
+    sq = m.ivf_sq_build(X, m.IVFSQParams(nlist=NLIST, nprobe=NPROBE, qtype="QT_8bit",
+                                         encode_residual=True),
+                        D.L2SqrtExpanded, seed=SEED, train_rows=TRAIN_ROWS, device=dev)
+    torch.cuda.synchronize()
+    sq_build_ms = (time.perf_counter() - t0) * 1e3
+    d, i = m.ivf_sq_search(sq, q, QK, device=dev)
+    torch.cuda.synchronize()
+    launched = counts("ivf_sq_1M")
+    assert launched["nn_tile"] > 0 and launched["select_tile"] > 0, launched
+    assert sq.slot_q.dtype == torch.uint8 and sq.slot_q.device == X.device
+    assert d.shape == (n_q, QK) and torch.isfinite(d).all() and i.min() >= 0
+    sq_ms = time_ms(lambda: m.ivf_sq_search(sq, q, QK, device=dev), reps=3)
+    out["ivf_sq_1M"] = {
+        "launches": launched, "build_ms": sq_build_ms, "qtype": "QT_8bit",
+        "encode_residual": True, "k": QK, "nprobe": NPROBE, "search_ms": sq_ms,
+        "qps": n_q / sq_ms * 1e3,
+        "recall_at_10": (i[:, :, None] == bf_i[:, None, :QK]).any(-1).float().mean().item(),
+        "index_bytes": index_bytes(sq),
+        "codes_bytes": sq.slot_q.numel() * sq.slot_q.element_size()}
+    return out, pq, sq, codebook
+
+
+def serve_quantized(kind, index, X, ann_load, dev, reset, counts, m):
+    """``serve_ann_pq_1M`` / ``serve_ann_sq_1M``: the ``serve_ann_1M``
+    traffic over an IVF-PQ or IVF-SQ index (warmup, calibrate, a load of
+    16 threads, 2,048 inserts under traffic, no compaction).  Every load
+    response is held bitwise to the search of its padded batch, each
+    insert must be found by a query of itself, and ``compact()`` must
+    raise."""
+    name = "serve_ann_%s_1M" % kind
+    calib_q, blocks, new_vecs, new_ids, load_rows = ann_load
+    svc = m.ANNService(index, K, nprobe_ladder=ANN_LADDER, bucket_rungs=ANN_RUNGS,
+                       max_batch_rows=ANN_RUNGS[-1], max_wait_ms=2.0, queue_cap=4096,
+                       delta_cap=ANN_DELTA_CAP, compact_rows=ANN_COMPACT, device=dev, name=name)
+    out = {"compact_rows": svc.stats()["compact_rows"]}
+    assert out["compact_rows"] == 0, out            # never compacts
+    t0 = time.perf_counter()
+    svc.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset()
+    t_path = time.perf_counter()
+    # IVF-SQ keeps no vectors: the ground truth reads the data
+    calib = svc.calibrate(calib_q, ANN_TARGET, reference=X if kind == "sq" else None,
+                          measure_all=True)
+    nprobe = svc.nprobe
+    out["calibrate"] = calib
+    futs, wall_ms = serve_concurrently(svc, blocks, ANN_THREADS, drain=False)
+    load_batches = batch_order(m.flight, name)
+    index0 = svc.index
+    lat_ms = latencies_ms(futs)
+    n_rows = len(blocks) * ANN_ROWS
+    out.update({"requests": len(blocks), "rows": n_rows, "batches": len(load_batches),
+                "rows_per_batch": n_rows / len(load_batches), "wall_ms": wall_ms,
+                "rows_per_s": n_rows / wall_ms * 1e3, "nprobe": nprobe,
+                "p50_ms": statistics.median(lat_ms), "p99_ms": quantile(lat_ms, 0.99)})
+    stop, bg, bg_err, before = threading.Event(), [], [], []
+
+    def background():
+        try:
+            for j in itertools.count():
+                if stop.is_set():
+                    return
+                bg.append(svc.submit(blocks[j % len(blocks)]))
+                time.sleep(0.001)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            bg_err.append(e)
+
+    th = threading.Thread(target=background, daemon=True)
+    th.start()
+    try:
+        for c in range(0, ANN_INSERT, ANN_CHUNK):
+            svc.insert(new_ids[c:c + ANN_CHUNK], new_vecs[c:c + ANN_CHUNK])
+            before.append(svc.submit(new_vecs[c:c + ANN_CHUNK]))
+        [f.result(timeout=120) for f in before]
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and not bg_err, bg_err
+    [f.result(timeout=120) for f in bg]
+    assert svc.delta_rows == ANN_INSERT and svc.index is index0, "the delta moved"
+    try:
+        svc.compact()
+        raise AssertionError("%s: compact() did not raise" % name)
+    except m.LogicError:
+        out["compact_raises"] = True
+    torch.cuda.synchronize()
+    launched = counts(name)
+    out["path_ms"] = (time.perf_counter() - t_path) * 1e3
+    after_warmup = svc.kernel_libraries_after_warmup()
+    svc.close()
+    assert launched["select_tile"] > 0 and launched["knn_tile"] > 0, launched
+    assert after_warmup == {"builds": 0, "loads": 0}, after_warmup
+    out.update({"launches": launched, "kernel_libraries_after_warmup": after_warmup,
+                "inserted": ANN_INSERT, "background_requests": len(bg)})
+    # the checks, after the counts: every load response bitwise equal to
+    # the search of its padded batch on the same index and nprobe
+    by_trace = {f.trace().trace_id: (b, f) for b, f in zip(blocks, futs)}
+    for riders in load_batches:
+        batch = torch.cat([by_trace[t][0] for t in riders])
+        pd, pi = m.approx_knn_search(index0, m.pad_rows(batch, svc.policy.bucket_for(len(batch))),
+                                     K, nprobe=nprobe, device=dev)
+        at = 0
+        for t in riders:
+            b, f = by_trace[t]
+            d, i = f.result(timeout=0)
+            assert torch.equal(d, pd[at:at + len(b)]) and torch.equal(i, pi[at:at + len(b)]), (
+                "%s: a response differs from the search of its padded batch" % name)
+            at += len(b)
+    served_i = torch.cat([f.result(timeout=0)[1] for f in futs])
+    _, gt_i = m.brute_force_knn(X, load_rows, K, m.D.L2SqrtExpanded, device=dev)
+    out["recall_at_100"] = (served_i[:, :, None] == gt_i[:, None, :]).any(-1).float().mean().item()
+    got_i = torch.cat([f.result(timeout=0)[1] for f in before]).cpu()
+    found = (got_i == new_ids[:, None]).any(dim=1)
+    assert bool(found.all()), "%s: %d inserts not found by a query of themselves" % (
+        name, int((~found).sum()))
+    out["inserts_found"] = int(found.sum())
+    out["inserts_found_first"] = int((got_i[:, 0] == new_ids).sum())
+    return out
+
+
+def persist_path(indexes, dev, reset, counts, m):
+    """``persist_ann_1M``: for IVF-Flat, IVF-PQ and IVF-SQ, a threadless
+    service with a persist directory (under ``build/``) on a stepped
+    clock: the bootstrap snapshot, 1,024 inserts, the maintenance tick's
+    interval snapshot that holds them, 1,024 more in the WAL alone, a crash
+    (no last snapshot), the restore from the directory alone
+    (``index=None``), whose served answers are bitwise those served before
+    the crash, then one flipped byte of an array file and the restore
+    raising ``DataCorruptionError``."""
+    import shutil
+
+    out = {}
+    base = ROOT / "build" / "persist_ann_1M"
+    shutil.rmtree(base, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    now = [0.0]
+    reset()
+
+    def serve(svc, rows):
+        """Each block of at most ANN_RUNGS[-1] rows as a batch of its own,
+        through submit and one worker step."""
+        got_d, got_i = [], []
+        for c in range(0, len(rows), ANN_RUNGS[-1]):
+            fut = svc.submit(rows[c:c + ANN_RUNGS[-1]])
+            now[0] += 1.0
+            assert svc.worker.run_once()
+            d, i = fut.result(timeout=0)
+            got_d.append(d)
+            got_i.append(i)
+        return torch.cat(got_d), torch.cat(got_i)
+
+    for kind, index in indexes.items():
+        root = base / kind
+        dim = index.centroids.shape[1]
+        q = torch.randn(N_CHECK, dim, device=dev, generator=gen)
+        vecs = torch.randn(ANN_INSERT, dim, device=dev, generator=gen)
+        ids = torch.arange(N_INDEX, N_INDEX + ANN_INSERT, dtype=torch.int32)
+        kw = dict(nprobe=NPROBE, nprobe_ladder=(NPROBE,), bucket_rungs=ANN_RUNGS,
+                  max_batch_rows=ANN_RUNGS[-1], max_wait_ms=2.0, delta_cap=ANN_DELTA_CAP,
+                  compact_rows=0, snapshot_interval_s=10.0, scrub_chunks=0, start=False,
+                  clock=lambda: now[0], device=dev)
+        t0 = time.perf_counter()
+        svc = m.ANNService(index, K, persist_dir=str(root), name="persist_" + kind, **kw)
+        bootstrap_s = time.perf_counter() - t0
+        bootstrap_bytes = svc.stats()["persist"]["snapshot_bytes"]
+        half = ANN_INSERT // 2
+        t0 = time.perf_counter()
+        for c in range(0, half, ANN_CHUNK):
+            svc.insert(ids[c:c + ANN_CHUNK], vecs[c:c + ANN_CHUNK])
+        wal_s = time.perf_counter() - t0
+        # the interval snapshot, through the worker's maintenance seam
+        # (scrub_chunks=0: the tick writes the snapshot and nothing else)
+        now[0] += 11.0
+        t0 = time.perf_counter()
+        svc.worker.run_maintenance()
+        snapshot_s = time.perf_counter() - t0
+        ps = svc.stats()["persist"]
+        assert ps["snapshot_seq"] == 2, ps
+        snapshot_bytes = ps["snapshot_bytes"]
+        for c in range(half, ANN_INSERT, ANN_CHUNK):
+            svc.insert(ids[c:c + ANN_CHUNK], vecs[c:c + ANN_CHUNK])
+        ref = serve(svc, q)
+        found_ref = serve(svc, vecs)
+        wal_bytes = svc.stats()["persist"]["wal_bytes"]
+        svc.close(snapshot=False)                   # a crash: the WAL holds the tail
+        del svc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = m.ANNService(None, K, persist_dir=str(root), name="restore_" + kind, **kw)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ps = again.stats()["persist"]
+        assert ps["replayed_records"] == half // ANN_CHUNK, ps
+        assert again.delta_rows == ANN_INSERT, again.delta_rows
+        got = serve(again, q)
+        found = serve(again, vecs)
+        for a, b in ((got, ref), (found, found_ref)):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (
+                "persist_ann_1M %s: the restored service answers otherwise" % kind)
+        hit = (found[1].cpu() == ids[:, None]).any(dim=1)
+        assert bool(hit.all()), "persist_ann_1M %s: an acknowledged insert is lost" % kind
+        again.close(snapshot=False)
+        del again
+        # one flipped byte of one array file: the restore refuses it
+        snap = sorted((root / "snapshots").iterdir())[-1]
+        victim = snap / "slot_ids.bin"
+        with open(victim, "r+b") as f:
+            f.seek(4096)
+            byte = f.read(1)
+            f.seek(4096)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            m.ANNService(None, K, persist_dir=str(root), name="corrupt_" + kind, **kw)
+            raise AssertionError("persist_ann_1M %s: a corrupt snapshot restored" % kind)
+        except m.DataCorruptionError as e:
+            assert e.path == str(victim) and e.offset is not None, e
+            corrupt = {"file": victim.name, "offset": e.offset}
+        out[kind] = {"bootstrap_write_s": bootstrap_s, "bootstrap_bytes": bootstrap_bytes,
+                     "wal_append_s": wal_s, "wal_records": half // ANN_CHUNK,
+                     "wal_bytes": wal_bytes, "snapshot_write_s": snapshot_s,
+                     "snapshot_bytes": snapshot_bytes, "restore_s": restore_s,
+                     "replayed_records": ps["replayed_records"],
+                     "restored_answers_bitwise_equal": True,
+                     "inserts_found": int(hit.sum()), "corruption_raised": corrupt}
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = counts("persist_ann_1M")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def haversine64(a, b):
+    """Haversine distances in float64 (the exactness reference)."""
+    a, b = a.double(), b.double()
+    sin_lat = torch.sin(0.5 * (a[:, None, 0] - b[None, :, 0]))
+    sin_lon = torch.sin(0.5 * (a[:, None, 1] - b[None, :, 1]))
+    r = sin_lat ** 2 + torch.cos(a[:, None, 0]) * torch.cos(b[None, :, 0]) * sin_lon ** 2
+    return 2.0 * torch.arcsin(torch.sqrt(torch.clamp(r, 0.0, 1.0)))
+
+
+def rbc_path(kind, dev, reset, counts, m):
+    """``rbc_haversine_1M`` (all points, k 8) and ``rbc_l2_3d_1M`` (65,536
+    queries, k 16): the ball cover's build and query, each query held
+    exact on 1024 sampled rows, with the loop steps, chunks and peak
+    bytes."""
+    D = m.D
+    rng = np.random.default_rng(0 if kind == "haversine" else 2)
+    if kind == "haversine":
+        lat = rng.uniform(-np.pi / 2, np.pi / 2, RBC_M)
+        lon = rng.uniform(-np.pi, np.pi, RBC_M)
+        pts = np.stack([lat, lon], 1).astype(np.float32)
+        metric, k, queries = D.Haversine, RBC_HAV_K, None
+    else:
+        pts = rng.random((RBC_M, 3)).astype(np.float32)
+        metric, k = D.L2SqrtExpanded, RBC_L2_K
+        queries = torch.from_numpy(rng.random((RBC_L2_QUERIES, 3)).astype(np.float32)).to(dev)
+    X = torch.from_numpy(pts).to(dev)
+    name = "rbc_%s_1M" % ("haversine" if kind == "haversine" else "l2_3d")
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    idx = m.rbc_build_index(X, metric=metric, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    stats = {}
+    t0 = time.perf_counter()
+    if queries is None:
+        dd, ii = m.rbc_all_knn_query(idx, k, device=dev, stats=stats)
+    else:
+        dd, ii = m.rbc_knn_query(idx, k, queries, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = counts(name)
+    assert launched["select_tile"] > 0, launched
+    q_all = X if queries is None else queries
+    assert dd.shape == (len(q_all), k) and ii.dtype == torch.int32
+    rows = torch.from_numpy(np.sort(np.random.default_rng(1).choice(
+        len(q_all), RBC_CHECK, replace=False))).to(dev)
+    qs = q_all[rows]
+    if kind == "haversine":
+        ref_d, ref_i = [], []
+        for s in range(0, RBC_CHECK, 128):
+            v, i = torch.topk(haversine64(qs[s:s + 128], X), k, dim=1, largest=False)
+            ref_d.append(v.float())
+            ref_i.append(i.to(torch.int32))
+        ref_d, ref_i = torch.cat(ref_d), torch.cat(ref_i)
+        assert torch.equal(ii[rows, 0], rows.to(torch.int32)), "%s: a self is not first" % name
+        err = check_knn(name + " against float64 haversine", dd[rows], ii[rows], ref_d, ref_i,
+                        RBC_HAV_ATOL)
+        atol = RBC_HAV_ATOL
+    else:
+        ref_d, ref_i = m.brute_force_knn(X, qs, k, D.L2SqrtExpanded, device=dev)
+        atol = l2_atol(qs, X)
+        err = check_knn(name + " against brute force (squared)", dd[rows] ** 2, ii[rows],
+                        ref_d ** 2, ref_i, atol)
+    L, gmax = idx.groups.shape
+    return {"launches": launched, "points": RBC_M, "queries": len(q_all), "k": k,
+            "landmarks": L, "gmax": gmax, "build_ms": build_ms, "query_ms": query_ms,
+            "queries_per_s": len(q_all) / query_ms * 1e3, "chunk_rows": stats["chunk_rows"],
+            "chunks": stats["chunks"], "steps_per_chunk": stats["steps"],
+            "budget_bytes": m.ball_cover.BUDGET_BYTES, "peak_bytes": peak,
+            "peak_above_start_bytes": peak - start_bytes, "checked_rows": RBC_CHECK,
+            "max_err": err, "atol": atol}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if not (ROOT / "raft_tpu_torch" / "ops" / "csrc").is_dir():
         sys.exit("chip_smoke: raft_tpu_torch not found beside %s" % __file__)
     sys.path.insert(0, str(ROOT))
-    from raft_tpu_torch import (ANNService, DistanceType, IVFFlatParams, KNNService,
-                                PairwiseService, approx_knn_search, brute_force_knn, config,
-                                ivf_flat_build, ivf_flat_search, pairwise_distance)
+    from raft_tpu_torch import (ANNService, DistanceType, IVFFlatParams, IVFPQParams, IVFSQParams,
+                                KNNService, LogicError, PairwiseService, approx_knn_search,
+                                brute_force_knn, config, ivf_flat_build, ivf_flat_search,
+                                ivf_pq_build, ivf_pq_search, ivf_sq_build, ivf_sq_search,
+                                pairwise_distance, rbc_all_knn_query, rbc_build_index,
+                                rbc_knn_query)
     from raft_tpu_torch import linalg, spectral
     from raft_tpu_torch.core import flight, native, precision, tracing
+    from raft_tpu_torch.core.error import DataCorruptionError
     from raft_tpu_torch.core.handle import Handle
     from raft_tpu_torch.core.metrics import default_registry
     from raft_tpu_torch.distance.pairwise import expanded_sq_dists
@@ -761,6 +1219,7 @@ def main():
     from raft_tpu_torch.sparse import selection as sparse_selection
     from raft_tpu_torch.sparse.hierarchy import extract_flattened_clusters, single_linkage
     from raft_tpu_torch.sparse.spectral import fit_embedding
+    from raft_tpu_torch.spatial import ball_cover
     from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
 
     # the serve_ann_1M checks read every batch of its load back from the
@@ -1500,10 +1959,7 @@ def main():
 
     # the host packing of the 1M index's lists (the build's labels, read
     # back from its slots): the native route against the numpy route
-    live = ivf.slot_ids >= 0
-    labels = torch.empty(N_INDEX, dtype=torch.int64, device=dev)
-    labels[ivf.slot_ids[live].long()] = ivf.slot_centroid[:, None].expand_as(live)[live].long()
-    labels = labels.cpu().numpy()
+    labels = build_labels(ivf, N_INDEX, dev).cpu().numpy()
     pack = {}
     for route, fn in (("native", _pack_lists), ("numpy", _pack_lists_numpy),
                       ("native_again", _pack_lists), ("numpy_again", _pack_lists_numpy)):
@@ -1551,6 +2007,37 @@ def main():
     print("serve_ann_1M: %s; every response bitwise equal to the search of its padded batch"
           % json.dumps({k: v for k, v in ann.items() if k != "calibrate"}), flush=True)
     del svc, index0, pre_swap, post_swap, delta_state
+    ann_load = (calib_q, blocks, new_vecs, new_ids, load_rows)
+
+    # 5h. IVF-PQ and IVF-SQ on the same data (the builds and searches),
+    # their ANNService arms under the serve_ann_1M traffic, the durable
+    # state of all three kinds, and the ball cover at 1M points
+    qmods = types.SimpleNamespace(
+        D=D, ivf_pq_build=ivf_pq_build, ivf_sq_build=ivf_sq_build, ivf_pq_search=ivf_pq_search,
+        ivf_sq_search=ivf_sq_search, IVFPQParams=IVFPQParams, IVFSQParams=IVFSQParams,
+        ANNService=ANNService, approx_knn_search=approx_knn_search, pad_rows=pad_rows,
+        brute_force_knn=brute_force_knn, flight=flight, LogicError=LogicError,
+        DataCorruptionError=DataCorruptionError, rbc_build_index=rbc_build_index,
+        rbc_knn_query=rbc_knn_query, rbc_all_knn_query=rbc_all_knn_query,
+        ball_cover=ball_cover)
+    _, bf10 = brute_force_knn(X, ivf_q, QK, D.L2SqrtExpanded, device=dev)
+    qpaths, pq, sq, codebook = quantized_paths(X, ivf_q, bf10, dev, reset, counts, qmods)
+    paths.update(qpaths)
+    for name in qpaths:
+        print("%s: %s" % (name, json.dumps(qpaths[name])), flush=True)
+    paths["ivf_pq_1M"]["ivf_flat_index_bytes"] = index_bytes(ivf)
+    for kind, qindex in (("pq", pq), ("sq", sq)):
+        name = "serve_ann_%s_1M" % kind
+        paths[name] = serve_quantized(kind, qindex, X, ann_load, dev, reset, counts, qmods)
+        print("%s: %s" % (name, json.dumps(paths[name])), flush=True)
+    paths["persist_ann_1M"] = persist_path({"flat": ivf, "pq": pq, "sq": sq}, dev, reset,
+                                           counts, qmods)
+    print("persist_ann_1M: %s" % json.dumps(paths["persist_ann_1M"]), flush=True)
+    del pq, sq, qindex, bf10
+    for kind in ("haversine", "l2_3d"):
+        name = "rbc_%s_1M" % kind
+        paths[name] = rbc_path(kind, dev, reset, counts, qmods)
+        print("%s: %s" % (name, json.dumps(paths[name])), flush=True)
 
     # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
     # precisions, row norm, the two reductions and the transpose, each held
@@ -1923,9 +2410,13 @@ def main():
         for (m, w, k), n_launch in shp.items():
             run = 128 if path == "knn_twophase_1M" else k
             # the L1 select, the IVF probes (k an nprobe) and the delta merge
-            # (one sorted run of k, then the delta's keys) take normal keys
+            # (one sorted run of k, then the delta's keys) take normal keys;
+            # of the quantized and ball-cover paths only the ball cover's
+            # merges (two sorted runs of k) are runs
             normal = (path == "bfknn_L1_100k" or w % run
-                      or (path in ("ivf_search_1M", "serve_ann_1M") and k != K))
+                      or (path in ("ivf_search_1M", "serve_ann_1M") and k != K)
+                      or (path in QUANTIZED_PATHS and not (path.startswith("rbc_")
+                                                           and w == 2 * k)))
             run = None if normal else run
             k2_all[(m, w, k, run)] = k2_all.get((m, w, k, run), 0) + n_launch
     k2_rows = []
@@ -2034,6 +2525,22 @@ def main():
         "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(nn_ops, nn_bytes)[0],
         "library_ms": time_ms(l2_min, reps=5),
         "library": "composition: expanded-L2 matmul + torch.min(dim=1)"})
+    # K4 at a PQ codebook's shape: the residuals' first subspace (depth 8)
+    # against its 256 codewords, as each codebook's k-means assigns
+    xs, cents = codebook
+    got, ref = fused_nn_tile(xs, cents), nn_tile_plain(xs, cents)
+    cb_err = check_nn("nn_tile at a codebook's shape", *got, *ref, xs, cents, l2_atol(xs, cents))
+    errs["nn_tile"] = max(errs["nn_tile"], cb_err)
+    m, n = xs.shape[0], cents.shape[0]
+    cb_ops, cb_bytes = 2.0 * m * n * xs.shape[1], 4.0 * (m + n) * xs.shape[1] + 8.0 * m
+    b, by = bound_tf32x3(cb_ops, cb_bytes)
+    rows[-1]["codebook"] = {
+        "shape": "x %dx%d f32 against %d codewords" % (m, xs.shape[1], n), "max_abs_err": cb_err,
+        "ms": time_ms(lambda: fused_nn_tile(xs, cents), reps=10),
+        "plain_ms": time_ms(lambda: nn_tile_plain(xs, cents), reps=5),
+        "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(cb_ops, cb_bytes)[0],
+        "library_ms": time_ms(l2_min, reps=5)}
+    del codebook, xs, cents
 
     # K2 at the search's probe: the query-to-centroid keys, k = nprobe
     probe_keys = expanded_sq_dists(ivf_q, ivf.centroids)

@@ -5,12 +5,16 @@ nothing of it, nor JAX.  Today it covers exact brute-force kNN and
 pairwise distances (``brute_force_knn``, ``knn_merge_parts``,
 ``fused_l2_knn``, ``select_k``, ``pairwise_distance``,
 ``haversine_knn``), the fused L2 1-nearest-neighbour (``fused_l2_nn``,
-``fused_l2_nn_min_reduce``), k-means (``kmeans``) and the IVF-Flat
-approximate index (``ivf_flat_build``, ``ivf_flat_search``,
-``ivf_flat_extend``, ``ivf_flat_reconstruct``, ``approx_knn_build_index``,
-``approx_knn_search``), the serving layer in front of brute-force
-kNN, pairwise distances and IVF-Flat (``KNNService``, ``PairwiseService``,
-``ANNService``; more in :mod:`raft_tpu_torch.serve`), and the dense
+``fused_l2_nn_min_reduce``), k-means (``kmeans``), the approximate
+indexes IVF-Flat, IVF-PQ and IVF-SQ (``ivf_flat_build``,
+``ivf_flat_search``, ``ivf_flat_extend``, ``ivf_flat_reconstruct``,
+``ivf_pq_build``, ``ivf_pq_search``, ``ivf_sq_build``, ``ivf_sq_search``,
+``approx_knn_build_index``, ``approx_knn_search``), the random ball cover
+(``rbc_build_index``, ``rbc_knn_query``, ``rbc_all_knn_query``), the
+serving layer in front of brute-force kNN, pairwise distances and the
+IVF indexes (``KNNService``, ``PairwiseService``, ``ANNService``; more in
+:mod:`raft_tpu_torch.serve`), with durable ANN serving state
+(:mod:`raft_tpu_torch.persist`: snapshots and a write-ahead log), and the dense
 library (:mod:`raft_tpu_torch.linalg`, :mod:`raft_tpu_torch.matrix`,
 :mod:`raft_tpu_torch.stats`, :mod:`raft_tpu_torch.random`,
 :mod:`raft_tpu_torch.label`, :mod:`raft_tpu_torch.lap`, with ``Handle`` in
@@ -31,11 +35,13 @@ from raft_tpu_torch.core.error import (CommError, CommTimeoutError, LogicError, 
                                        ServiceOverloadError, ServiceUnavailableError)
 from raft_tpu_torch.distance import (DistanceType, fused_l2_nn, fused_l2_nn_min_reduce,
                                      pairwise_distance)
-from raft_tpu_torch.spatial import (IVFFlatIndex, IVFFlatParams, approx_knn_build_index,
-                                    approx_knn_search, brute_force_knn, fused_l2_knn,
-                                    haversine_knn, ivf_flat_build, ivf_flat_extend,
-                                    ivf_flat_reconstruct, ivf_flat_search, knn_merge_parts,
-                                    select_k)
+from raft_tpu_torch.spatial import (BallCoverIndex, IVFFlatIndex, IVFFlatParams, IVFPQIndex,
+                                    IVFPQParams, IVFSQIndex, IVFSQParams,
+                                    approx_knn_build_index, approx_knn_search, brute_force_knn,
+                                    fused_l2_knn, haversine_knn, ivf_flat_build, ivf_flat_extend,
+                                    ivf_flat_reconstruct, ivf_flat_search, ivf_pq_build,
+                                    ivf_pq_search, ivf_sq_build, ivf_sq_search, knn_merge_parts,
+                                    rbc_all_knn_query, rbc_build_index, rbc_knn_query, select_k)
 from raft_tpu_torch.serve import ANNService, KNNService, PairwiseService
 from raft_tpu_torch.spectral import KmeansResult, kmeans
 
@@ -43,11 +49,16 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ANNService",
+    "BallCoverIndex",
     "CommError",
     "CommTimeoutError",
     "DistanceType",
     "IVFFlatIndex",
     "IVFFlatParams",
+    "IVFPQIndex",
+    "IVFPQParams",
+    "IVFSQIndex",
+    "IVFSQParams",
     "KNNService",
     "KmeansResult",
     "LogicError",
@@ -66,8 +77,15 @@ __all__ = [
     "ivf_flat_extend",
     "ivf_flat_reconstruct",
     "ivf_flat_search",
+    "ivf_pq_build",
+    "ivf_pq_search",
+    "ivf_sq_build",
+    "ivf_sq_search",
     "kmeans",
     "knn_merge_parts",
     "pairwise_distance",
+    "rbc_all_knn_query",
+    "rbc_build_index",
+    "rbc_knn_query",
     "select_k",
 ]

@@ -38,6 +38,12 @@ serve_ann_compact_rows / serve_ann_degrade_frac
     calibrate walk, the delta segment's capacity, the auto-compaction
     threshold (0 = manual only) and the queue fraction past which
     batches are served one ladder step lower (0 = never).
+persist_fsync / persist_snapshot_interval_s / persist_scrub_chunks
+    Durable ANN serving (:mod:`raft_tpu_torch.persist`): the write-ahead
+    log's fsync policy (``always`` before every acknowledge, ``batch`` at
+    the next maintenance tick, ``off``), the least seconds between
+    interval snapshots of a dirty state, and the snapshot chunks
+    re-checksummed a maintenance tick (0 = no scrub).
 serve_slo_target_ms / serve_slo_objective / serve_slo_windows_s
     The per-service SLO tracker (:mod:`raft_tpu_torch.core.flight`).
 flight_events
@@ -71,6 +77,9 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "serve_ann_compact_rows": ("RAFT_TPU_SERVE_ANN_COMPACT_ROWS", "2048"),
     "serve_ann_degrade_frac": ("RAFT_TPU_SERVE_ANN_DEGRADE_FRAC", "0.75"),
     "flight_events": ("RAFT_TPU_FLIGHT_EVENTS", "4096"),
+    "persist_fsync": ("RAFT_TPU_PERSIST_FSYNC", "always"),
+    "persist_snapshot_interval_s": ("RAFT_TPU_PERSIST_SNAPSHOT_INTERVAL_S", "30"),
+    "persist_scrub_chunks": ("RAFT_TPU_PERSIST_SCRUB_CHUNKS", "4"),
     "serve_slo_target_ms": ("RAFT_TPU_SERVE_SLO_TARGET_MS", "100"),
     "serve_slo_objective": ("RAFT_TPU_SERVE_SLO_OBJECTIVE", "0.99"),
     "serve_slo_windows_s": ("RAFT_TPU_SERVE_SLO_WINDOWS_S", "60,300"),

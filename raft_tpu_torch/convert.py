@@ -7,8 +7,10 @@ numpy, after ``np.asarray``) into the port's tensors on a device, keeping
 dtype and layout (ids stay int32); :func:`to_numpy` goes the other way.
 Both walk lists, tuples (named tuples keep their type), dicts, and pass
 numbers (a metric, a translation) and ``None`` as they are.
-:func:`ivf_flat_index_from_reference` and :func:`ivf_flat_index_to_numpy`
-carry an IVF-Flat index.
+:func:`ivf_flat_index_from_reference`, :func:`ivf_pq_index_from_reference`
+and :func:`ivf_sq_index_from_reference` carry an IVF index (their
+``*_to_numpy`` inverses carry it back), and
+:func:`ball_cover_index_from_reference` a ball cover.
 
 Sparse containers travel too.  An object with the fields of the JAX
 package's ``COO`` (``rows``, ``cols``, ``vals``, ``shape``, ``nnz``) or
@@ -34,7 +36,8 @@ from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.sparse.formats import COO, CSR
 from raft_tpu_torch.sparse.mst import GraphCOO
-from raft_tpu_torch.spatial.ann import IVFFlatIndex
+from raft_tpu_torch.spatial.ann import IVFFlatIndex, IVFPQIndex, IVFSQIndex
+from raft_tpu_torch.spatial.ball_cover import BallCoverIndex
 
 
 class COOArrays(NamedTuple):
@@ -106,14 +109,22 @@ def to_numpy(tensors):
     return _walk(tensors, lambda t: _sparse_to_numpy(t) if _is_sparse(t) else _host(t))
 
 
+def _index_from_reference(cls, index, device, **scalars):
+    """``cls`` from an object with its fields: every array on ``device``
+    with its dtype, the metric a :class:`DistanceType` and ``scalars``
+    (field name: type) converted."""
+    fields = {name: getattr(index, name) for name in cls._fields}
+    fields["metric"] = DistanceType(int(fields["metric"]))
+    for name, kind in scalars.items():
+        fields[name] = kind(fields[name])
+    return cls(**from_reference(fields, device))
+
+
 def ivf_flat_index_from_reference(index, device="cuda") -> IVFFlatIndex:
     """The port's :class:`IVFFlatIndex` from the JAX package's (any object
     with its fields), every array on ``device`` with its dtype.  A missing
     ``slot_norms`` is computed from the vectors, as the JAX search does."""
-    fields = {name: getattr(index, name) for name in IVFFlatIndex._fields}
-    fields["metric"] = DistanceType(int(fields["metric"]))
-    fields["nprobe"] = int(fields["nprobe"])
-    out = IVFFlatIndex(**from_reference(fields, device))
+    out = _index_from_reference(IVFFlatIndex, index, device, nprobe=int)
     if out.slot_norms is None:
         out = out._replace(slot_norms=(out.slot_vecs * out.slot_vecs).sum(dim=-1))
     return out
@@ -122,3 +133,32 @@ def ivf_flat_index_from_reference(index, device="cuda") -> IVFFlatIndex:
 def ivf_flat_index_to_numpy(index: IVFFlatIndex) -> IVFFlatIndex:
     """The index with every array as numpy (metric and nprobe unchanged)."""
     return to_numpy(index)
+
+
+def ivf_pq_index_from_reference(index, device="cuda") -> IVFPQIndex:
+    """The port's :class:`IVFPQIndex` from the JAX package's: int32 codes,
+    the codebooks with their padded ``inf`` rows, ``vectors`` where it has
+    them."""
+    return _index_from_reference(IVFPQIndex, index, device, nprobe=int, refine_ratio=int)
+
+
+def ivf_pq_index_to_numpy(index: IVFPQIndex) -> IVFPQIndex:
+    """The index with every array as numpy."""
+    return to_numpy(index)
+
+
+def ivf_sq_index_from_reference(index, device="cuda") -> IVFSQIndex:
+    """The port's :class:`IVFSQIndex` from the JAX package's: the uint8
+    store, float32 ``scale`` and ``offset``."""
+    return _index_from_reference(IVFSQIndex, index, device, nprobe=int, encode_residual=bool)
+
+
+def ivf_sq_index_to_numpy(index: IVFSQIndex) -> IVFSQIndex:
+    """The index with every array as numpy."""
+    return to_numpy(index)
+
+
+def ball_cover_index_from_reference(index, device="cuda") -> BallCoverIndex:
+    """The port's :class:`BallCoverIndex` from the JAX package's: the
+    data, landmarks, int32 groups and float32 radii."""
+    return _index_from_reference(BallCoverIndex, index, device)

@@ -1,6 +1,12 @@
-"""Integer helpers (reference cuda_utils.cuh, integer_utils.h, pow2_utils.cuh)."""
+"""Integer helpers (reference cuda_utils.cuh, integer_utils.h, pow2_utils.cuh)
+and the stage timer of the multi-stage builds."""
 
 from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
 
 from raft_tpu_torch.core.error import expects
 
@@ -49,3 +55,24 @@ class Pow2:
 
     def is_aligned(self, x: int) -> bool:
         return (x & self.mask) == 0
+
+
+class StageTimer:
+    """Host-clock milliseconds of the pipeline's stages, each synchronised
+    with the device at its end, and the loop counts, into ``out`` (a dict
+    given by the caller; nothing is timed without one)."""
+
+    def __init__(self, out: Optional[dict], device: torch.device):
+        self.out, self.device = out, device
+        self.t0 = time.perf_counter()
+
+    def done(self, name: str, **counts) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name + "_ms"] = self.out.get(name + "_ms", 0.0) + (now - self.t0) * 1e3
+        for key, value in counts.items():
+            self.out.setdefault(key, []).append(value)
+        self.t0 = now

@@ -1,7 +1,7 @@
-"""ANNService: serve a resident IVF-Flat index with streaming ingestion.
+"""ANNService: serve a resident IVF index with streaming ingestion.
 
-Port of ``raft_tpu/serve/ann_service.py`` for one IVF-Flat index on one
-device.  :class:`ANNService` fronts
+Port of ``raft_tpu/serve/ann_service.py`` for one IVF-Flat, IVF-PQ or
+IVF-SQ index on one device.  :class:`ANNService` fronts
 :func:`raft_tpu_torch.spatial.ann.approx_knn_search` through the
 micro-batching engine of :class:`~raft_tpu_torch.serve.service.Service`,
 and adds what a vector store needs beyond a static index:
@@ -24,7 +24,22 @@ vector is visible to the next formed batch.  When the delta crosses
 slots (:func:`raft_tpu_torch.spatial.ann.ivf_flat_extend`: nearest
 existing centroid, no k-means) and swaps the index between batches.
 Every batch reads one immutable :class:`_AnnState` (index and delta),
-so an insert or a swap never tears a batch.
+so an insert or a swap never tears a batch.  An IVF-PQ or IVF-SQ store
+holds codes, which nothing can extend: such a service still ingests into
+the delta and serves from it, but its automatic compaction is off and
+:meth:`compact` raises.  ``refine_ratio`` reaches the IVF-PQ search
+(IVF-Flat and IVF-SQ ignore it).
+
+**Durability.**  ``persist_dir`` names a directory that holds the
+service's snapshots and write-ahead log (:mod:`raft_tpu_torch.persist`,
+the JAX package's format).  A directory that holds state is restored at
+construction: the snapshot (every chunk's CRC verified) and the WAL's
+tail replayed into the delta; ``index=None`` is then legal.  A new
+directory gets a snapshot of the index at construction.  Each insert is
+appended to the WAL before it is acknowledged (``persist_fsync``), and
+the maintenance seam takes interval snapshots of the immutable state
+(``snapshot_interval_s``) and scrubs a few chunks a tick
+(``scrub_chunks``); :meth:`close` takes a last snapshot.
 
 On the card, the state's tensors live on the worker's stream: the delta
 is published by a synchronous copy of a private copy of the host mirror
@@ -56,10 +71,10 @@ and ``recall{nprobe=}``; ``raft_tpu_serve_degraded_batches_total`` and
 ``compaction`` flight event.
 
 Not ported yet, each raising a :class:`RaftError` that names its queue
-item (``ROADMAP.md``, queue 1) when asked for: IVF-PQ and IVF-SQ indexes
-and ``refine_ratio`` (item 4); ``ooc``, ``device_budget_bytes``,
-``tile_slots``, ``ooc_overlap``, ``ooc_promote_batches`` and the
-``persist_*`` arguments (item 5); ``mesh``, ``axis``, ``merge`` and
+item (``ROADMAP.md``, queue 1) when asked for: ``ooc``,
+``device_budget_bytes``, ``tile_slots``, ``ooc_overlap``,
+``ooc_promote_batches`` and ``persist_mmap`` (the out-of-core half of
+item 5); ``mesh``, ``axis``, ``merge`` and
 ``group_size``, with ``repartition`` and ``post_recover`` (item 6); and
 ``select_impl`` (item 7).  The JAX package's buffer donation has no
 PyTorch counterpart (``serve/scheduler.py``).
@@ -68,6 +83,7 @@ PyTorch counterpart (``serve/scheduler.py``).
 from __future__ import annotations
 
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -77,8 +93,9 @@ from raft_tpu_torch import config
 from raft_tpu_torch.core import flight
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core.device import as_tensor, resolve_device
-from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects
+from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects, fail
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.persist import PersistManager
 from raft_tpu_torch.serve.resilience import BreakerState
 from raft_tpu_torch.serve.service import Service, _knob_float, _knob_int, _service_seq
 from raft_tpu_torch.spatial import ann as _ann
@@ -88,19 +105,15 @@ __all__ = ["ANNService"]
 
 _CPU = torch.device("cpu")
 
+_OOC = "item 5 (the out-of-core half)"
 # arguments of the JAX ANNService that wait for a later item of queue 1
 _DEFERRED = {
-    "refine_ratio": "item 4 (IVF-PQ and IVF-SQ)",
-    "ooc": "item 5 (out-of-core and durability)",
-    "device_budget_bytes": "item 5 (out-of-core and durability)",
-    "tile_slots": "item 5 (out-of-core and durability)",
-    "ooc_overlap": "item 5 (out-of-core and durability)",
-    "ooc_promote_batches": "item 5 (out-of-core and durability)",
-    "persist_dir": "item 5 (out-of-core and durability)",
-    "persist_fsync": "item 5 (out-of-core and durability)",
-    "snapshot_interval_s": "item 5 (out-of-core and durability)",
-    "persist_mmap": "item 5 (out-of-core and durability)",
-    "scrub_chunks": "item 5 (out-of-core and durability)",
+    "ooc": _OOC,
+    "device_budget_bytes": _OOC,
+    "tile_slots": _OOC,
+    "ooc_overlap": _OOC,
+    "ooc_promote_batches": _OOC,
+    "persist_mmap": _OOC,
     "mesh": "item 6 (session and multi-GPU)",
     "axis": "item 6 (session and multi-GPU)",
     "merge": "item 6 (session and multi-GPU)",
@@ -113,10 +126,13 @@ class _AnnState(NamedTuple):
     """One immutable serving snapshot: a batch reads exactly one, so an
     insert or a compaction swap can never tear it."""
 
-    index: _ann.IVFFlatIndex
+    index: object               # IVFFlatIndex | IVFPQIndex | IVFSQIndex
     delta_vecs: torch.Tensor    # (delta_cap, dim) on the device, zeros past the count
     delta_ids: torch.Tensor     # (delta_cap,) int32 on the device, -1 past the count
     delta_rows: int
+    # the last write-ahead-log sequence number whose insert this state
+    # holds: a snapshot of it records it as its replay floor
+    wal_seq: int = 0
 
 
 def _labeled(kind: str, name: str, help: str, service: str, **extra):
@@ -142,26 +158,30 @@ def _parse_ladder(spec, nlist: int) -> tuple:
     return tuple(cells)
 
 
-def _index_on(index: _ann.IVFFlatIndex, dev: torch.device) -> _ann.IVFFlatIndex:
+_KINDS = (_ann.IVFFlatIndex, _ann.IVFPQIndex, _ann.IVFSQIndex)
+
+
+def _index_on(index, dev: torch.device):
     """The index with every array on ``dev`` (no copy where it is there)
-    and its squared slot norms filled in."""
+    and, for IVF-Flat, its squared slot norms filled in."""
     fields = {name: as_tensor(value, dev) if isinstance(value, (torch.Tensor, np.ndarray))
               else value for name, value in index._asdict().items()}
-    out = _ann.IVFFlatIndex(**fields)
-    if out.slot_norms is None:
+    out = type(index)(**fields)
+    if isinstance(out, _ann.IVFFlatIndex) and out.slot_norms is None:
         out = out._replace(slot_norms=(out.slot_vecs * out.slot_vecs).sum(dim=-1))
     return out
 
 
 class ANNService(Service):
     """Micro-batched :func:`~raft_tpu_torch.spatial.ann.approx_knn_search`
-    over one pinned IVF-Flat index, with streaming ingestion (module doc).
+    over one pinned IVF index, with streaming ingestion (module doc).
 
     Parameters
     ----------
     index:
         A prebuilt :class:`~raft_tpu_torch.spatial.ann.IVFFlatIndex`,
-        moved to ``device``.
+        ``IVFPQIndex`` or ``IVFSQIndex``, moved to ``device``; None with
+        a ``persist_dir`` that holds state (the restored index).
     k:
         Neighbours returned per query row.
     nprobe:
@@ -171,10 +191,14 @@ class ANNService(Service):
         Candidate cells for :meth:`warmup` and :meth:`calibrate`
         (default: the ``serve_ann_nprobe_ladder`` knob), each clamped to
         the index's ``nlist``; the served ``nprobe`` is always included.
+    refine_ratio:
+        The IVF-PQ search's exact re-rank ratio (None: the index's);
+        IVF-Flat and IVF-SQ ignore it.
     delta_cap / compact_rows:
         Delta-segment capacity and the auto-compaction threshold
         (``serve_ann_delta_cap`` / ``serve_ann_compact_rows`` knobs);
-        ``compact_rows=0`` leaves compaction to :meth:`compact`.
+        ``compact_rows=0`` leaves compaction to :meth:`compact`.  An
+        IVF-PQ or IVF-SQ service never compacts (module doc).
     degrade_queue_frac:
         Queue fraction of the admission cap from which batches are
         served one ladder step lower (``serve_ann_degrade_frac`` knob;
@@ -182,6 +206,11 @@ class ANNService(Service):
     slot_multiple:
         Compaction rounds the slot count up to a multiple of this, so
         that successive compactions keep their shapes.
+    persist_dir / persist_fsync / snapshot_interval_s / scrub_chunks:
+        Durable state (module doc): the directory, the WAL's fsync
+        policy, the least seconds between interval snapshots and the
+        snapshot chunks scrubbed a tick, the last three defaulting to
+        their ``persist_*`` knobs; they need ``persist_dir``.
     device:
         Where the index lives and the searches run (default ``"cuda"``;
         raises when CUDA is missing).
@@ -196,23 +225,56 @@ class ANNService(Service):
     def __init__(self, index, k: int, *,
                  nprobe: Optional[int] = None,
                  nprobe_ladder=None,
+                 refine_ratio: Optional[int] = None,
                  delta_cap: Optional[int] = None,
                  compact_rows: Optional[int] = None,
                  degrade_queue_frac: Optional[float] = None,
                  slot_multiple: int = 64,
+                 persist_dir: Optional[str] = None,
+                 persist_fsync: Optional[str] = None,
+                 snapshot_interval_s: Optional[float] = None,
+                 scrub_chunks: Optional[int] = None,
                  name: Optional[str] = None,
                  device="cuda", **opts):
         for arg, item in _DEFERRED.items():
             if opts.pop(arg, None) not in (None, False):
                 raise RaftError("ANNService: %s= is not ported yet; it waits for queue 1 %s"
                                 % (arg, item), collect_stack=False)
-        if not isinstance(index, _ann.IVFFlatIndex):
-            raise RaftError("ANNService: only an IVFFlatIndex is served yet; %s waits for "
-                            "queue 1 %s" % (type(index).__name__, _DEFERRED["refine_ratio"]),
-                            collect_stack=False)
         dev = resolve_device(device)
+        # the name first: the persist manager labels its metrics with it
+        self.name = name or "ann%d" % next(_service_seq)
+        self._persist = None
+        self._persist_wal_seq = 0
+        restored = None
+        if persist_dir is not None:
+            self._persist = PersistManager(
+                persist_dir, service=self.name, fsync=persist_fsync,
+                snapshot_interval_s=snapshot_interval_s, scrub_chunks=scrub_chunks,
+                clock=opts.get("clock", time.monotonic), device=dev)
+            if self._persist.has_state():
+                restored = self._persist.restore()
+                if restored.index is not None:
+                    if index is not None:
+                        expects(int(index.centroids.shape[1])
+                                == int(restored.index.centroids.shape[1]),
+                                "ANNService: persist_dir %r holds a dim-%d snapshot but the "
+                                "constructor index is dim-%d", persist_dir,
+                                int(restored.index.centroids.shape[1]),
+                                int(index.centroids.shape[1]))
+                    index = restored.index
+        else:
+            expects(persist_fsync is None and snapshot_interval_s is None
+                    and scrub_chunks is None,
+                    "ANNService: persist_fsync/snapshot_interval_s/scrub_chunks are "
+                    "durability knobs: pass persist_dir=")
+        expects(index is not None, "ANNService: index=None requires persist_dir pointing at "
+                "existing durable state (no snapshot or WAL found%s)"
+                % ("" if persist_dir is None else " in %r" % persist_dir))
+        expects(isinstance(index, _KINDS), "ANNService: index must be an IVF index "
+                "(IVFFlatIndex/IVFPQIndex/IVFSQIndex), got %r", type(index).__name__)
         expects(k >= 1, "ANNService: k=%d", k)
         self.k = int(k)
+        self._refine_ratio = refine_ratio
         index = _index_on(index, dev)
         self._nlist = int(index.centroids.shape[0])
         dim = int(index.centroids.shape[1])
@@ -241,7 +303,10 @@ class ANNService(Service):
         if compact_rows is None:
             compact_rows = _knob_int("serve_ann_compact_rows")
         expects(compact_rows >= 0, "ANNService: compact_rows=%d", compact_rows)
-        self._compact_rows = min(int(compact_rows), self._delta_cap)
+        # an IVF-PQ or IVF-SQ store holds codes: it ingests into the delta
+        # but never compacts (module doc)
+        self._compactable = isinstance(index, _ann.IVFFlatIndex)
+        self._compact_rows = min(int(compact_rows), self._delta_cap) if self._compactable else 0
         if degrade_queue_frac is None:
             degrade_queue_frac = _knob_float("serve_ann_degrade_frac")
         expects(0.0 <= degrade_queue_frac <= 1.0, "ANNService: degrade_queue_frac=%r",
@@ -263,8 +328,13 @@ class ANNService(Service):
         self._last_compact_s = 0.0
         self._index = index
         self.device = dev
-        self.name = name or "ann%d" % next(_service_seq)
         self._publish_state_locked()
+        if restored is not None:
+            self._apply_restore(restored)
+        if self._persist is not None and self._persist.snapshot_seq == 0:
+            # the bootstrap snapshot: a directory with a WAL alone could
+            # not rebuild the index
+            self._persist.snapshot(self._ann_state)
 
         def execute(padded):
             st = self._ann_state        # one snapshot per batch
@@ -288,7 +358,8 @@ class ANNService(Service):
     # ------------------------------------------------------------------ #
     def _snapshot_search(self, st: _AnnState, q, nprobe, delta):
         """The one search entry of dispatch, warmup and calibrate."""
-        return _ann.approx_knn_search(st.index, q, self.k, nprobe=nprobe, delta=delta,
+        return _ann.approx_knn_search(st.index, q, self.k, nprobe=nprobe,
+                                      refine_ratio=self._refine_ratio, delta=delta,
                                       device=self.device)
 
     def _publish_state_locked(self) -> None:
@@ -299,7 +370,8 @@ class ANNService(Service):
         vecs, ids = self._delta_vecs.clone(), self._delta_ids.clone()
         with torch.cuda.stream(self._stream):
             vecs, ids = vecs.to(self.device), ids.to(self.device)
-        self._ann_state = _AnnState(self._index, vecs, ids, self._delta_count)
+        self._ann_state = _AnnState(self._index, vecs, ids, self._delta_count,
+                                    self._persist_wal_seq)
         _labeled("gauge", "raft_tpu_serve_ann_delta_rows",
                  "rows in the append-only delta segment", self.name).set(self._delta_count)
 
@@ -316,7 +388,7 @@ class ANNService(Service):
         return self._ann_state.delta_rows
 
     @property
-    def index(self) -> _ann.IVFFlatIndex:
+    def index(self):
         """The index served now (compaction swaps visible)."""
         return self._ann_state.index
 
@@ -378,6 +450,60 @@ class ANNService(Service):
         self._degrade_hold = 0
         if self._degrade_level() == 0:
             self._degraded_gauge().set(0)
+
+    # ------------------------------------------------------------------ #
+    # durability
+    # ------------------------------------------------------------------ #
+    def _apply_restore(self, restored) -> None:
+        """Re-enter the durable state (construction only): the snapshot's
+        delta rows into the host mirror, then every WAL record past the
+        snapshot's ``wal_seq``, in order.  A replay that would overflow
+        the delta (a crash between a compaction and its snapshot) folds
+        the delta into an IVF-Flat index first, as compaction would."""
+        with self._delta_lock:
+            self._persist_wal_seq = int(restored.wal_seq)
+            rows = int(restored.delta_rows)
+            if rows:
+                expects(rows <= self._delta_cap, "%s: the restored snapshot holds %d delta rows "
+                        "but delta_cap is %d: restore with the original capacity or larger",
+                        self.name, rows, self._delta_cap)
+                self._delta_vecs[:rows] = torch.from_numpy(
+                    np.ascontiguousarray(restored.delta_vecs)).to(self._delta_vecs.dtype)
+                self._delta_ids[:rows] = torch.from_numpy(
+                    np.asarray(restored.delta_ids, np.int32))
+                self._delta_count = rows
+            dim = self._delta_vecs.shape[1]
+            for seq, ids, vecs in restored.wal_records:
+                expects(vecs.ndim == 2 and vecs.shape[1] == dim,
+                        "%s: WAL record %d carries dim-%d vectors; this service serves dim-%d",
+                        self.name, int(seq), int(vecs.shape[1]), dim)
+                n = int(vecs.shape[0])
+                if self._delta_count + n > self._delta_cap:
+                    self._fold_delta_locked()
+                expects(self._delta_count + n <= self._delta_cap, "%s: WAL record %d (%d rows) "
+                        "exceeds the delta capacity %d even after folding", self.name,
+                        int(seq), n, self._delta_cap)
+                at = self._delta_count
+                self._delta_vecs[at:at + n] = torch.from_numpy(vecs).to(self._delta_vecs.dtype)
+                self._delta_ids[at:at + n] = torch.from_numpy(np.asarray(ids, np.int32))
+                self._delta_count = at + n
+                self._persist_wal_seq = int(seq)
+            self._publish_state_locked()
+
+    def _fold_delta_locked(self) -> None:
+        """Restore-time compaction (the caller holds ``_delta_lock``): the
+        whole delta folded into the index, before any traffic."""
+        expects(self._compactable, "%s: WAL replay overflowed the delta segment and a PQ/SQ "
+                "index cannot be extended: raise delta_cap or rebuild offline", self.name)
+        n0 = self._delta_count
+        if n0 == 0:
+            return
+        with torch.cuda.stream(self._stream):
+            self._index = _ann.ivf_flat_extend(
+                self._index, self._delta_vecs[:n0].clone(), self._delta_ids[:n0].numpy().copy(),
+                slot_multiple=self._slot_multiple, device=self.device)
+        self._delta_ids[:] = -1
+        self._delta_count = 0
 
     # ------------------------------------------------------------------ #
     # warmup: every bucket rung x every nprobe cell, both delta arms
@@ -447,6 +573,11 @@ class ANNService(Service):
                     "%s.insert: delta segment full (%d + %d > cap %d); wait for compaction "
                     "and retry" % (self.name, at, n, self._delta_cap), at, self._delta_cap,
                     retry_after_s=max(self._last_compact_s, 0.05))
+            if self._persist is not None:
+                # the acknowledge contract: the record is in the WAL
+                # (durable per the fsync policy) before the mirror
+                # changes or the caller is answered
+                self._persist_wal_seq = self._persist.wal_append(key.numpy(), v.numpy())
             self._delta_vecs[at:at + n] = v
             self._delta_ids[at:at + n] = key
             self._delta_count = at + n
@@ -457,16 +588,23 @@ class ANNService(Service):
 
     def _maintenance_tick(self) -> None:
         """Worker-loop hook: compact when the delta crosses the threshold
-        (never while draining: drain serves out, it starts no rebuild)."""
+        (never while draining: drain serves out, it starts no rebuild),
+        then the durability tick (deferred fsync, interval snapshot of
+        the immutable state, one scrub step)."""
         if (self._compact_rows and self._delta_count >= self._compact_rows
                 and not self.batcher.draining()):
             self.compact()
+        if self._persist is not None:
+            self._persist.maintenance_tick(self._ann_state)
 
     def compact(self) -> bool:
         """Fold the delta segment into the IVF slots and swap the served
         index (module doc); False when the delta was empty.  Safe from
         any thread (serialised by a lock); rows inserted during the
-        rebuild stay in the delta for the next round."""
+        rebuild stay in the delta for the next round.  Raises for an
+        IVF-PQ or IVF-SQ index."""
+        expects(self._compactable, "%s.compact: compaction requires an IVFFlatIndex (PQ/SQ "
+                "stores hold codes; rebuild offline)", self.name)
         with self._compact_lock:
             with self._delta_lock:
                 n0 = self._delta_count
@@ -491,6 +629,9 @@ class ANNService(Service):
                 self._delta_count = rem
                 self._index = new_index
                 self._publish_state_locked()   # the atomic swap
+        if self._persist is not None:
+            # the snapshot on disk no longer matches the served index
+            self._persist.note_dirty()
         _labeled("counter", "raft_tpu_serve_ann_compactions_total",
                  "delta-to-slots compactions", self.name).inc()
         _labeled("counter", "raft_tpu_serve_ann_compacted_rows_total",
@@ -509,14 +650,22 @@ class ANNService(Service):
     def ground_truth_store(self, reference=None, *, state: Optional[_AnnState] = None):
         """(vectors, int64 global ids) as numpy for an exact ground truth:
         the caller's reference matrix (ids = row numbers) or the index's
-        own content, plus the live delta rows, all read from one
-        snapshot (``state``, by default the current one)."""
+        own content (IVF-Flat; IVF-PQ where it keeps its vectors), plus
+        the live delta rows, all read from one snapshot (``state``, by
+        default the current one)."""
         st = state if state is not None else self._ann_state
         if reference is not None:
             vecs = as_tensor(reference, _CPU).numpy()
             ids = np.arange(vecs.shape[0], dtype=np.int64)
-        else:
+        elif isinstance(st.index, _ann.IVFFlatIndex):
             vecs, ids = _ann.ivf_flat_reconstruct(st.index)
+        elif isinstance(st.index, _ann.IVFPQIndex) and st.index.vectors is not None:
+            vecs = st.index.vectors.cpu().numpy()
+            ids = np.arange(vecs.shape[0], dtype=np.int64)
+        else:
+            fail("%s.calibrate: pass reference=: a %s index stores quantized codes, not "
+                 "vectors, so an exact ground truth cannot be read from it", self.name,
+                 type(st.index).__name__)
         if st.delta_rows:
             vecs = np.concatenate([vecs, st.delta_vecs[:st.delta_rows].cpu().numpy()])
             ids = np.concatenate([ids, st.delta_ids[:st.delta_rows].cpu().numpy()
@@ -575,6 +724,21 @@ class ANNService(Service):
         return {"chosen_nprobe": chosen, "target_recall": target_recall, "met_target": met,
                 "k": self.k, "table": table}
 
+    def close(self, drain: bool = True, timeout: Optional[float] = None, *,
+              snapshot: bool = True) -> None:
+        """Drain and stop (the base contract), then, for a persistent
+        service, take the last snapshot, so that a restart replays no
+        WAL.  ``snapshot=False`` skips it (a simulated crash: the restart
+        recovers from the last snapshot and the WAL's tail).
+        Idempotent."""
+        was_closed = self._closed
+        super().close(drain=drain, timeout=timeout)
+        if was_closed or self._persist is None:
+            return
+        if snapshot:
+            self._persist.final_snapshot(self._ann_state)
+        self._persist.close()
+
     # ------------------------------------------------------------------ #
     def stats(self) -> dict:
         out = super().stats()
@@ -589,4 +753,6 @@ class ANNService(Service):
             "degrade_hold": self._degrade_hold,
             "last_compact_s": self._last_compact_s,
         })
+        if self._persist is not None:
+            out["persist"] = self._persist.stats()
         return out

@@ -26,7 +26,6 @@ returns numpy arrays, as the JAX function does.
 from __future__ import annotations
 
 import math
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,6 +34,7 @@ import torch
 from raft_tpu_torch.core import native
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import takes_handle
+from raft_tpu_torch.core.utils import StageTimer
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.sparse.convert import coo_to_csr
@@ -149,28 +149,7 @@ def extract_flattened_clusters(children: np.ndarray, n_clusters: int,
     return labels.astype(np.int64)
 
 
-class _Stages:
-    """Host-clock milliseconds of the pipeline's stages, each synchronised
-    with the device at its end, and the loop counts, into ``out`` (a dict
-    given by the caller; nothing is timed without one)."""
-
-    def __init__(self, out: Optional[dict], device: torch.device):
-        self.out, self.device = out, device
-        self.t0 = time.perf_counter()
-
-    def done(self, name: str, **counts) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name + "_ms"] = self.out.get(name + "_ms", 0.0) + (now - self.t0) * 1e3
-        for key, value in counts.items():
-            self.out.setdefault(key, []).append(value)
-        self.t0 = now
-
-
-def _mst_host(csr: CSR, colors: torch.Tensor, stages: _Stages):
+def _mst_host(csr: CSR, colors: torch.Tensor, stages: StageTimer):
     g, colors, rounds = solve(csr, colors.long(), round_cap(csr.n_rows))
     n_components = len(np.unique(colors.cpu().numpy()))
     stages.done("mst", boruvka_rounds=rounds)
@@ -178,7 +157,7 @@ def _mst_host(csr: CSR, colors: torch.Tensor, stages: _Stages):
 
 
 def _build_sorted_mst(X: torch.Tensor, graph: CSR, max_iter: int, metric: DistanceType,
-                      stages: _Stages) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                      stages: StageTimer) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     m = X.shape[0]
     g, colors, n_components = _mst_host(
         graph, torch.arange(m, dtype=torch.int64, device=X.device), stages)
@@ -217,11 +196,11 @@ def build_sorted_mst(X: torch.Tensor, graph: CSR, max_iter: int = 10,
     gives the units of the graph's weights, so that the stitch edges
     (Euclidean, from X) match; only the L2 family can be stitched.
     Returns host (src, dst, weights), m - 1 edges sorted by weight."""
-    return _build_sorted_mst(X, graph, max_iter, metric, _Stages(None, X.device))
+    return _build_sorted_mst(X, graph, max_iter, metric, StageTimer(None, X.device))
 
 
 def _distance_graph(X: torch.Tensor, c: int, metric: DistanceType, linkage: str,
-                    stages: _Stages) -> CSR:
+                    stages: StageTimer) -> CSR:
     m = X.shape[0]
     if linkage == "knn":
         k = min(m, int(math.log2(max(m, 2))) + c)
@@ -245,7 +224,7 @@ def get_distance_graph(X: torch.Tensor, c: int, metric: DistanceType,
     """The connectivity graph: the symmetrised kNN graph (k = log2(m) + c,
     reference detail/connectivities.cuh; :func:`~raft_tpu_torch.sparse.selection.knn_graph`)
     or the full pairwise one, as a CSR."""
-    return _distance_graph(X, c, metric, linkage, _Stages(None, X.device))
+    return _distance_graph(X, c, metric, linkage, StageTimer(None, X.device))
 
 
 @takes_handle
@@ -266,7 +245,7 @@ def single_linkage(X: torch.Tensor, n_clusters: int, metric: DistanceType = D.L2
     m = X.shape[0]
     expects(n_clusters <= m,
             "n_clusters must be less than or equal to the number of data points")
-    timer = _Stages(stages, X.device)
+    timer = StageTimer(stages, X.device)
     graph = _distance_graph(X, c, metric, linkage, timer)
     src, dst, w = _build_sorted_mst(X, graph, 10, metric, timer)
     del graph

@@ -1,9 +1,21 @@
-"""Approximate nearest neighbours: IVF-Flat.
+"""Approximate nearest neighbours: IVF-Flat, IVF-PQ and IVF-SQ.
 
-Port of the IVF-Flat half of ``raft_tpu/spatial/ann.py`` (reference
-spatial/knn/ann.hpp:45,71, ``approx_knn_build_index`` /
-``approx_knn_search``, which delegate to FAISS GPU).  IVF-PQ and IVF-SQ
-wait for a later slice; the dispatchers raise ``TypeError`` for them.
+Port of ``raft_tpu/spatial/ann.py`` (reference spatial/knn/ann.hpp:45,71,
+``approx_knn_build_index`` / ``approx_knn_search``, which delegate to
+FAISS GPU).  Three quantizers share one coarse quantizer and one slot
+layout:
+
+- **IVF-Flat** stores the vectors;
+- **IVF-PQ** stores product-quantization codes of the residuals: M
+  subspaces of ``d / M`` dimensions, each with a k-means codebook of
+  ``2 ** n_bits`` codewords (padded with ``inf`` rows where there are
+  fewer rows than codewords), and the codes as int32 k-means labels;
+  built with ``refine_ratio > 1`` it keeps the vectors too, for an exact
+  re-rank of the top ``k * refine_ratio`` candidates;
+- **IVF-SQ** stores 8-bit scalar codes (``QT_8bit``: per-dimension
+  ``scale``/``offset``; ``QT_8bit_uniform``: one range for all
+  dimensions) of the residuals, or of the vectors without
+  ``encode_residual``, as uint8 on the device.
 
 **Build.** A k-means coarse quantizer (:mod:`raft_tpu_torch.spectral.kmeans`,
 whose assignment runs on K4 for nlist >= 256), optionally trained on a
@@ -14,15 +26,17 @@ size rounded up to 8): a hot list owns several slots, and storage stays
 below ``n_rows + nlist * cap`` whatever the skew.  The lists are packed by
 the native host runtime (``rt_build_lists`` through
 :mod:`raft_tpu_torch.core.native`), as in the JAX package; the numpy
-route runs only on a machine without ``g++``.  Squared slot norms are
-stored with the index.  Each stage runs
-in a named ``torch.profiler`` range (``ivf_flat_build.*``, ``kmeans.*``),
-so a trace of one build times its stages.
+route runs only on a machine without ``g++``.  IVF-PQ's codebooks are M
+more k-means runs (256 codewords: K4 again), one per subspace of the
+residuals.  Each stage runs in a named ``torch.profiler`` range
+(``ivf_*_build.*``, ``kmeans.*``), and ``stages={}`` fills a dict with
+each stage's milliseconds.
 
 **Search.** Probe the ``nprobe`` nearest centroids (``select_k``, K2 on the
 card), concatenate the probed lists' slots, and move the valid ones to
-the front by a stable sort (``_probe_compact``).  Then one of two scans
-with one contract:
+the front by a stable sort (``_probe_compact``; the step scan also takes
+each slot's probe rank from it).  IVF-Flat then takes one of two scans with one
+contract:
 
 - ``scan_impl="kernel"``: K3 (:func:`raft_tpu_torch.ops.ivf_tile.fused_ivf_scan`):
   the scan lists grouped by probed slot into a work list, one kernel
@@ -38,14 +52,26 @@ with one contract:
 ``scan_impl=None`` takes the kernel on CUDA wherever it is legal, and the
 scan otherwise, which includes every CPU call.  The JAX package's own auto
 default is its ``"xla"`` scan (``core/tuning.py``, ``ivf_scan_impl``);
-the port defaults to the kernel, as ``fused_l2_knn`` does.  Results are
-(distances, int32 ids) best-first, square-rooted for the L2Sqrt metrics,
-with (+inf, -1) where fewer than k rows were scanned.  ``delta=(vectors,
-ids)`` merges an append-only segment, scanned by brute force, into the
-result; the base results come first, so ties keep the base copy.
+the port defaults to the kernel, as ``fused_l2_knn`` does.
 
-The JAX ``handle=``, ``donate_queries=``, ``select_impl=`` (approximate
-selects) and the compile-cache plumbing wait for the serving slice.
+IVF-PQ and IVF-SQ always take the step scan, as the JAX package scans
+them with its XLA loop (no Pallas kernel): per step the running top-k
+and the step go through ``select_k`` (K2 where k <= 128, a stable sort
+above).  IVF-PQ builds its lookup tables ``(nq, nprobe, M, 2 ** n_bits)``
+once per probed list, before the scan, with one batched product, and
+each step reads one query's table of the slot's probe by its rank and
+gathers it by the slot's codes, summed over M (the JAX package's
+``"gather"`` ADC; its one-hot formulation suits the TPU's MXU, not the
+card).  IVF-SQ dequantises the one slot of each query per step.
+
+Results are (distances, int32 ids) best-first, square-rooted for the
+L2Sqrt metrics, with (+inf, -1) where fewer than k rows were scanned.
+``delta=(vectors, ids)`` merges an append-only segment, scanned by brute
+force, into the result; the base results come first, so ties keep the
+base copy.
+
+The JAX ``handle=``, ``donate_queries=`` and ``select_impl=`` (approximate
+selects) and its compile-cache plumbing have no counterpart here.
 """
 
 from __future__ import annotations
@@ -61,7 +87,7 @@ from torch.profiler import record_function
 from raft_tpu_torch.core import native, precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.utils import round_up_safe
+from raft_tpu_torch.core.utils import StageTimer, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.distance.pairwise import expanded_sq_dists
 from raft_tpu_torch.ops.ivf_tile import MAX_K, fused_ivf_scan
@@ -71,12 +97,30 @@ from raft_tpu_torch.spectral.kmeans import kmeans
 D = DistanceType
 
 SCAN_IMPLS = ("kernel", "kernel_bf16", "scan")
+SQ_QTYPES = ("QT_8bit", "QT_8bit_uniform")
 
 
 @dataclass
 class IVFFlatParams:
     nlist: int
     nprobe: int = 8
+
+
+@dataclass
+class IVFPQParams:
+    nlist: int
+    nprobe: int = 8
+    M: int = 8             # subquantizers
+    n_bits: int = 8        # log2 of the codebook size
+    refine_ratio: int = 1  # > 1: keep the vectors, re-rank the top k * ratio exactly
+
+
+@dataclass
+class IVFSQParams:
+    nlist: int
+    nprobe: int = 8
+    qtype: str = "QT_8bit"
+    encode_residual: bool = True
 
 
 class IVFFlatIndex(NamedTuple):
@@ -89,6 +133,34 @@ class IVFFlatIndex(NamedTuple):
     metric: DistanceType
     nprobe: int                  # default probe count from the build params
     slot_norms: Optional[torch.Tensor] = None  # (n_slots, cap) squared norms
+
+
+class IVFPQIndex(NamedTuple):
+    centroids: torch.Tensor      # (nlist, d) coarse
+    codebooks: torch.Tensor      # (M, ksub, dsub) codewords, inf rows where padded
+    slot_codes: torch.Tensor     # (n_slots, cap, M) int32 codes (row 0's where vacant)
+    slot_ids: torch.Tensor       # (n_slots, cap) int32 global row ids, -1 vacant
+    slot_centroid: torch.Tensor  # (n_slots,) int32
+    cent_slots: torch.Tensor     # (nlist, max_slots) int32
+    list_sizes: torch.Tensor     # (nlist,) int32
+    metric: DistanceType
+    nprobe: int
+    vectors: Optional[torch.Tensor] = None  # (m, d), kept for refine_ratio > 1
+    refine_ratio: int = 1
+
+
+class IVFSQIndex(NamedTuple):
+    centroids: torch.Tensor      # (nlist, d)
+    slot_q: torch.Tensor         # (n_slots, cap, d) uint8 codes (row 0's where vacant)
+    scale: torch.Tensor          # (d,) float32 dequantisation scale
+    offset: torch.Tensor         # (d,) float32 dequantisation offset
+    slot_ids: torch.Tensor
+    slot_centroid: torch.Tensor
+    cent_slots: torch.Tensor
+    list_sizes: torch.Tensor
+    metric: DistanceType
+    nprobe: int
+    encode_residual: bool        # the build's setting, honoured by the search
 
 
 # --------------------------------------------------------------------- #
@@ -244,39 +316,49 @@ def _validate_nprobe(name: str, nprobe, nlist: int) -> int:
 # --------------------------------------------------------------------- #
 # probe and scan
 # --------------------------------------------------------------------- #
-def _probe_compact(q, centroids, cent_slots, nprobe):
+def _probe_compact(q, centroids, cent_slots, nprobe, probes=None, ranks=False):
     """Probe selection + valid-first compaction of the scan lists, shared
-    by both scans so that probe ties resolve alike.
+    by every scan so that probe ties resolve alike.
 
     Returns (slots (nq, nprobe * max_slots) int32 valid first and -1
-    padded, n_live a 0-d tensor: the most valid slots of any query).  The
-    JAX package also returns each slot's probe rank, which only its IVF-PQ
-    scan reads.
+    padded, n_live a 0-d tensor: the most valid slots of any query), and
+    with ``ranks`` also prank (the shape of slots, int32): the probe rank
+    each slot belongs to, moved by the same stable sort.  A caller that
+    selected its probes already (to build per-probe tables from them)
+    passes the (nq, nprobe) ``probes``, so that the ranks and its tables
+    agree.
     """
     nq = q.shape[0]
-    nprobe = min(nprobe, cent_slots.shape[0])
-    _, probes = select_k(expanded_sq_dists(q, centroids), nprobe, select_min=True,
-                         device=q.device)
+    nlist, max_slots = cent_slots.shape
+    if probes is None:
+        _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, nlist),
+                             select_min=True, device=q.device)
     slots = cent_slots[probes.long()].reshape(nq, -1)
     _, order = torch.sort((slots < 0).to(torch.int32), dim=1, stable=True)
     slots = torch.gather(slots, 1, order)
-    return slots, (slots >= 0).sum(dim=1).max()
+    n_live = (slots >= 0).sum(dim=1).max()
+    if not ranks:
+        return slots, n_live
+    # order // max_slots is the probe rank of the slot it moved
+    return slots, torch.div(order, max_slots, rounding_mode="floor").to(torch.int32), n_live
 
 
-def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric):
+def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, probes=None):
     """Probe, then scan the probed slots one step at a time with a running
-    top-k.  ``step_dist(slx) -> (dist (nq, cap), ids (nq, cap))`` computes
-    one step given each query's slot ``slx``.  The loop runs as many steps
-    as the query with the most valid slots has."""
+    top-k.  ``step_dist(slx, pjx) -> (dist (nq, cap), ids (nq, cap))``
+    computes one step given each query's slot ``slx`` and the probe rank
+    ``pjx`` it belongs to (so that per-probe tables are read, not
+    rebuilt); ``probes`` as in :func:`_probe_compact`.  The loop runs as
+    many steps as the query with the most valid slots has."""
     nq = q.shape[0]
-    slots, n_live = _probe_compact(q, centroids, cent_slots, nprobe)
+    slots, prank, n_live = _probe_compact(q, centroids, cent_slots, nprobe, probes, ranks=True)
     dt = torch.promote_types(q.dtype, torch.float32)
     run_d = torch.full((nq, k), float("inf"), dtype=dt, device=q.device)
     run_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
     for j in range(int(n_live)):
         sl = slots[:, j]
         valid = sl >= 0
-        dist, ids = step_dist(torch.where(valid, sl, 0))
+        dist, ids = step_dist(torch.where(valid, sl, 0).long(), prank[:, j].long())
         ids = torch.where(valid[:, None], ids, -1)
         dist = torch.where(ids >= 0, torch.clamp(dist, min=0.0), float("inf")).to(dt)
         run_d, run_i = select_k(torch.cat([run_d, dist], dim=1), k, select_min=True,
@@ -372,7 +454,7 @@ def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots
 
     qn = (q * q).sum(dim=1)
 
-    def step_dist(slx):
+    def step_dist(slx, _pjx):
         vecs = slot_vecs[slx]                                  # (nq, cap, d)
         dot = precision.bmm(vecs, q[:, :, None].to(vecs.dtype))[:, :, 0]
         return qn[:, None] + slot_norms[slx] - 2.0 * dot, slot_ids[slx]
@@ -472,19 +554,233 @@ def ivf_flat_extend(index: IVFFlatIndex, vectors, ids, *, slot_multiple: int = 6
 
 
 # --------------------------------------------------------------------- #
+# IVF-PQ
+# --------------------------------------------------------------------- #
+def _slot_gather(table: torch.Tensor, slot_rows: np.ndarray):
+    """(slot_rows as a tensor, the rows of ``table`` laid out in slots):
+    vacant entries take row 0, as the JAX build's gather does."""
+    rows = torch.from_numpy(slot_rows).to(table.device)
+    return rows, table[torch.clamp(rows, min=0).long()]
+
+
+def ivf_pq_build(X, params: IVFPQParams, metric: DistanceType = D.L2Expanded,
+                 seed: int = 1234, train_rows: Optional[int] = None, device="cuda",
+                 stages: Optional[dict] = None) -> IVFPQIndex:
+    """Build an IVF-PQ index (reference IVFPQ path,
+    ann_quantized_faiss.cuh:143-160): the coarse quantizer, then one
+    k-means codebook per subspace of the residuals (``kmeans(sub,
+    min(2 ** n_bits, m), seed=seed + mi, max_iter=20)``), padded with
+    ``inf`` rows to ``2 ** n_bits``.  ``stages`` (a dict) receives the
+    milliseconds of ``coarse``, ``codebooks`` and ``packing``."""
+    dev = resolve_device(device)
+    X = as_tensor(X, dev)
+    expects(X.ndim == 2, "ivf_pq_build: 2-D vectors required")
+    m, d = X.shape
+    M, ksub = params.M, 2 ** params.n_bits
+    expects(d % M == 0, "ivf_pq_build: dim %d not divisible by M=%d", d, M)
+    expects(params.nlist <= m, "ivf_pq_build: nlist > n_vectors")
+    _check_metric("ivf_pq_build", metric)
+    dsub = d // M
+    timer = StageTimer(stages, dev)
+    centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
+    timer.done("coarse")
+    with record_function("ivf_pq_build.codebooks"):
+        resid = X - centroids[labels.long()]
+        kk = min(ksub, m)
+        books, codes = [], []
+        for mi in range(M):
+            res = kmeans(resid[:, mi * dsub:(mi + 1) * dsub], kk, seed=seed + mi, max_iter=20,
+                         device=dev)
+            cb = res.centroids
+            if kk < ksub:
+                cb = torch.cat([cb, torch.full((ksub - kk, dsub), float("inf"), dtype=cb.dtype,
+                                               device=dev)])
+            books.append(cb)
+            codes.append(res.labels)
+        del resid
+    timer.done("codebooks")
+    with record_function("ivf_pq_build.host_packing"):
+        slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
+                                                                   params.nlist)
+        rows, slot_codes = _slot_gather(torch.stack(codes, dim=1), slot_rows)
+    ratio = max(int(params.refine_ratio), 1)
+    out = IVFPQIndex(centroids, torch.stack(books), slot_codes, rows,
+                     torch.from_numpy(slot_cent).to(dev), torch.from_numpy(cent_slots).to(dev),
+                     torch.from_numpy(counts.astype(np.int32)).to(dev), metric, params.nprobe,
+                     vectors=X if ratio > 1 else None, refine_ratio=ratio)
+    timer.done("packing")
+    return out
+
+
+def _pq_tables(q, centroids, codebooks, probes):
+    """The ADC lookup tables of each query's probed lists: (nq, nprobe, M,
+    ksub) squared distances of the query's residual subvectors to the
+    codewords, one batched product for all of them."""
+    M, ksub, dsub = codebooks.shape
+    nq, n_probe = probes.shape
+    rs = (q[:, None, :] - centroids[probes.long()]).reshape(nq * n_probe, M, dsub)
+    prod = precision.bmm(rs.transpose(0, 1), codebooks.transpose(1, 2))   # (M, nq*np, ksub)
+    cb_norms = (codebooks * codebooks).sum(dim=-1)                          # (M, ksub)
+    lut = (rs * rs).sum(dim=-1)[:, :, None] + cb_norms[None] - 2.0 * prod.transpose(0, 1)
+    return lut.reshape(nq, n_probe, M, ksub)
+
+
+def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, q, k, nprobe,
+                        metric):
+    nq = q.shape[0]
+    with record_function("ivf_pq_search.tables"):
+        _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, centroids.shape[0]),
+                             select_min=True, device=q.device)
+        lut_all = _pq_tables(q, centroids, codebooks, probes)
+    rows = torch.arange(nq, device=q.device)
+
+    def step_dist(slx, pjx):
+        lut = lut_all[rows, pjx]                               # (nq, M, ksub)
+        codes = slot_codes[slx]                                # (nq, cap, M)
+        dist = torch.gather(lut, 2, codes.transpose(1, 2).long()).sum(dim=1)
+        return dist, slot_ids[slx]
+
+    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric,
+                              probes=probes)
+
+
+def _refine_impl(vectors, q, cand_ids, k, sqrt):
+    """Exact re-rank of the ADC candidates against the stored vectors (the
+    quality half of FAISS's IndexRefineFlat)."""
+    valid = cand_ids >= 0
+    vecs = vectors[torch.where(valid, cand_ids, 0).long()]     # (nq, k2, d)
+    diff = vecs - q[:, None, :]
+    dist = torch.where(valid, (diff * diff).sum(dim=-1), float("inf"))
+    out_d, out_i = select_k(dist, k, select_min=True, values=cand_ids, device=q.device)
+    return (torch.sqrt(out_d) if sqrt else out_d), out_i
+
+
+def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = None,
+                  refine_ratio: Optional[int] = None, *, delta=None,
+                  device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """ADC search of an IVF-PQ index; where the index holds its vectors and
+    ``refine_ratio`` (default: the build's) is > 1, the top ``k *
+    refine_ratio`` ADC candidates are re-ranked exactly; ``nprobe``,
+    ``delta`` and ``device`` as in :func:`ivf_flat_search`."""
+    dev = resolve_device(device)
+    q = as_tensor(queries, dev)
+    expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
+            "ivf_pq_search: expected (n_queries, %d) queries, got %r",
+            int(index.centroids.shape[1]), tuple(q.shape))
+    nprobe = _validate_nprobe("ivf_pq_search", index.nprobe if nprobe is None else nprobe,
+                              int(index.centroids.shape[0]))
+    ratio = max(int(index.refine_ratio if refine_ratio is None else refine_ratio), 1)
+    refine = ratio > 1 and index.vectors is not None
+    metric = DistanceType(int(index.metric))
+    arrays = [as_tensor(a, dev) for a in (index.centroids, index.codebooks, index.slot_codes,
+                                          index.slot_ids, index.cent_slots)]
+    out = _ivf_pq_search_impl(*arrays, q, k * ratio if refine else k, nprobe, metric)
+    if refine:
+        with record_function("ivf_pq_search.refine"):
+            out = _refine_impl(as_tensor(index.vectors, dev), q, out[1], k,
+                               metric in _SQRT_METRICS)
+    if delta is not None:
+        out = _merge_delta(out, delta, q, k, metric)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# IVF-SQ
+# --------------------------------------------------------------------- #
+def ivf_sq_build(X, params: IVFSQParams, metric: DistanceType = D.L2Expanded,
+                 seed: int = 1234, train_rows: Optional[int] = None,
+                 device="cuda") -> IVFSQIndex:
+    """8-bit scalar quantization of the residuals (or of the vectors
+    without ``encode_residual``; reference IVFSQ path,
+    ann_quantized_faiss.cuh:162-176): per dimension (``QT_8bit``) or one
+    (``QT_8bit_uniform``) range ``[lo, hi]`` cut into 255 steps."""
+    expects(params.qtype in SQ_QTYPES, "ivf_sq_build: unsupported qtype %s", params.qtype)
+    _check_metric("ivf_sq_build", metric)
+    dev = resolve_device(device)
+    X = as_tensor(X, dev)
+    expects(X.ndim == 2, "ivf_sq_build: 2-D vectors required")
+    expects(params.nlist <= X.shape[0], "ivf_sq_build: nlist > n_vectors")
+    centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
+    with record_function("ivf_sq_build.quantize"):
+        resid = X - centroids[labels.long()] if params.encode_residual else X
+        lo, hi = resid.min(dim=0).values, resid.max(dim=0).values
+        if params.qtype == "QT_8bit_uniform":
+            lo, hi = torch.full_like(lo, lo.min()), torch.full_like(hi, hi.max())
+        scale = (hi - lo) / 255.0
+        scale = torch.where(scale == 0, 1.0, scale)
+        codes = torch.clamp(torch.round((resid - lo) / scale), 0, 255).to(torch.uint8)
+        del resid
+    with record_function("ivf_sq_build.host_packing"):
+        slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
+                                                                   params.nlist)
+        rows, slot_q = _slot_gather(codes, slot_rows)
+    return IVFSQIndex(centroids, slot_q, scale, lo, rows, torch.from_numpy(slot_cent).to(dev),
+                      torch.from_numpy(cent_slots).to(dev),
+                      torch.from_numpy(counts.astype(np.int32)).to(dev), metric, params.nprobe,
+                      bool(params.encode_residual))
+
+
+def _ivf_sq_search_impl(centroids, slot_q, scale, offset, slot_ids, slot_centroid, cent_slots,
+                        q, k, nprobe, encode_residual, metric):
+    qn = (q * q).sum(dim=1)
+
+    def step_dist(slx, _pjx):
+        # dequantise the probed slot only: the store stays uint8
+        deq = slot_q[slx].to(torch.float32) * scale + offset               # (nq, cap, d)
+        if encode_residual:
+            deq = deq + centroids[slot_centroid[slx].long()][:, None, :]
+        dot = precision.bmm(deq, q[:, :, None].to(deq.dtype))[:, :, 0]
+        return qn[:, None] + (deq * deq).sum(dim=-1) - 2.0 * dot, slot_ids[slx]
+
+    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric)
+
+
+def ivf_sq_search(index: IVFSQIndex, queries, k: int, nprobe: Optional[int] = None, *,
+                  delta=None, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Search an IVF-SQ index, honouring the build's ``encode_residual``;
+    ``nprobe``, ``delta`` and ``device`` as in :func:`ivf_flat_search`."""
+    dev = resolve_device(device)
+    q = as_tensor(queries, dev)
+    expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
+            "ivf_sq_search: expected (n_queries, %d) queries, got %r",
+            int(index.centroids.shape[1]), tuple(q.shape))
+    nprobe = _validate_nprobe("ivf_sq_search", index.nprobe if nprobe is None else nprobe,
+                              int(index.centroids.shape[0]))
+    metric = DistanceType(int(index.metric))
+    arrays = [as_tensor(a, dev) for a in (index.centroids, index.slot_q, index.scale,
+                                          index.offset, index.slot_ids, index.slot_centroid,
+                                          index.cent_slots)]
+    out = _ivf_sq_search_impl(*arrays, q, k, nprobe, bool(index.encode_residual), metric)
+    if delta is not None:
+        out = _merge_delta(out, delta, q, k, metric)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # dispatch (reference ann.hpp:45,71)
 # --------------------------------------------------------------------- #
 def approx_knn_build_index(X, params, metric: DistanceType = D.L2Expanded, seed: int = 1234,
                            train_rows: Optional[int] = None, device="cuda"):
-    """Build the index that ``params`` names; IVF-Flat only in this port."""
+    """Build the index that ``params`` names (IVF-Flat, IVF-PQ or IVF-SQ)."""
+    if isinstance(params, IVFPQParams):
+        return ivf_pq_build(X, params, metric, seed, train_rows=train_rows, device=device)
+    if isinstance(params, IVFSQParams):
+        return ivf_sq_build(X, params, metric, seed, train_rows=train_rows, device=device)
     if isinstance(params, IVFFlatParams):
         return ivf_flat_build(X, params, metric, seed, train_rows=train_rows, device=device)
     raise TypeError(f"unknown ANN params {type(params)}")
 
 
-def approx_knn_search(index, queries, k: int, nprobe: Optional[int] = None, *, delta=None,
+def approx_knn_search(index, queries, k: int, nprobe: Optional[int] = None,
+                      refine_ratio: Optional[int] = None, *, delta=None,
                       scan_impl: Optional[str] = None, device="cuda"):
-    """Search an index by its type (see :func:`ivf_flat_search`)."""
+    """Search an index by its type: ``refine_ratio`` reaches IVF-PQ only (IVF-Flat and IVF-SQ ignore them), ``scan_impl`` IVF-Flat
+    only (see :func:`ivf_flat_search` and :func:`ivf_pq_search`)."""
+    if isinstance(index, IVFPQIndex):
+        return ivf_pq_search(index, queries, k, nprobe, refine_ratio, delta=delta,
+                             device=device)
+    if isinstance(index, IVFSQIndex):
+        return ivf_sq_search(index, queries, k, nprobe, delta=delta, device=device)
     if isinstance(index, IVFFlatIndex):
         return ivf_flat_search(index, queries, k, nprobe, delta=delta, scan_impl=scan_impl,
                                device=device)

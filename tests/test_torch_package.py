@@ -20,6 +20,7 @@ from raft_tpu_torch.cache import VecCache
 from raft_tpu_torch.core.handle import Handle
 from raft_tpu_torch.label import make_monotonic, merge_labels
 from raft_tpu_torch.lap import LinearAssignmentProblem, solve_lap
+from raft_tpu_torch.persist import load_current
 from raft_tpu_torch.random import Rng
 from raft_tpu_torch.sparse import COO, CSR
 from raft_tpu_torch.sparse import convert as sparse_convert
@@ -74,7 +75,11 @@ def test_import_pulls_in_no_jax():
                                     "raft_tpu_torch.sparse.selection",
                                     "raft_tpu_torch.sparse.mst", "raft_tpu_torch.sparse.linkage",
                                     "raft_tpu_torch.sparse.hierarchy",
-                                    "raft_tpu_torch.spectral"])
+                                    "raft_tpu_torch.spectral", "raft_tpu_torch.persist",
+                                    "raft_tpu_torch.persist.wal",
+                                    "raft_tpu_torch.persist.snapshot",
+                                    "raft_tpu_torch.persist.manager",
+                                    "raft_tpu_torch.spatial.ball_cover"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
@@ -92,6 +97,19 @@ def test_sources_import_no_jax():
 
 def _cpu_index(x):
     return raft_tpu_torch.ivf_flat_build(x, raft_tpu_torch.IVFFlatParams(nlist=2), device="cpu")
+
+
+def _cpu_pq(x):
+    return raft_tpu_torch.ivf_pq_build(x, raft_tpu_torch.IVFPQParams(nlist=2, M=2, n_bits=3),
+                                       device="cpu")
+
+
+def _cpu_sq(x):
+    return raft_tpu_torch.ivf_sq_build(x, raft_tpu_torch.IVFSQParams(nlist=2), device="cpu")
+
+
+def _cpu_rbc(x):
+    return raft_tpu_torch.rbc_build_index(x, device="cpu")
 
 
 def _cpu_graph(x):
@@ -124,6 +142,17 @@ ENTRY_POINTS = {
     "approx_knn_build_index": lambda x, q: raft_tpu_torch.approx_knn_build_index(
         x, raft_tpu_torch.IVFFlatParams(nlist=2)),
     "approx_knn_search": lambda x, q: raft_tpu_torch.approx_knn_search(_cpu_index(x), q, 3),
+    "ivf_pq_build": lambda x, q: raft_tpu_torch.ivf_pq_build(
+        x, raft_tpu_torch.IVFPQParams(nlist=2, M=2, n_bits=3)),
+    "ivf_pq_search": lambda x, q: raft_tpu_torch.ivf_pq_search(_cpu_pq(x), q, 3),
+    "ivf_sq_build": lambda x, q: raft_tpu_torch.ivf_sq_build(x, raft_tpu_torch.IVFSQParams(2)),
+    "ivf_sq_search": lambda x, q: raft_tpu_torch.ivf_sq_search(_cpu_sq(x), q, 3),
+    "approx_knn_search PQ": lambda x, q: raft_tpu_torch.approx_knn_search(_cpu_pq(x), q, 3),
+    "rbc_build_index": lambda x, q: raft_tpu_torch.rbc_build_index(x),
+    "rbc_knn_query": lambda x, q: raft_tpu_torch.rbc_knn_query(_cpu_rbc(x), 3, q),
+    "rbc_all_knn_query": lambda x, q: raft_tpu_torch.rbc_all_knn_query(_cpu_rbc(x), 3),
+    "persist.load_current": lambda x, q: load_current("."),
+    "ANNService PQ": lambda x, q: raft_tpu_torch.ANNService(_cpu_pq(x), 3, start=False),
     "KNNService": lambda x, q: raft_tpu_torch.KNNService(x, 3, start=False),
     "PairwiseService": lambda x, q: raft_tpu_torch.PairwiseService(x, start=False),
     "ANNService": lambda x, q: raft_tpu_torch.ANNService(_cpu_index(x), 3, start=False),

@@ -16,14 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch import (DistanceType, IVFFlatParams, RaftError, ivf_flat_build,
-                            ivf_flat_search, kmeans,
-                            linalg)
+from raft_tpu_torch import (DistanceType, IVFFlatParams, IVFPQParams, IVFSQParams, RaftError,
+                            ivf_flat_build, ivf_flat_search, ivf_pq_build,
+                            ivf_sq_build, ivf_sq_search, kmeans, linalg, rbc_build_index,
+                            rbc_knn_query)
 from raft_tpu_torch.core import precision
 from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan_plain
 from raft_tpu_torch.ops.knn_tile import knn_tile_plain, twophase_tiles_plain
 from raft_tpu_torch.ops.nn_tile import nn_tile_plain
+from raft_tpu_torch.spatial import ann
 from raft_tpu_torch.spatial.ann import _delta_merge_impl
 from raft_tpu_torch import spectral
 from raft_tpu_torch.sparse import CSR
@@ -100,6 +102,28 @@ def _site_delta_merge():
 def _site_scan_route():
     ivf_flat_search(_ivf_index(), _f32(6, 8, seed=2), 5, scan_impl="scan",
                     device="cpu")
+
+
+def _pq_index():
+    return ivf_pq_build(_f32(400, 8, seed=1), IVFPQParams(nlist=4, nprobe=2, M=2, n_bits=4),
+                        device="cpu")
+
+
+def _site_pq_tables():
+    idx = _pq_index()
+    q = _f32(6, 8, seed=2)
+    probes = torch.tensor([[0, 1]] * 6)
+    ann._pq_tables(q, idx.centroids, idx.codebooks, probes)
+
+
+def _site_sq_step():
+    idx = ivf_sq_build(_f32(400, 8, seed=1), IVFSQParams(nlist=4, nprobe=2), device="cpu")
+    ivf_sq_search(idx, _f32(6, 8, seed=2), 5, device="cpu")
+
+
+def _site_ball_cover_groups():
+    idx = rbc_build_index(_f32(300, 3, seed=1), n_landmarks=6, device="cpu")
+    rbc_knn_query(idx, 4, _f32(7, 3, seed=2), device="cpu")
 
 
 def _site_knn_tile_plain():
@@ -186,6 +210,9 @@ SITES = {
     "spectral/kmeans.py _assign": _site_kmeans_assign,
     "spatial/ann.py delta merge": _site_delta_merge,
     "spatial/ann.py scan route": _site_scan_route,
+    "spatial/ann.py PQ lookup tables": _site_pq_tables,
+    "spatial/ann.py SQ step": _site_sq_step,
+    "spatial/ball_cover.py group distances": _site_ball_cover_groups,
     "ops/knn_tile.py knn_tile_plain": _site_knn_tile_plain,
     "ops/knn_tile.py twophase_tiles_plain": _site_twophase_plain,
     "ops/nn_tile.py nn_tile_plain": _site_nn_tile_plain,

@@ -476,12 +476,11 @@ def test_malformed_ladder_knob_names_the_env_var(pindex, monkeypatch):
         make_port(pindex, nprobe_ladder="4,x")
 
 
-DEFERRED = {"refine_ratio": 2, "ooc": True, "device_budget_bytes": 1 << 20, "tile_slots": 4,
-            "ooc_overlap": True, "ooc_promote_batches": 8, "persist_dir": "/nonexistent",
-            "persist_fsync": "always", "snapshot_interval_s": 1.0, "persist_mmap": True,
-            "scrub_chunks": 2, "mesh": object(), "axis": "x", "merge": "ring",
+DEFERRED = {"ooc": True, "device_budget_bytes": 1 << 20, "tile_slots": 4,
+            "ooc_overlap": True, "ooc_promote_batches": 8, "persist_mmap": True,
+            "mesh": object(), "axis": "x", "merge": "ring",
             "group_size": 2, "select_impl": "approx"}
-ITEM = {"refine_ratio": "item 4", "select_impl": "item 7", "mesh": "item 6", "axis": "item 6",
+ITEM = {"select_impl": "item 7", "mesh": "item 6", "axis": "item 6",
         "merge": "item 6", "group_size": "item 6"}
 
 
@@ -492,11 +491,15 @@ def test_deferred_arguments_raise_naming_their_item(pindex, arg):
 
 
 def test_other_index_kinds_raise_naming_item_4(pindex):
-    class IVFPQIndex(tuple):
+    # IVF-PQ and IVF-SQ are served now (test_torch_serve_ann_quantized.py);
+    # any other kind, a tuple of another index type included, is refused
+    class OocIVFFlat(tuple):
         pass
 
-    with pytest.raises(RaftError, match="IVFPQIndex waits for queue 1 item 4"):
-        ANNService(IVFPQIndex(), K, start=False, device="cpu")
+    for other in (OocIVFFlat(), object()):
+        with pytest.raises(LogicError, match="must be an IVF index"):
+            ANNService(other, K, start=False, device="cpu")
     # the resident defaults of the deferred arguments pass
-    svc = ANNService(pindex, K, start=False, device="cpu", ooc=False, refine_ratio=None)
+    svc = ANNService(pindex, K, start=False, device="cpu", ooc=False, persist_mmap=False,
+                     refine_ratio=None)
     svc.close()
