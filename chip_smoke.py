@@ -97,7 +97,28 @@ paths through the public entry points with ``device="cuda"``:
   lat/lon points under Haversine (``rbc_haversine_1M``) and 65,536
   queries (k 16) against 1,000,000 uniform 3-D points
   (``rbc_l2_3d_1M``), each exact on 1,024 rows against a float64 scan or
-  brute force, with the loop steps, chunks and peak bytes.
+  brute force, with the loop steps, chunks and peak bytes;
+- the out-of-core IVF-Flat tier (``serve_ann_ooc_1M``, the JAX
+  ``serve_ann_ooc`` rung, ``bench.py:1399-1520``): the mixture in 2048
+  lists (train_rows 65,536), served by ``ANNService`` at k 100 and
+  nprobe 8 (ladder 4/8, rungs 8/32/64/128) under 8 threads of 16-row
+  requests in a closed loop, in three arms over one index: resident
+  (2 s), out-of-core double-buffered (4 s; ``ivf_flat_to_ooc``, the
+  resident slot vectors freed first) and out-of-core synchronous
+  (``ooc_overlap=False``, 4 s), each under a device budget of a quarter
+  of the slot store.  The JAX rung selects approximately
+  (``select_impl="approx"``, queue 1 item 7); every arm here selects
+  exactly.  Per arm rows/s and p50/p99; per out-of-core arm the tile hit
+  rate, H2D MB, the hidden share of the transfer (1 - stall / h2d), the
+  staged-bytes high water beside the pool's budget, the hot set, the
+  peak allocation above the arm's start; ``overlap_speedup`` and
+  ``qps_vs_resident``; one 32-slot tile's pinned copy (GB/s) and host
+  gather.  1,024 fixed queries (8 requests of 128 rows, a batch each)
+  through every arm: the out-of-core distances bitwise the resident
+  arm's, the ids equal except among ties, recall@100 (256 rows, against
+  K1) equal; the staged high water within the pool's budget, the peak
+  under half the store; K3 held at a staged tile's geometry (32 slots, a
+  128-row batch).
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -236,6 +257,15 @@ PQ_DECODE_TOL, PQ_DECODE_ROWS = 1e-4, 256
 # with 65,536 queries at k 16; L = sqrt(m) landmarks; exactness on 1024 rows
 RBC_M, RBC_HAV_K, RBC_L2_K, RBC_L2_QUERIES, RBC_CHECK = 1_000_000, 8, 16, 65_536, 1024
 RBC_HAV_ATOL = 1e-5
+# the out-of-core tier (serve_ann_ooc_1M): the JAX serve_ann_ooc rung
+# (bench.py:1399-1520, called at :2792-2794): the 1M x 128 mixture into
+# 2048 lists (train_rows 65,536), k 100 at nprobe 8, the serve_ann rungs,
+# 8 threads of 16-row requests in a closed loop, a device budget of a
+# quarter of the slot store; 1024 fixed queries (8 requests of 128 rows,
+# one batch each) held across the arms, 256 of them against K1's top-100
+OOC_NLIST, OOC_TRAIN_ROWS, OOC_NPROBE, OOC_BUDGET_FRAC = 2048, 65_536, 8, 0.25
+OOC_THREADS, OOC_ROWS, OOC_RESIDENT_S, OOC_ARM_S = 8, 16, 2.0, 4.0
+OOC_FIXED, OOC_RECALL_ROWS, OOC_PEAK_FRAC = 1024, 256, 0.5
 QUANTIZED_PATHS = ("ivf_pq_1M", "ivf_sq_1M", "serve_ann_pq_1M", "serve_ann_sq_1M",
                    "persist_ann_1M", "rbc_haversine_1M", "rbc_l2_3d_1M")
 
@@ -996,6 +1026,205 @@ def serve_quantized(kind, index, X, ann_load, dev, reset, counts, m):
     return out
 
 
+def closed_loop(svc, blocks, n_threads, seconds):
+    """``n_threads`` threads each submit a block of ``blocks`` (in turn),
+    wait for its answer and submit the next, until ``seconds`` pass.
+    Returns (rows answered, wall ms, request latencies in ms, sorted)."""
+    stop_at = [0.0]
+    lat, rows, errors = [[] for _ in range(n_threads)], [0] * n_threads, []
+    start = threading.Barrier(n_threads + 1)
+
+    def client(t):
+        try:
+            start.wait(60)
+            i = t
+            while time.perf_counter() < stop_at[0]:
+                b = blocks[i % len(blocks)]
+                t0 = time.perf_counter()
+                svc.submit(b).result(timeout=120)
+                lat[t].append((time.perf_counter() - t0) * 1e3)
+                rows[t] += len(b)
+                i += n_threads
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    stop_at[0] = time.perf_counter() + seconds
+    t0 = time.perf_counter()
+    start.wait(60)
+    for th in threads:
+        th.join(seconds + 180)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert not errors, errors
+    assert not any(th.is_alive() for th in threads)
+    return sum(rows), wall_ms, sorted(x for per in lat for x in per)
+
+
+def pool_value(name, pool, attr="value"):
+    """A pool-labelled series of the default registry (0 when absent)."""
+    from raft_tpu_torch.core.metrics import default_registry
+
+    fam = default_registry().get(name)
+    if fam is not None:
+        for labels, series in fam.series():
+            if labels.get("pool") == pool:
+                return float(getattr(series, attr))
+    return 0.0
+
+
+def ooc_path(X, mixture, dev, reset, counts, m):
+    """``serve_ann_ooc_1M``: an IVF-Flat index of the 1M mixture in 2048
+    lists served by three ``ANNService`` arms at nprobe 8 (module doc):
+    resident, out-of-core double-buffered and out-of-core synchronous,
+    each under a closed loop of 8 threads, then the fixed queries held
+    across the arms and K3 held at a staged tile's geometry.  The JAX
+    rung's approximate select (``select_impl="approx"``) waits for queue 1
+    item 7: every arm here selects exactly."""
+    D = m.D
+    out = {}
+    reset()
+    t0 = time.perf_counter()
+    index = m.ivf_flat_build(X, m.IVFFlatParams(nlist=OOC_NLIST, nprobe=OOC_NPROBE),
+                             D.L2SqrtExpanded, seed=SEED, train_rows=OOC_TRAIN_ROWS, device=dev)
+    torch.cuda.synchronize()
+    out["build_ms"] = (time.perf_counter() - t0) * 1e3
+    n_slots, cap = index.slot_ids.shape
+    store_bytes = index.slot_vecs.numel() * index.slot_vecs.element_size()
+    budget = int(store_bytes * OOC_BUDGET_FRAC)
+    out.update({"slots": n_slots, "cap": cap, "store_bytes": store_bytes,
+                "budget_bytes": budget})
+    fixed = mixture(OOC_FIXED)
+    load = list(mixture(OOC_THREADS * 64 * OOC_ROWS).split(OOC_ROWS))
+    _, gt_i = m.brute_force_knn(X, fixed[:OOC_RECALL_ROWS], K, D.L2SqrtExpanded, device=dev)
+    opts = dict(nprobe=OOC_NPROBE, nprobe_ladder=(4, OOC_NPROBE), bucket_rungs=ANN_RUNGS,
+                max_batch_rows=ANN_RUNGS[-1], max_wait_ms=2.0, queue_cap=4096, compact_rows=0,
+                device=dev)
+
+    def run_arm(name, svc_index, seconds, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_bytes = torch.cuda.memory_allocated(dev)
+        svc = m.ANNService(svc_index, K, name=name, **opts, **kw)
+        t0 = time.perf_counter()
+        svc.warmup()
+        arm = {"warmup_s": time.perf_counter() - t0}
+        names = ("raft_tpu_tile_hits_total", "raft_tpu_tile_misses_total",
+                 "raft_tpu_h2d_bytes_total")
+        before = {n: pool_value(n, name) for n in names}
+        h2d0 = pool_value("raft_tpu_h2d_seconds", name, "total")
+        stall0 = pool_value("raft_tpu_h2d_stall_seconds", name, "total")
+        try:
+            rows, wall_ms, lat = closed_loop(svc, load, OOC_THREADS, seconds)
+            arm.update({"rows": rows, "wall_ms": wall_ms, "rows_per_s": rows / wall_ms * 1e3,
+                        "requests": len(lat), "p50_ms": statistics.median(lat),
+                        "p99_ms": quantile(lat, 0.99)})
+            if kw.get("ooc"):
+                hits, miss, h2d_b = (pool_value(n, name) - before[n] for n in names)
+                h2d_s = pool_value("raft_tpu_h2d_seconds", name, "total") - h2d0
+                stall_s = pool_value("raft_tpu_h2d_stall_seconds", name, "total") - stall0
+                st = svc.stats()["ooc"]
+                arm.update({
+                    "tile_hit_rate": hits / max(hits + miss, 1), "h2d_mb": h2d_b / 1e6,
+                    "h2d_s": h2d_s, "stall_s": stall_s,
+                    "hidden_transfer_frac": 1.0 - stall_s / h2d_s if h2d_s else 0.0,
+                    "staged_high_water_bytes": pool_value("raft_tpu_tile_staged_bytes", name,
+                                                          "high_water"),
+                    "pool_budget_bytes": st["pool_budget_bytes"], "tile_slots": st["tile_slots"],
+                    "hot_slots": st["hot_slots"],
+                    "hot_bytes": st["hot_slots"] * cap * DIM * 4})
+            # the fixed queries: 128-row requests, one at a time, so that
+            # each is one batch of the top rung in every arm
+            answers = [svc.submit(q).result(timeout=120) for q in fixed.split(ANN_RUNGS[-1])]
+            torch.cuda.synchronize()
+        finally:
+            svc.close()
+        arm["peak_above_start_bytes"] = torch.cuda.max_memory_allocated(dev) - base_bytes
+        fd = torch.cat([a[0] for a in answers])
+        fi = torch.cat([a[1] for a in answers])
+        arm["recall_at_100"] = (fi[:OOC_RECALL_ROWS, :, None] == gt_i[:, None, :]).any(
+            -1).float().mean().item()
+        return arm, fd, fi
+
+    out["resident"], res_d, res_i = run_arm("serve_ann_ooc_1M_resident", index, OOC_RESIDENT_S)
+    # the out-of-core index: the store to the host, the resident slot
+    # vectors freed before the streamed arms
+    ooc_index = m.ivf_flat_to_ooc(index)
+    del index
+    torch.cuda.empty_cache()
+    out["ooc"], ooc_d, ooc_i = run_arm("serve_ann_ooc_1M_ooc", ooc_index, OOC_ARM_S, ooc=True,
+                                       device_budget_bytes=budget)
+    out["sync"], sync_d, sync_i = run_arm("serve_ann_ooc_1M_sync", ooc_index, OOC_ARM_S,
+                                          ooc=True, device_budget_bytes=budget,
+                                          ooc_overlap=False)
+    torch.cuda.synchronize()
+    out["launches"] = counts("serve_ann_ooc_1M")
+    for kernel in ("ivf_tile", "select_tile", "nn_tile", "knn_tile"):
+        assert out["launches"][kernel] > 0, (kernel, out["launches"])
+
+    # the fixed queries: every out-of-core distance bitwise the resident
+    # arm's, the ids equal except among distances tied at the k-th place
+    for arm, d, i in (("ooc", ooc_d, ooc_i), ("sync", sync_d, sync_i)):
+        assert torch.equal(d, res_d), "serve_ann_ooc_1M: %s distances differ" % arm
+        kth = d[:, -1:]
+        below = d < kth
+        a = torch.where(below, i, -1).sort(dim=1).values
+        b = torch.where(below, res_i, -1).sort(dim=1).values
+        assert torch.equal(a, b), "serve_ann_ooc_1M: %s ids differ below the k-th" % arm
+        out[arm]["ids_equal"] = int((i == res_i).all(dim=1).sum())
+        assert out[arm]["recall_at_100"] == out["resident"]["recall_at_100"], (arm, out)
+        assert out[arm]["staged_high_water_bytes"] <= out[arm]["pool_budget_bytes"], out[arm]
+        assert out[arm]["peak_above_start_bytes"] < OOC_PEAK_FRAC * store_bytes, out[arm]
+    out["overlap_speedup"] = out["ooc"]["rows_per_s"] / out["sync"]["rows_per_s"]
+    out["qps_vs_resident"] = out["ooc"]["rows_per_s"] / out["resident"]["rows_per_s"]
+
+    # the host link: one tile of 32 slots from pinned memory to the card
+    # (CUDA events), and the host gather of a tile from the store, as the
+    # pool gathers it (host clock)
+    tile = torch.empty((32, cap, DIM), dtype=torch.float32, pin_memory=True)
+    out["h2d_tile_bytes"] = tile.numel() * 4
+    h2d_ms = time_ms(lambda: tile.to(dev, non_blocking=True), reps=20)
+    out["h2d_tile_ms"], out["h2d_gb_per_s"] = h2d_ms, tile.numel() * 4 / h2d_ms / 1e6
+    src = torch.from_numpy(ooc_index.store).view(n_slots, -1)
+    rows = torch.randperm(n_slots, generator=torch.Generator().manual_seed(SEED))[:32]
+    gathers = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        torch.index_select(src, 0, rows, out=tile.view(32, -1))
+        gathers.append((time.perf_counter() - t0) * 1e3)
+    out["gather_tile_ms"] = statistics.median(gathers)
+
+    # K3 at a staged tile's geometry: 32 slots that a 128-row batch probes,
+    # the batch's positions in the tile, as the out-of-core scan passes them
+    q = fixed[:ANN_RUNGS[-1]]
+    slots, _ = m.probe_compact(q, ooc_index.centroids, ooc_index.cent_slots, OOC_NPROBE)
+    part = torch.unique(slots[slots >= 0])[:32].to(torch.int32)
+    n_live = int(torch.isin(slots, part).sum(dim=1).max())
+    sp, _ = m.part_positions(slots, part, n_slots, n_live)
+    pl = part.long()
+    vecs = torch.from_numpy(ooc_index.store[pl.cpu().numpy()]).to(dev)
+    args = (q, vecs, ooc_index.slot_norms[pl], ooc_index.slot_ids[pl], sp, K)
+    atol = l2_atol(q, X)
+    err = check_knn("ivf_tile at a staged tile (32 slots, 128 rows)",
+                    *m.fused_ivf_scan(*args), *m.fused_ivf_scan_plain(*args), atol)
+    rows_scanned = int((ooc_index.slot_ids[pl] >= 0).sum(1)[sp[sp >= 0].long()].sum())
+    ops = 2.0 * DIM * rows_scanned
+    nbytes = vecs.numel() * 4 + 8.0 * vecs.shape[0] * cap + 4.0 * q.numel() + 8.0 * len(q) * K
+    b, by = bound_tf32x3(ops, nbytes)
+    out["k3_tile"] = {
+        "shape": "%d queries x %d positions, a tile of 32 slots of %d x %d f32, k=%d"
+                 % (len(q), n_live, cap, DIM, K),
+        "launches": out["launches"]["ivf_tile"], "max_abs_err": err, "atol": atol,
+        "ms": time_ms(lambda: m.fused_ivf_scan(*args), reps=10),
+        "plain_ms": time_ms(lambda: m.fused_ivf_scan_plain(*args), reps=2),
+        "bound_ms": b, "bound_by": by, "rows_scanned": rows_scanned}
+    del ooc_index, src, tile, vecs
+    torch.cuda.empty_cache()
+    return out
+
+
 def persist_path(indexes, dev, reset, counts, m):
     """``persist_ann_1M``: for IVF-Flat, IVF-PQ and IVF-SQ, a threadless
     service with a persist directory (under ``build/``) on a stepped
@@ -1221,6 +1450,7 @@ def main():
     from raft_tpu_torch.sparse.spectral import fit_embedding
     from raft_tpu_torch.spatial import ball_cover
     from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
+    from raft_tpu_torch.spatial.ooc import _part_positions, ivf_flat_to_ooc
 
     # the serve_ann_1M checks read every batch of its load back from the
     # flight recorder: a ring that holds the whole run
@@ -2039,6 +2269,17 @@ def main():
         paths[name] = rbc_path(kind, dev, reset, counts, qmods)
         print("%s: %s" % (name, json.dumps(paths[name])), flush=True)
 
+    # 5i. the out-of-core tier: resident, double-buffered and synchronous
+    # arms of ANNService over one index of the mixture
+    omods = types.SimpleNamespace(
+        D=D, ivf_flat_build=ivf_flat_build, IVFFlatParams=IVFFlatParams, ANNService=ANNService,
+        brute_force_knn=brute_force_knn, ivf_flat_to_ooc=ivf_flat_to_ooc,
+        probe_compact=_probe_compact, part_positions=_part_positions,
+        fused_ivf_scan=fused_ivf_scan, fused_ivf_scan_plain=fused_ivf_scan_plain)
+    paths["serve_ann_ooc_1M"] = ooc_path(X, mixture, dev, reset, counts, omods)
+    errs["ivf_tile"] = max(errs["ivf_tile"], paths["serve_ann_ooc_1M"]["k3_tile"]["max_abs_err"])
+    print("serve_ann_ooc_1M: %s" % json.dumps(paths["serve_ann_ooc_1M"]), flush=True)
+
     # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
     # precisions, row norm, the two reductions and the transpose, each held
     # against float64 on the card and timed with CUDA events
@@ -2605,7 +2846,8 @@ def main():
         "bf16_kernel_ms": time_ms(lambda: ivf_items(*flat, accum_bf16=True), reps=5),
         "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
         "item_bytes": n_items * cap * row_bytes + io_bytes,
-        "per_query_bytes": rows_scanned * row_bytes + io_bytes})
+        "per_query_bytes": rows_scanned * row_bytes + io_bytes,
+        "ooc_tile": paths["serve_ann_ooc_1M"]["k3_tile"]})
 
     # K6 at the two-phase path's shape: the whole call and phase 1 alone
     bn, n_tiles = twophase_geometry(N_INDEX, TWOPHASE_BLOCK_N)

@@ -38,6 +38,11 @@ serve_ann_compact_rows / serve_ann_degrade_frac
     calibrate walk, the delta segment's capacity, the auto-compaction
     threshold (0 = manual only) and the queue fraction past which
     batches are served one ladder step lower (0 = never).
+serve_ann_device_budget_bytes
+    The device bytes an out-of-core ``ANNService`` (``ooc=True``) may hold
+    for slot vectors: its frequency-promoted hot set and the
+    double-buffered tile pool.  ``0`` (the default) sets no budget, and an
+    ``ooc=True`` service must then pass ``device_budget_bytes=``.
 persist_fsync / persist_snapshot_interval_s / persist_scrub_chunks
     Durable ANN serving (:mod:`raft_tpu_torch.persist`): the write-ahead
     log's fsync policy (``always`` before every acknowledge, ``batch`` at
@@ -76,6 +81,7 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "serve_ann_delta_cap": ("RAFT_TPU_SERVE_ANN_DELTA_CAP", "4096"),
     "serve_ann_compact_rows": ("RAFT_TPU_SERVE_ANN_COMPACT_ROWS", "2048"),
     "serve_ann_degrade_frac": ("RAFT_TPU_SERVE_ANN_DEGRADE_FRAC", "0.75"),
+    "serve_ann_device_budget_bytes": ("RAFT_TPU_SERVE_ANN_DEVICE_BUDGET_BYTES", "0"),
     "flight_events": ("RAFT_TPU_FLIGHT_EVENTS", "4096"),
     "persist_fsync": ("RAFT_TPU_PERSIST_FSYNC", "always"),
     "persist_snapshot_interval_s": ("RAFT_TPU_PERSIST_SNAPSHOT_INTERVAL_S", "30"),

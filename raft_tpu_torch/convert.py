@@ -11,6 +11,9 @@ numbers (a metric, a translation) and ``None`` as they are.
 and :func:`ivf_sq_index_from_reference` carry an IVF index (their
 ``*_to_numpy`` inverses carry it back), and
 :func:`ball_cover_index_from_reference` a ball cover.
+:func:`ooc_ivf_flat_from_reference` carries an out-of-core IVF-Flat index
+(its metadata to the device, its ``slot_centroid`` and host ``store`` as
+numpy), and :func:`ooc_ivf_flat_to_numpy` carries it back.
 
 Sparse containers travel too.  An object with the fields of the JAX
 package's ``COO`` (``rows``, ``cols``, ``vals``, ``shape``, ``nnz``) or
@@ -38,6 +41,7 @@ from raft_tpu_torch.sparse.formats import COO, CSR
 from raft_tpu_torch.sparse.mst import GraphCOO
 from raft_tpu_torch.spatial.ann import IVFFlatIndex, IVFPQIndex, IVFSQIndex
 from raft_tpu_torch.spatial.ball_cover import BallCoverIndex
+from raft_tpu_torch.spatial.ooc import OocIVFFlat
 
 
 class COOArrays(NamedTuple):
@@ -162,3 +166,20 @@ def ball_cover_index_from_reference(index, device="cuda") -> BallCoverIndex:
     """The port's :class:`BallCoverIndex` from the JAX package's: the
     data, landmarks, int32 groups and float32 radii."""
     return _index_from_reference(BallCoverIndex, index, device)
+
+
+def ooc_ivf_flat_from_reference(index, device="cuda") -> OocIVFFlat:
+    """The port's :class:`OocIVFFlat` from the JAX package's: the
+    metadata on ``device`` with its dtypes, ``slot_centroid`` (int32) and
+    the slot ``store`` as writable host numpy arrays."""
+    fields = {name: getattr(index, name) for name in OocIVFFlat._fields}
+    host = {"slot_centroid": np.array(fields.pop("slot_centroid"), np.int32),
+            "store": np.array(fields.pop("store"), copy=True, order="C")}
+    fields["metric"] = DistanceType(int(fields["metric"]))
+    fields["nprobe"] = int(fields["nprobe"])
+    return OocIVFFlat(**from_reference(fields, device), **host)
+
+
+def ooc_ivf_flat_to_numpy(index: OocIVFFlat) -> OocIVFFlat:
+    """The index with every array as numpy (metric and nprobe unchanged)."""
+    return to_numpy(index)

@@ -32,12 +32,14 @@ the host), so whatever the caller enqueues next sees the results, the
 order JAX's data dependencies give.  Inputs and outputs are marked as
 used on both streams (``record_stream``), so the caching allocator never
 hands their memory to one stream while the other still reads it.  Each
-call runs in a ``<layer>.<name>`` range of
+call runs in a ``<layer>.<name>`` span of the handle's profiler
+(:attr:`Handle.profiler`, the process default of
+:mod:`raft_tpu_torch.core.profiler` unless given; the default one without
+a handle), which opens the range of that name in
 :mod:`raft_tpu_torch.core.tracing` and feeds the
 ``raft_tpu_<layer>_<name>_seconds`` timer of
-:mod:`raft_tpu_torch.core.metrics`, a host-clock time of the call (the
-card runs on after it returns).  The JAX decorator's profiler span tree
-(``core/profiler.py``) is not ported yet.
+:mod:`raft_tpu_torch.core.metrics`: a host-clock time of the call (the
+card runs on after it returns).
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch.core import metrics, tracing
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import CommAbortedError, RaftError, expects
+from raft_tpu_torch.core.profiler import Profiler, default_profiler
 
 
 class Stream:
@@ -97,9 +99,14 @@ class Handle:
         with it (default ``"cuda"``; raises when CUDA is missing).
     n_streams:
         Size of the stream pool (reference handle.hpp:80); 0 = no pool.
+    profiler:
+        The span profiler of the primitives called with this handle
+        (default: the process profiler, so calls with and without a
+        handle land in one report).
     """
 
-    def __init__(self, device="cuda", n_streams: int = 0):
+    def __init__(self, device="cuda", n_streams: int = 0,
+                 profiler: Optional[Profiler] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -107,6 +114,7 @@ class Handle:
         self._stream_pool = [Stream("pool%d" % i, self.device) for i in range(n_streams)]
         self._comms = None
         self._subcomms: Dict[str, Any] = {}
+        self.profiler = profiler if profiler is not None else default_profiler()
 
     # streams (reference handle.hpp:148-227)
     def get_stream(self) -> Stream:
@@ -222,7 +230,7 @@ def _on_handle_stream(handle: Handle, dev: torch.device, inputs):
         for t in _tensors(out):
             if t.device.type == "cuda":
                 t.record_stream(caller)
-        handle.get_stream().record()
+        record_on_handle(handle)
         caller.wait_stream(stream)
 
     with torch.cuda.stream(stream):
@@ -232,28 +240,16 @@ def _on_handle_stream(handle: Handle, dev: torch.device, inputs):
 def takes_handle(fn):
     """Give a primitive the reference's ``handle_t&`` argument contract
     (module doc): ``handle=None`` and ``device=None`` keywords, inputs on
-    the device, the call on the handle's stream, a tracing range and a
-    ``raft_tpu_<layer>_<name>_seconds`` timer."""
+    the device, the call on the handle's stream, and a span of the
+    handle's profiler (a tracing range and a
+    ``raft_tpu_<layer>_<name>_seconds`` timer)."""
     # "raft_tpu_torch.linalg.gemm" -> layer "linalg"
     mod_parts = (fn.__module__ or "").split(".")
     layer = mod_parts[1] if len(mod_parts) > 1 else "core"
     span_name = "%s.%s" % (layer, fn.__name__)
-    timer_name = metrics.metric_name(layer, fn.__name__ + "_seconds")
     # a primitive that makes tensors from no array argument takes the
     # device itself
     wants_device = "device" in inspect.signature(fn).parameters
-    # the timer's series, resolved once for each generation of the
-    # registry (a reset drops it)
-    cached = [None, None]
-
-    def timer():
-        reg = metrics.default_registry()
-        gen = reg.generation
-        if cached[0] != gen:
-            cached[1] = reg.timer(timer_name,
-                                  help="host-clock seconds of %s calls" % span_name).labels()
-            cached[0] = gen
-        return cached[1]
 
     @functools.wraps(fn)
     def wrapper(*args, handle: Optional[Handle] = None, device=None, **kwargs):
@@ -265,7 +261,8 @@ def takes_handle(fn):
         kwargs = {k: _on_device(v, dev) for k, v in kwargs.items()}
         if wants_device:
             kwargs["device"] = dev
-        with tracing.annotate(span_name), timer().time():
+        prof = handle.profiler if handle is not None else default_profiler()
+        with prof.span(span_name, layer=layer):
             if handle is None:
                 return fn(*args, **kwargs)
             with _on_handle_stream(handle, dev,
@@ -294,3 +291,10 @@ class stream_syncer:
     def __exit__(self, *exc) -> None:
         self.handle.sync_stream()
         self.handle.sync_stream_pool()
+
+
+def record_on_handle(handle: Optional[Handle], *tensors) -> None:
+    """Mark the work enqueued so far on the handle's main stream, so that
+    ``handle.sync_stream()`` waits for it (no-op without a handle)."""
+    if handle is not None:
+        handle.get_stream().record(*tensors)

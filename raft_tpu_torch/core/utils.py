@@ -31,15 +31,35 @@ def align(v: int, alignment: int) -> int:
     return round_up_safe(v, alignment)
 
 
+def align_to(v: int, align: int) -> int:
+    """Align ``v`` up to ``align`` (reference cuda_utils.cuh ``alignTo``)."""
+    return round_up_safe(v, align)
+
+
+def align_down(v: int, align: int) -> int:
+    """Align ``v`` down to ``align`` (reference cuda_utils.cuh ``alignDown``)."""
+    return round_down_safe(v, align)
+
+
+def is_pow2(v: int) -> bool:
+    """True iff ``v`` is a power of two (reference cuda_utils.cuh ``isPo2``)."""
+    return v > 0 and (v & (v - 1)) == 0
+
+
+def log2(v: int) -> int:
+    """Floor log base 2 (reference cuda_utils.cuh ``log2``)."""
+    expects(v > 0, "log2: v must be positive, got %d", v)
+    return v.bit_length() - 1
+
+
 class Pow2:
     """Arithmetic modulo a power of two (reference pow2_utils.cuh)."""
 
     def __init__(self, value: int):
-        expects(value > 0 and value & (value - 1) == 0,
-                "Pow2: value must be a power of two, got %d", value)
+        expects(is_pow2(value), "Pow2: value must be a power of two, got %d", value)
         self.value = value
         self.mask = value - 1
-        self.log2 = value.bit_length() - 1
+        self.log2 = log2(value)
 
     def div(self, x: int) -> int:
         return x >> self.log2

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core import precision as _precision
@@ -150,3 +151,28 @@ def pairwise_distance(
     if fin_op is not None:
         out = fin_op(out)
     return out
+
+
+def distance(x, y, metric: DistanceType, metric_arg: float = 2.0,
+             fin_op: Optional[Callable] = None, precision: str = "highest",
+             device="cuda") -> torch.Tensor:
+    """Typed entry of the reference (distance.hpp:53, the compile-time
+    metric variant): the computation of :func:`pairwise_distance`."""
+    return pairwise_distance(x, y, metric, metric_arg, fin_op, precision, device)
+
+
+def get_workspace_size(x, y, metric: DistanceType) -> int:
+    """Workspace bytes the reference would allocate (distance.hpp:100,
+    detail/distance.cuh:662): (m + n) row-norm accumulators of the
+    inputs' dtype for the expanded metrics that need norms (twice that
+    for correlation: sums and sums of squares), else 0.  The port needs
+    no caller-managed workspace; this serves capacity planning."""
+    if metric not in (D.L2Expanded, D.L2SqrtExpanded, D.CosineExpanded,
+                      D.CorrelationExpanded):
+        return 0
+    n = x.shape[0] + y.shape[0]
+    if metric == D.CorrelationExpanded:
+        n *= 2
+    itemsize = (x.element_size() if isinstance(x, torch.Tensor)
+                else np.dtype(x.dtype).itemsize)
+    return n * itemsize

@@ -17,9 +17,9 @@ log that either package writes, the other reads):
   ties both to a service's maintenance seam (interval snapshots that
   never tear a batch, WAL truncation, restore, incremental scrubbing).
 
-Services use it through ``ANNService(persist_dir=...)``.  The out-of-core
-kind and the memory-mapped store wait for the out-of-core half of queue 1
-item 5.
+Services use it through ``ANNService(persist_dir=...)``, the out-of-core
+arm too: its host store is chunked per slot, restored into memory or as a
+copy-on-write memory map (``persist_mmap``), and scrubbed slot by slot.
 """
 
 from raft_tpu_torch.persist.manager import PersistManager, RestoredState

@@ -1,7 +1,6 @@
 """PersistManager: one durability authority per serving index.
 
-Port of ``raft_tpu/persist/manager.py`` without its out-of-core half.
-Glues the snapshot format (:mod:`raft_tpu_torch.persist.snapshot`) and
+Port of ``raft_tpu/persist/manager.py``.  Glues the snapshot format (:mod:`raft_tpu_torch.persist.snapshot`) and
 the write-ahead log (:mod:`raft_tpu_torch.persist.wal`) into the serving
 lifecycle:
 
@@ -18,8 +17,12 @@ lifecycle:
   raising :class:`~raft_tpu_torch.core.error.DataCorruptionError` on
   interior corruption;
 - :meth:`scrub_step`: re-checksum a few snapshot chunks a tick against
-  the manifest; a mismatch is counted (``raft_tpu_scrub_*`` metrics),
-  recorded with a flight-recorder black box, and fails
+  the manifest; for an out-of-core service the store's chunks are per
+  slot, and a host-store slot whose bytes in memory no longer match is
+  **quarantined and rebuilt** from the (verified) snapshot copy instead
+  of serving corrupt distances.  A mismatch is counted
+  (``raft_tpu_scrub_*`` metrics) and recorded with a flight-recorder
+  black box; one that cannot be repaired fails
   ``stats()["corruption_detected"]``.
 
 Every wall-clock read goes through the injected ``clock`` (the owning
@@ -66,6 +69,7 @@ class _ScrubUnit(NamedTuple):
     offset: int
     length: int
     crc: int
+    slot: Optional[int]           # store slot id (out-of-core) or None
 
 
 def _labeled_metric(kind: str, name: str, help: str, service: str):
@@ -94,13 +98,14 @@ class PersistManager:
         state older than this snapshots on the next maintenance tick);
         None resolves ``persist_snapshot_interval_s``.
     scrub_chunks:
-        Integrity-scrub units (snapshot chunks) verified
-        per maintenance tick; ``0`` disables scrubbing.  None resolves
+        Integrity-scrub units (snapshot chunks, and store slots of an
+        out-of-core index) verified per maintenance tick; ``0`` disables scrubbing.  None resolves
         ``persist_scrub_chunks``.
     clock:
         Monotonic-seconds callable shared with the owning service.
     device:
-        Where a restored index's tensors go (default ``"cuda"``).
+        Where a restored index's tensors go (default ``"cuda"``; an
+        out-of-core store stays on the host).
     """
 
     def __init__(self, root: str, *, service: str,
@@ -147,9 +152,13 @@ class PersistManager:
         self._scrub_units: list = []
         self._scrub_cursor = 0
         self._scrub_cycles = 0
+        self._store_ref = None        # the out-of-core store the plan describes
+        self._store_dtype = None
+        self._store_shape = None
         self.corruption_detected = False
         self.last_scrub: dict = {"checked": 0, "errors": 0,
-                                 "cycles": 0, "last_error": None}
+                                 "rebuilt": 0, "cycles": 0,
+                                 "last_error": None}
 
     @property
     def snapshot_seq(self) -> int:
@@ -165,16 +174,18 @@ class PersistManager:
                 or (os.path.isfile(self._wal_path)
                     and os.path.getsize(self._wal_path) > 0))
 
-    def restore(self) -> RestoredState:
+    def restore(self, *, mmap_store: bool = False) -> RestoredState:
         """Load snapshot + WAL tail (module doc).  The torn-tail case
-        truncates the file so later appends start from a clean end."""
+        truncates the file so later appends start from a clean end.
+        ``mmap_store`` backs an out-of-core store with a copy-on-write
+        ``np.memmap`` (:func:`~raft_tpu_torch.persist.snapshot.load_current`)."""
         t0 = self._clock()
         index = None
         dvecs = dids = None
         rows = 0
         wal_seq = 0
         manifest = None
-        loaded = _snap.load_current(self.root, device=self.device)
+        loaded = _snap.load_current(self.root, mmap_store=mmap_store, device=self.device)
         if loaded is not None:
             index, dvecs, dids, manifest = loaded
             rows = int(manifest["delta_rows"])
@@ -183,7 +194,7 @@ class PersistManager:
             self._snapshot_seq = int(manifest["seq"])
             self._snapshot_bytes = int(manifest["total_bytes"])
             self._last_snapshot_t = self._clock()
-            self._install_scrub_plan(manifest)
+            self._install_scrub_plan(manifest, index)
         records, info = _wal.replay_wal(self._wal_path,
                                         min_seq=wal_seq)
         records = records or []
@@ -301,7 +312,7 @@ class PersistManager:
                                 dropped)
         self._dirty = False
         self._last_snapshot_t = self._clock()
-        self._install_scrub_plan(manifest)
+        self._install_scrub_plan(manifest, state.index)
         dt = max(0.0, self._clock() - t0)
         _labeled_metric("counter", "raft_tpu_persist_snapshots_total",
                     "snapshots written", self.service).inc()
@@ -336,7 +347,7 @@ class PersistManager:
     # ------------------------------------------------------------------ #
     # the maintenance seam
     # ------------------------------------------------------------------ #
-    def maintenance_tick(self, state) -> None:
+    def maintenance_tick(self, state, ooc=None) -> None:
         """One pass on the serve worker's maintenance seam: deferred
         WAL fsync (the ``"batch"`` policy), interval-gated snapshot of
         a dirty state, one scrub step, age gauge."""
@@ -348,7 +359,7 @@ class PersistManager:
                 or now - self._last_snapshot_t
                 >= self.snapshot_interval_s):
             self.snapshot(state)
-        self.scrub_step()
+        self.scrub_step(ooc)
         age = (0.0 if self._last_snapshot_t is None
                else max(0.0, self._clock() - self._last_snapshot_t))
         _labeled_metric("gauge", "raft_tpu_persist_snapshot_age_seconds",
@@ -358,41 +369,57 @@ class PersistManager:
     # ------------------------------------------------------------------ #
     # integrity scrubbing
     # ------------------------------------------------------------------ #
-    def _install_scrub_plan(self, manifest: dict) -> None:
+    def _install_scrub_plan(self, manifest: dict, index) -> None:
         sdir = manifest.get("_dir") or _snap.snapshot_dir(
             self.root, "snapshot-%010d" % manifest["seq"])
         units = []
+        is_ooc = manifest["kind"] == _snap.OOC_KIND
         for entry in manifest["arrays"]:
             path = os.path.join(sdir, entry["file"])
             cb = int(entry["chunk_bytes"])
             nb = int(entry["nbytes"])
+            # the out-of-core store is chunked per slot: a chunk index is
+            # a slot id
+            per_slot = is_ooc and entry["name"] == "store"
             for i, crc in enumerate(entry["crc32s"]):
                 off = i * cb
                 units.append(_ScrubUnit(path, entry["name"], off,
-                                        min(cb, max(nb - off, 0)), int(crc)))
+                                        min(cb, max(nb - off, 0)), int(crc),
+                                        i if per_slot else None))
+            if per_slot:
+                self._store_dtype = np.dtype(entry["dtype"])
+                self._store_shape = tuple(entry["shape"])
         self._scrub_units = units
         self._scrub_cursor = 0
+        self._store_ref = getattr(index, "store", None)
 
-    def _scrub_failure(self, unit: _ScrubUnit, actual, where: str) -> None:
+    def _scrub_failure(self, unit: _ScrubUnit, actual, where: str,
+                       repaired: bool) -> None:
         self.last_scrub["errors"] += 1
         self.last_scrub["last_error"] = {
             "array": unit.array, "file": unit.path,
             "offset": unit.offset, "where": where,
             "expected_crc": unit.crc, "actual_crc": actual,
+            "repaired": repaired,
         }
-        self.corruption_detected = True
+        if not repaired:
+            self.corruption_detected = True
         _labeled_metric("counter", "raft_tpu_scrub_corruption_total",
-                    "integrity-scrub checksum mismatches of snapshot "
-                    "chunks", self.service).inc()
+                    "integrity-scrub checksum mismatches (snapshot "
+                    "chunks or host-store slots)", self.service).inc()
         flight.record("scrub_corruption", service=self.service,
-                      array=unit.array, offset=unit.offset, where=where)
+                      array=unit.array, offset=unit.offset, where=where,
+                      repaired=repaired)
         flight.default_recorder().blackbox("scrub_corruption",
                                            service=self.service)
 
-    def scrub_step(self) -> None:
-        """Verify the next ``scrub_chunks`` chunks of the CURRENT
-        snapshot.  Never raises: findings land in metrics, flight black
-        boxes and :attr:`last_scrub`."""
+    def scrub_step(self, ooc=None) -> None:
+        """Verify the next ``scrub_chunks`` units of the CURRENT snapshot
+        and, for an out-of-core service (``ooc``, the served
+        ``OocIVFFlat``), the matching in-memory host-store slots: a slot
+        whose bytes no longer match is quarantined and rebuilt from the
+        verified snapshot copy.  Never raises: findings land in metrics,
+        flight black boxes and :attr:`last_scrub`."""
         units = self._scrub_units
         if self.scrub_chunks <= 0 or not units:
             return
@@ -410,19 +437,45 @@ class PersistManager:
                     f.seek(unit.offset)
                     data = f.read(unit.length)
             except OSError:
-                self._scrub_failure(unit, None, "snapshot-file-io")
+                self._scrub_failure(unit, None, "snapshot-file-io", repaired=False)
                 continue
             actual = zlib.crc32(data) & 0xFFFFFFFF
-            if actual != unit.crc or len(data) != unit.length:
-                self._scrub_failure(unit, actual, "snapshot-file")
+            file_ok = actual == unit.crc and len(data) == unit.length
+            if not file_ok:
+                self._scrub_failure(unit, actual, "snapshot-file", repaired=False)
+            if (unit.slot is not None and ooc is not None
+                    and ooc.store is self._store_ref
+                    and unit.slot < ooc.store.shape[0]):
+                self._scrub_slot(ooc.store, unit, data, file_ok)
         self.last_scrub["checked"] += checked
         _labeled_metric("counter", "raft_tpu_scrub_checked_total",
-                    "snapshot chunks integrity-checked",
+                    "snapshot chunks / store slots integrity-checked",
                     self.service).inc(checked)
         _labeled_metric("gauge", "raft_tpu_scrub_progress",
                     "position in the current scrub cycle (fraction "
                     "of units verified)", self.service).set(
                         self._scrub_cursor / max(len(units), 1))
+
+    def _scrub_slot(self, store: np.ndarray, unit: _ScrubUnit, data: bytes,
+                    file_ok: bool) -> None:
+        """Check one host-store slot against its snapshot chunk; rebuild it
+        from the snapshot's bytes when those verified (the corrupt bytes
+        never serve another distance), else report it unrepairable."""
+        mem_crc = zlib.crc32(np.ascontiguousarray(store[unit.slot]).tobytes()) & 0xFFFFFFFF
+        if mem_crc == unit.crc:
+            return
+        if not (file_ok and store.flags.writeable):
+            # both copies bad: health fails until a compaction rewrites
+            # the slot and a fresh snapshot lands
+            self._scrub_failure(unit, mem_crc, "host-store-slot", repaired=False)
+            return
+        store[unit.slot] = np.frombuffer(data, self._store_dtype).reshape(self._store_shape[1:])
+        self._scrub_failure(unit, mem_crc, "host-store-slot", repaired=True)
+        self.last_scrub["rebuilt"] += 1
+        _labeled_metric("counter", "raft_tpu_scrub_rebuilt_slots_total",
+                        "poisoned host-store slots rebuilt from the snapshot copy",
+                        self.service).inc()
+        flight.record("slot_rebuilt", service=self.service, slot=int(unit.slot))
 
     # ------------------------------------------------------------------ #
     def stats(self) -> dict:

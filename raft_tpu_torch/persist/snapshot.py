@@ -14,17 +14,20 @@ directories are ignored by the loader and swept by the next writer.
 
 No pickle: every array round-trips as raw C-order little-endian bytes,
 so a snapshot never executes code on load.  Per-chunk checksums (1 MiB
-by default) let a corruption error name the failing byte offset, and
-let the scrubber (:mod:`raft_tpu_torch.persist.manager`) re-verify the
-snapshot a few chunks at a time.
+by default; the out-of-core slot store is chunked **per slot**, so a
+chunk index is a slot id) let a corruption error name the failing byte
+offset, and let the scrubber (:mod:`raft_tpu_torch.persist.manager`)
+re-verify the snapshot a few chunks at a time and rebuild single slots.
 
-Load rebuilds the index that was saved (IVF-Flat, IVF-PQ or IVF-SQ) on
-the caller's ``device`` with every chunk's CRC verified; a mismatch
-raises :class:`~raft_tpu_torch.core.error.DataCorruptionError` naming the
-file, the offset and both checksums.  Tensors are read back to the host
-for writing.  The out-of-core kind (``OocIVFFlat``) and the memory-mapped
-store wait for the out-of-core half of queue 1 item 5: asking for either
-raises :class:`~raft_tpu_torch.core.error.RaftError`.
+Load rebuilds the index that was saved (IVF-Flat, IVF-PQ, IVF-SQ, or the
+out-of-core :class:`~raft_tpu_torch.spatial.ooc.OocIVFFlat`) on the
+caller's ``device`` with every chunk's CRC verified; a mismatch raises
+:class:`~raft_tpu_torch.core.error.DataCorruptionError` naming the file,
+the offset and both checksums.  Tensors are read back to the host for
+writing.  An out-of-core store stays a host numpy array, and with
+``mmap_store=True`` an ``np.memmap`` in mode ``"c"`` (copy-on-write: a
+scrub repair changes memory, never the snapshot file), verified by CRC
+as the file streams past and never read into memory whole.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.device import resolve_device
-from raft_tpu_torch.core.error import DataCorruptionError, RaftError, expects
+from raft_tpu_torch.core.error import DataCorruptionError, expects
 from raft_tpu_torch.distance.distance_type import DistanceType
 
 SNAPSHOT_FORMAT = "raft_tpu-snapshot"
@@ -52,8 +55,6 @@ __all__ = ["write_snapshot", "load_current", "current_manifest",
            "snapshot_dir", "SNAPSHOT_VERSION"]
 
 OOC_KIND = "OocIVFFlat"
-_OOC_WAITS = ("the out-of-core index (OocIVFFlat) and the memory-mapped store wait for "
-              "queue 1 item 5 (the out-of-core half)")
 
 
 def _fsync_file(f) -> None:
@@ -112,23 +113,26 @@ def _write_array(dirpath: str, name: str, arr,
             "chunk_bytes": int(chunk_bytes), "crc32s": crcs}
 
 
-def _read_array(dirpath: str, entry: Dict) -> np.ndarray:
+def _read_array(dirpath: str, entry: Dict, *, mmap: bool = False) -> np.ndarray:
     """Read one array file into a fresh buffer, verifying every chunk's
     CRC; a mismatch, or a file of another length than the manifest
-    says, is typed corruption."""
+    says, is typed corruption.  ``mmap`` verifies the file through one
+    chunk-sized buffer and returns a copy-on-write ``np.memmap`` of it."""
     path = os.path.join(dirpath, entry["file"])
     chunk_bytes = int(entry["chunk_bytes"])
     crcs = entry["crc32s"]
     nbytes = int(entry["nbytes"])
-    buf = np.empty(nbytes, np.uint8)
+    dtype, shape = np.dtype(entry["dtype"]), tuple(entry["shape"])
+    buf = np.empty(min(chunk_bytes, nbytes) if mmap else nbytes, np.uint8)
     view = memoryview(buf)
     read_total = 0
     with open(path, "rb") as f:
         for i, expected in enumerate(crcs):
             off = i * chunk_bytes
             want = min(chunk_bytes, max(nbytes - off, 0))
-            got = f.readinto(view[off:off + want]) if want else 0
-            actual = zlib.crc32(view[off:off + got]) & 0xFFFFFFFF
+            at = 0 if mmap else off          # the mmap arm reuses one chunk's buffer
+            got = f.readinto(view[at:at + want]) if want else 0
+            actual = zlib.crc32(view[at:at + got]) & 0xFFFFFFFF
             if actual != expected or got < want:
                 raise DataCorruptionError(
                     "snapshot array %r failed its chunk checksum"
@@ -141,7 +145,11 @@ def _read_array(dirpath: str, entry: Dict) -> np.ndarray:
         raise DataCorruptionError(
             "snapshot array %r is not %d bytes long, as the manifest says"
             % (entry["name"], nbytes), path, offset=min(read_total, nbytes))
-    return buf.view(np.dtype(entry["dtype"])).reshape(tuple(entry["shape"]))
+    if mmap:
+        if nbytes == 0:
+            return np.zeros(shape, dtype)
+        return np.memmap(path, dtype=dtype, mode="c", shape=shape)
+    return buf.view(dtype).reshape(shape)
 
 
 # --------------------------------------------------------------------- #
@@ -188,8 +196,18 @@ def _sq_fields(index):
                     "encode_residual": bool(index.encode_residual)}
 
 
+def _ooc_fields(index):
+    arrays = {"centroids": index.centroids, "slot_ids": index.slot_ids,
+              "slot_norms": index.slot_norms,
+              "cent_slots": index.cent_slots,
+              "slot_centroid": index.slot_centroid,
+              "list_sizes": index.list_sizes, "store": index.store}
+    return arrays, {"metric": int(index.metric),
+                    "nprobe": int(index.nprobe)}
+
+
 _FIELDS = {"IVFFlatIndex": _flat_fields, "IVFPQIndex": _pq_fields,
-           "IVFSQIndex": _sq_fields}
+           "IVFSQIndex": _sq_fields, OOC_KIND: _ooc_fields}
 
 
 def _rebuild_flat(a, meta, t):
@@ -223,8 +241,19 @@ def _rebuild_sq(a, meta, t):
         DistanceType(int(meta["metric"])), int(meta["nprobe"]), bool(meta["encode_residual"]))
 
 
+def _rebuild_ooc(a, meta, t):
+    from raft_tpu_torch.spatial.ooc import OocIVFFlat
+
+    # the store stays on the host (a memmap where the loader was asked
+    # for one); only the small metadata goes to the device
+    return OocIVFFlat(
+        t(a["centroids"]), t(a["slot_ids"]), t(a["slot_norms"]), t(a["cent_slots"]),
+        np.asarray(a["slot_centroid"], np.int32), t(a["list_sizes"]),
+        DistanceType(int(meta["metric"])), int(meta["nprobe"]), a["store"])
+
+
 _REBUILD = {"IVFFlatIndex": _rebuild_flat, "IVFPQIndex": _rebuild_pq,
-            "IVFSQIndex": _rebuild_sq}
+            "IVFSQIndex": _rebuild_sq, OOC_KIND: _rebuild_ooc}
 
 
 # --------------------------------------------------------------------- #
@@ -243,8 +272,6 @@ def write_snapshot(root: str, index, *, seq: int, wal_seq: int,
     count).  Older snapshot directories are swept after the flip.
     """
     kind = _kind_of(index)
-    if kind == OOC_KIND:
-        raise RaftError("write_snapshot: " + _OOC_WAITS, collect_stack=False)
     expects(kind in _FIELDS,
             "write_snapshot: unsupported index kind %s", kind)
     arrays, meta = _FIELDS[kind](index)
@@ -258,7 +285,12 @@ def write_snapshot(root: str, index, *, seq: int, wal_seq: int,
     entries = []
     total = 0
     for aname, arr in arrays.items():
-        e = _write_array(tmp, aname, arr, chunk_bytes)
+        cb = chunk_bytes
+        if kind == OOC_KIND and aname == "store":
+            # the bulk store chunked per slot: a chunk index is a slot id,
+            # which lets the scrubber verify and rebuild single slots
+            cb = max(int(arr.shape[1]) * int(arr.shape[2]) * arr.dtype.itemsize, 1)
+        e = _write_array(tmp, aname, arr, cb)
         entries.append(e)
         total += e["nbytes"]
     delta_rows = 0
@@ -366,24 +398,21 @@ def load_current(root: str, *, mmap_store: bool = False, device="cuda"):
     """Load the CURRENT snapshot: ``(index, delta_vecs, delta_ids,
     manifest)`` with every chunk CRC verified, the index's tensors on
     ``device`` and the delta rows as numpy, or None when no snapshot
-    exists.  ``mmap_store`` (the out-of-core store) raises: it waits for
-    the out-of-core half of queue 1 item 5."""
-    if mmap_store:
-        raise RaftError("load_current: mmap_store=True: " + _OOC_WAITS, collect_stack=False)
+    exists.  ``mmap_store`` backs an out-of-core store with a
+    copy-on-write ``np.memmap`` instead of reading it into memory (the
+    file is still read once to verify it)."""
     dev = resolve_device(device)
     manifest = current_manifest(root)
     if manifest is None:
         return None
     sdir = manifest["_dir"]
     kind = manifest["kind"]
-    if kind == OOC_KIND:
-        raise RaftError("load_current: %s holds an %s snapshot: %s" % (sdir, kind, _OOC_WAITS),
-                        collect_stack=False)
     expects(kind in _REBUILD, "load_current: unknown index kind %s",
             kind)
     arrays = {}
     for entry in manifest["arrays"]:
-        arrays[entry["name"]] = _read_array(sdir, entry)
+        arrays[entry["name"]] = _read_array(
+            sdir, entry, mmap=mmap_store and kind == OOC_KIND and entry["name"] == "store")
     delta_vecs = arrays.pop("delta_vecs", None)
     delta_ids = arrays.pop("delta_ids", None)
     index = _REBUILD[kind](arrays, manifest["meta"],

@@ -41,6 +41,28 @@ the maintenance seam takes interval snapshots of the immutable state
 (``snapshot_interval_s``) and scrubs a few chunks a tick
 (``scrub_chunks``); :meth:`close` takes a last snapshot.
 
+**Out-of-core serving.**  ``ooc=True`` (or an
+:class:`~raft_tpu_torch.spatial.ooc.OocIVFFlat` passed as the index)
+keeps an IVF-Flat slot store on the host and serves it through
+:func:`~raft_tpu_torch.spatial.ooc.ooc_ivf_flat_search` within
+``device_budget_bytes`` (default: the ``serve_ann_device_budget_bytes``
+knob): a tile is sized to at most an eighth of the budget and 32 slots
+(``tile_slots`` overrides), the budget must hold three tiles, the hot set
+takes ``(budget - 3 tiles) // slot`` slots and the
+:class:`~raft_tpu_torch.mr.tile_pool.TilePool` the rest less one tile (the
+tile being scanned).  The hot set starts as the slots of the largest
+lists; every ``ooc_promote_batches`` batches the maintenance seam moves
+it to the most-probed slots when an eighth of it would change
+(``raft_tpu_tile_evictions_total``, a ``hot_promote`` flight event, the
+``raft_tpu_ooc_hot_{slots,bytes}`` gauges).  The hot set is part of the
+immutable snapshot, and a rebuilt one is published only after its copy
+to the card has completed.  Compaction runs
+:func:`~raft_tpu_torch.spatial.ooc.ooc_extend` on the host.
+``ooc_overlap=False`` serves the synchronous arm (the double buffer's
+yardstick).  ``persist_mmap`` restores the store as a copy-on-write
+memory map, and the scrub rebuilds a corrupted host-store slot from the
+snapshot.
+
 On the card, the state's tensors live on the worker's stream: the delta
 is published by a synchronous copy of a private copy of the host mirror
 on that stream (finished before :meth:`insert` returns; a later append
@@ -71,12 +93,9 @@ and ``recall{nprobe=}``; ``raft_tpu_serve_degraded_batches_total`` and
 ``compaction`` flight event.
 
 Not ported yet, each raising a :class:`RaftError` that names its queue
-item (``ROADMAP.md``, queue 1) when asked for: ``ooc``,
-``device_budget_bytes``, ``tile_slots``, ``ooc_overlap``,
-``ooc_promote_batches`` and ``persist_mmap`` (the out-of-core half of
-item 5); ``mesh``, ``axis``, ``merge`` and
-``group_size``, with ``repartition`` and ``post_recover`` (item 6); and
-``select_impl`` (item 7).  The JAX package's buffer donation has no
+item (``ROADMAP.md``, queue 1) when asked for: ``mesh``, ``axis``,
+``merge`` and ``group_size``, with ``repartition`` and ``post_recover``
+(item 6); and ``select_impl`` (item 7).  The JAX package's buffer donation has no
 PyTorch counterpart (``serve/scheduler.py``).
 """
 
@@ -94,26 +113,21 @@ from raft_tpu_torch.core import flight
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects, fail
+from raft_tpu_torch.mr.tile_pool import TilePool
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.persist import PersistManager
 from raft_tpu_torch.serve.resilience import BreakerState
 from raft_tpu_torch.serve.service import Service, _knob_float, _knob_int, _service_seq
 from raft_tpu_torch.spatial import ann as _ann
+from raft_tpu_torch.spatial import ooc as _ooc
 from raft_tpu_torch.spatial.knn import brute_force_knn
 
 __all__ = ["ANNService"]
 
 _CPU = torch.device("cpu")
 
-_OOC = "item 5 (the out-of-core half)"
 # arguments of the JAX ANNService that wait for a later item of queue 1
 _DEFERRED = {
-    "ooc": _OOC,
-    "device_budget_bytes": _OOC,
-    "tile_slots": _OOC,
-    "ooc_overlap": _OOC,
-    "ooc_promote_batches": _OOC,
-    "persist_mmap": _OOC,
     "mesh": "item 6 (session and multi-GPU)",
     "axis": "item 6 (session and multi-GPU)",
     "merge": "item 6 (session and multi-GPU)",
@@ -126,13 +140,16 @@ class _AnnState(NamedTuple):
     """One immutable serving snapshot: a batch reads exactly one, so an
     insert or a compaction swap can never tear it."""
 
-    index: object               # IVFFlatIndex | IVFPQIndex | IVFSQIndex
+    index: object               # IVFFlatIndex | IVFPQIndex | IVFSQIndex | OocIVFFlat
     delta_vecs: torch.Tensor    # (delta_cap, dim) on the device, zeros past the count
     delta_ids: torch.Tensor     # (delta_cap,) int32 on the device, -1 past the count
     delta_rows: int
     # the last write-ahead-log sequence number whose insert this state
     # holds: a snapshot of it records it as its replay floor
     wal_seq: int = 0
+    # the out-of-core hot set (hot_vecs, hot_ids on the device, hot_mask
+    # numpy) or None: swapped whole by promotion and compaction
+    ooc_hot: object = None
 
 
 def _labeled(kind: str, name: str, help: str, service: str, **extra):
@@ -158,13 +175,18 @@ def _parse_ladder(spec, nlist: int) -> tuple:
     return tuple(cells)
 
 
-_KINDS = (_ann.IVFFlatIndex, _ann.IVFPQIndex, _ann.IVFSQIndex)
+_KINDS = (_ann.IVFFlatIndex, _ann.IVFPQIndex, _ann.IVFSQIndex, _ooc.OocIVFFlat)
+# fields of an out-of-core index that stay on the host
+_HOST_FIELDS = ("slot_centroid", "store")
 
 
 def _index_on(index, dev: torch.device):
-    """The index with every array on ``dev`` (no copy where it is there)
-    and, for IVF-Flat, its squared slot norms filled in."""
-    fields = {name: as_tensor(value, dev) if isinstance(value, (torch.Tensor, np.ndarray))
+    """The index with every array on ``dev`` (no copy where it is there;
+    an out-of-core index's host fields stay numpy) and, for IVF-Flat, its
+    squared slot norms filled in."""
+    host = _HOST_FIELDS if isinstance(index, _ooc.OocIVFFlat) else ()
+    fields = {name: as_tensor(value, dev)
+              if isinstance(value, (torch.Tensor, np.ndarray)) and name not in host
               else value for name, value in index._asdict().items()}
     out = type(index)(**fields)
     if isinstance(out, _ann.IVFFlatIndex) and out.slot_norms is None:
@@ -180,8 +202,10 @@ class ANNService(Service):
     ----------
     index:
         A prebuilt :class:`~raft_tpu_torch.spatial.ann.IVFFlatIndex`,
-        ``IVFPQIndex`` or ``IVFSQIndex``, moved to ``device``; None with
-        a ``persist_dir`` that holds state (the restored index).
+        ``IVFPQIndex`` or ``IVFSQIndex``, moved to ``device``, or an
+        :class:`~raft_tpu_torch.spatial.ooc.OocIVFFlat` (which implies
+        ``ooc=True``); None with a ``persist_dir`` that holds state (the
+        restored index).
     k:
         Neighbours returned per query row.
     nprobe:
@@ -206,11 +230,19 @@ class ANNService(Service):
     slot_multiple:
         Compaction rounds the slot count up to a multiple of this, so
         that successive compactions keep their shapes.
-    persist_dir / persist_fsync / snapshot_interval_s / scrub_chunks:
+    ooc / device_budget_bytes / tile_slots / ooc_overlap / ooc_promote_batches:
+        The out-of-core arm (module doc): an IVF-Flat store kept on the
+        host, the device bytes it may use (default: the
+        ``serve_ann_device_budget_bytes`` knob), the slots of a streamed
+        tile (default: auto-sized), the double buffer (False: the
+        synchronous arm) and the batches between hot-set promotions.
+        The budget and ``tile_slots`` need ``ooc=True``.
+    persist_dir / persist_fsync / snapshot_interval_s / persist_mmap / scrub_chunks:
         Durable state (module doc): the directory, the WAL's fsync
-        policy, the least seconds between interval snapshots and the
-        snapshot chunks scrubbed a tick, the last three defaulting to
-        their ``persist_*`` knobs; they need ``persist_dir``.
+        policy, the least seconds between interval snapshots, a restored
+        out-of-core store as a copy-on-write memory map, and the
+        snapshot chunks scrubbed a tick, the defaults their ``persist_*``
+        knobs; they need ``persist_dir``.
     device:
         Where the index lives and the searches run (default ``"cuda"``;
         raises when CUDA is missing).
@@ -230,9 +262,15 @@ class ANNService(Service):
                  compact_rows: Optional[int] = None,
                  degrade_queue_frac: Optional[float] = None,
                  slot_multiple: int = 64,
+                 ooc: bool = False,
+                 device_budget_bytes: Optional[int] = None,
+                 tile_slots: Optional[int] = None,
+                 ooc_overlap: bool = True,
+                 ooc_promote_batches: int = 32,
                  persist_dir: Optional[str] = None,
                  persist_fsync: Optional[str] = None,
                  snapshot_interval_s: Optional[float] = None,
+                 persist_mmap: bool = False,
                  scrub_chunks: Optional[int] = None,
                  name: Optional[str] = None,
                  device="cuda", **opts):
@@ -252,7 +290,7 @@ class ANNService(Service):
                 snapshot_interval_s=snapshot_interval_s, scrub_chunks=scrub_chunks,
                 clock=opts.get("clock", time.monotonic), device=dev)
             if self._persist.has_state():
-                restored = self._persist.restore()
+                restored = self._persist.restore(mmap_store=persist_mmap)
                 if restored.index is not None:
                     if index is not None:
                         expects(int(index.centroids.shape[1])
@@ -264,17 +302,35 @@ class ANNService(Service):
                     index = restored.index
         else:
             expects(persist_fsync is None and snapshot_interval_s is None
-                    and scrub_chunks is None,
-                    "ANNService: persist_fsync/snapshot_interval_s/scrub_chunks are "
-                    "durability knobs: pass persist_dir=")
+                    and scrub_chunks is None and not persist_mmap,
+                    "ANNService: persist_fsync/snapshot_interval_s/scrub_chunks/persist_mmap "
+                    "are durability knobs: pass persist_dir=")
         expects(index is not None, "ANNService: index=None requires persist_dir pointing at "
                 "existing durable state (no snapshot or WAL found%s)"
                 % ("" if persist_dir is None else " in %r" % persist_dir))
         expects(isinstance(index, _KINDS), "ANNService: index must be an IVF index "
-                "(IVFFlatIndex/IVFPQIndex/IVFSQIndex), got %r", type(index).__name__)
+                "(IVFFlatIndex/IVFPQIndex/IVFSQIndex/OocIVFFlat), got %r", type(index).__name__)
+        if isinstance(index, _ooc.OocIVFFlat):
+            ooc = True
         expects(k >= 1, "ANNService: k=%d", k)
         self.k = int(k)
         self._refine_ratio = refine_ratio
+        expects(ooc or (device_budget_bytes is None and tile_slots is None),
+                "ANNService: device_budget_bytes/tile_slots are out-of-core knobs: pass "
+                "ooc=True (a resident service silently ignoring a memory budget would be "
+                "worse than an error)")
+        if ooc:
+            expects(refine_ratio is None, "ANNService: refine_ratio is PQ-only; the "
+                    "out-of-core tier is IVF-Flat-only: drop it")
+            expects(isinstance(index, (_ann.IVFFlatIndex, _ooc.OocIVFFlat)),
+                    "ANNService: ooc=True requires an IVF-Flat index (PQ/SQ stores are "
+                    "already memory-compressed; serve them resident)")
+            if isinstance(index, _ann.IVFFlatIndex):
+                index = _ooc.ivf_flat_to_ooc(index)
+            if self._persist is not None and not index.store.flags.writeable:
+                # the scrub rebuilds a poisoned slot in place: a read-only
+                # store is copied once into writable host memory
+                index = index._replace(store=index.store.copy())
         index = _index_on(index, dev)
         self._nlist = int(index.centroids.shape[0])
         dim = int(index.centroids.shape[1])
@@ -305,7 +361,7 @@ class ANNService(Service):
         expects(compact_rows >= 0, "ANNService: compact_rows=%d", compact_rows)
         # an IVF-PQ or IVF-SQ store holds codes: it ingests into the delta
         # but never compacts (module doc)
-        self._compactable = isinstance(index, _ann.IVFFlatIndex)
+        self._compactable = isinstance(index, (_ann.IVFFlatIndex, _ooc.OocIVFFlat))
         self._compact_rows = min(int(compact_rows), self._delta_cap) if self._compactable else 0
         if degrade_queue_frac is None:
             degrade_queue_frac = _knob_float("serve_ann_degrade_frac")
@@ -328,6 +384,12 @@ class ANNService(Service):
         self._last_compact_s = 0.0
         self._index = index
         self.device = dev
+        self._ooc = None
+        self._ooc_pool = None
+        self._ooc_hot = None
+        if ooc:
+            self._ooc_setup(index, device_budget_bytes, tile_slots, ooc_overlap,
+                            ooc_promote_batches)
         self._publish_state_locked()
         if restored is not None:
             self._apply_restore(restored)
@@ -356,8 +418,15 @@ class ANNService(Service):
     # ------------------------------------------------------------------ #
     # snapshot plumbing
     # ------------------------------------------------------------------ #
-    def _snapshot_search(self, st: _AnnState, q, nprobe, delta):
-        """The one search entry of dispatch, warmup and calibrate."""
+    def _snapshot_search(self, st: _AnnState, q, nprobe, delta, force_rounds: int = 0):
+        """The one search entry of dispatch, warmup and calibrate: the
+        streamed out-of-core search when the service owns a tile pool,
+        the quantizer's search otherwise."""
+        if self._ooc_pool is not None:
+            return _ooc.ooc_ivf_flat_search(
+                st.index, q, self.k, nprobe=nprobe, pool=self._ooc_pool, hot=st.ooc_hot,
+                delta=delta, overlap=self._ooc_overlap, probe_hook=self._ooc_note_probes,
+                force_rounds=force_rounds, device=self.device)
         return _ann.approx_knn_search(st.index, q, self.k, nprobe=nprobe,
                                       refine_ratio=self._refine_ratio, delta=delta,
                                       device=self.device)
@@ -371,7 +440,7 @@ class ANNService(Service):
         with torch.cuda.stream(self._stream):
             vecs, ids = vecs.to(self.device), ids.to(self.device)
         self._ann_state = _AnnState(self._index, vecs, ids, self._delta_count,
-                                    self._persist_wal_seq)
+                                    self._persist_wal_seq, self._ooc_hot)
         _labeled("gauge", "raft_tpu_serve_ann_delta_rows",
                  "rows in the append-only delta segment", self.name).set(self._delta_count)
 
@@ -499,11 +568,184 @@ class ANNService(Service):
         if n0 == 0:
             return
         with torch.cuda.stream(self._stream):
-            self._index = _ann.ivf_flat_extend(
-                self._index, self._delta_vecs[:n0].clone(), self._delta_ids[:n0].numpy().copy(),
-                slot_multiple=self._slot_multiple, device=self.device)
+            old_index = self._index
+            self._index = self._extend(old_index, self._delta_vecs[:n0].clone(),
+                                       self._delta_ids[:n0].numpy().copy())
+        if self._ooc is not None:
+            self._ooc_swap_locked(old_index, self._index)
         self._delta_ids[:] = -1
         self._delta_count = 0
+
+    def _extend(self, index, vecs, keys):
+        """The compaction's rebuild: on the host for an out-of-core index
+        (the store never lands on the device), on the device otherwise."""
+        if isinstance(index, _ooc.OocIVFFlat):
+            return _ooc.ooc_extend(index, vecs, keys, slot_multiple=self._slot_multiple)
+        return _ann.ivf_flat_extend(index, vecs, keys, slot_multiple=self._slot_multiple,
+                                    device=self.device)
+
+    # ------------------------------------------------------------------ #
+    # the out-of-core arm
+    # ------------------------------------------------------------------ #
+    def _ooc_setup(self, index, budget, tile_slots, overlap, promote_batches) -> None:
+        """The budget split (module doc), the tile pool and the first hot
+        set (construction only)."""
+        if budget is None:
+            budget = _knob_int("serve_ann_device_budget_bytes")
+        expects(budget > 0, "ANNService: ooc=True needs a device budget: pass "
+                "device_budget_bytes= or set the serve_ann_device_budget_bytes knob")
+        self._ooc = index
+        self._ooc_budget = int(budget)
+        self._ooc_overlap = bool(overlap)
+        slot_b = index.slot_bytes()
+        if tile_slots is None:
+            # a tile is at most an eighth of the budget (three in flight and
+            # a hot set must fit), and 32 slots at most
+            tile_slots = min(32, index.n_slots, self._ooc_budget // (8 * (slot_b + 4)))
+        tile_slots = max(1, min(int(tile_slots), index.n_slots))
+        tile_b = tile_slots * (slot_b + 4)
+        expects(self._ooc_budget >= 3 * tile_b, "ANNService: device_budget_bytes=%d holds "
+                "fewer than 3 tiles of %d bytes: raise the budget or shrink tile_slots",
+                self._ooc_budget, tile_b)
+        # H hot slots, one taken tile being scanned, two staged (the
+        # double buffer)
+        self._ooc_hot_cap = min((self._ooc_budget - 3 * tile_b) // slot_b, index.n_slots)
+        pool_budget = max(2 * tile_b, self._ooc_budget - self._ooc_hot_cap * slot_b - tile_b)
+        self._ooc_promote_batches = max(1, int(promote_batches))
+        self._ooc_batches = 0
+        # the promotion signal: probe traffic per slot (distinct slots per
+        # batch, weighted by the queries that probed each)
+        self._ooc_counters = np.zeros(index.n_slots, np.int64)
+        self._ooc_pool = TilePool(tile_slots, pool_budget, name=self.name, device=self.device)
+        # the tile-miss storm check's baselines: this pool's counter now (a
+        # reused service name must not inherit a dead service's total)
+        self._ooc_batches_total = 0
+        self._storm_batches0 = 0
+        self._storm_misses0 = self._tile_misses_now()
+        # the first hot set: the slots of the largest lists, the best
+        # stand-in for traffic not yet seen
+        self._ooc_hot_ids = self._ooc_ideal_hot()
+        self._ooc_rebuild_hot()
+
+    def _ooc_ideal_hot(self) -> np.ndarray:
+        """The ``_ooc_hot_cap`` slots the hot set should hold now: the top
+        by probe counters (before any traffic: by their list's size),
+        ties to the lower slot id; slots of the layout's padding (no
+        valid rows) sink below every real one."""
+        ooc = self._ooc
+        counters = self._ooc_counters
+        if counters.any():
+            priority = counters.astype(np.int64)
+        else:
+            priority = ooc.list_sizes.cpu().numpy().astype(np.int64)[ooc.slot_centroid]
+        first = ooc.slot_ids[:, 0].cpu().numpy()
+        priority = np.where(first >= 0, priority, -1)
+        order = np.lexsort((np.arange(priority.size), -priority))
+        return np.sort(order[:self._ooc_hot_cap]).astype(np.int64)
+
+    def _ooc_rebuild_hot(self) -> None:
+        """Copy ``_ooc_hot_ids`` to the device as the hot block, on the
+        worker's stream, complete before this returns (so the caller may
+        publish it), and refresh the gauges.  Callers publish after."""
+        if self._ooc_hot_cap == 0:
+            self._ooc_hot = None
+        else:
+            with torch.cuda.stream(self._stream):
+                self._ooc_hot = _ooc.materialize_hot(self._ooc, self._ooc_hot_ids,
+                                                     pool_name=self.name, device=self.device)
+        hot_n = 0 if self._ooc_hot is None else len(self._ooc_hot_ids)
+        _labeled("gauge", "raft_tpu_ooc_hot_slots",
+                 "slots resident in the out-of-core hot set", self.name).set(hot_n)
+        _labeled("gauge", "raft_tpu_ooc_hot_bytes",
+                 "device bytes the out-of-core hot set occupies",
+                 self.name).set(hot_n * self._ooc.slot_bytes())
+
+    def _ooc_swap_locked(self, old, new) -> None:
+        """A compaction's swap of the out-of-core index (the caller holds
+        ``_delta_lock`` and publishes after): the counters carried over,
+        the hot set rebuilt on the new slots."""
+        self._ooc_remap_counters(old, new)
+        self._ooc = new
+        self._ooc_hot_ids = self._ooc_ideal_hot()
+        self._ooc_rebuild_hot()
+
+    def _ooc_note_probes(self, distinct: np.ndarray, counts: np.ndarray) -> None:
+        """The search's probe hook (on whatever thread searches): feed the
+        promotion counters.  ``distinct`` is unique, so the fancy-index
+        add is one ufunc call; a search still reading a snapshot from
+        before a compaction is bounds-guarded against the resized
+        counters."""
+        c = self._ooc_counters
+        if distinct.size and int(distinct[-1]) < c.size:
+            c[distinct] += counts
+        self._ooc_batches += 1
+        self._ooc_batches_total += 1
+
+    def _ooc_promote_tick(self) -> None:
+        """Maintenance hook: move the hot set to the measured top slots
+        when probe traffic says the working set moved, every
+        ``ooc_promote_batches`` batches and only when more than an eighth
+        of the set would change (steady traffic pays no churn).  The swap
+        is one snapshot publish: batches in flight keep the old block."""
+        if (self._ooc_hot_cap == 0 or self._ooc_batches < self._ooc_promote_batches
+                or self.batcher.draining()):
+            return
+        self._ooc_batches = 0
+        with self._compact_lock:
+            ideal = self._ooc_ideal_hot()
+            cur = self._ooc_hot_ids
+            fresh = np.setdiff1d(ideal, cur, assume_unique=True)
+            if fresh.size <= max(1, self._ooc_hot_cap // 8):
+                return
+            evicted = np.setdiff1d(cur, ideal, assume_unique=True).size
+            with self._delta_lock:
+                self._ooc_hot_ids = ideal
+                self._ooc_rebuild_hot()
+                self._publish_state_locked()   # the atomic swap
+        _metrics.default_registry().counter(
+            "raft_tpu_tile_evictions_total", help="hot-set slots demoted by frequency promotion",
+            labels=("pool",)).labels(pool=self.name).inc(int(evicted))
+        flight.record("hot_promote", service=self.name, promoted=int(fresh.size),
+                      evicted=int(evicted), hot_slots=int(self._ooc_hot_cap))
+
+    def _ooc_remap_counters(self, old, new) -> None:
+        """Carry the probe counters across a compaction's renumbering of
+        the slots: ``ooc_extend`` keeps the centroids, so a slot's traffic
+        goes to its centroid and is spread evenly over that centroid's
+        new slots."""
+        nlist = int(old.centroids.shape[0])
+        cent_tot = np.bincount(old.slot_centroid, weights=self._ooc_counters, minlength=nlist)
+        slots_per = np.maximum(np.bincount(new.slot_centroid, minlength=nlist), 1)
+        self._ooc_counters = (cent_tot[new.slot_centroid]
+                              // slots_per[new.slot_centroid]).astype(np.int64)
+
+    def _tile_misses_now(self) -> float:
+        """This service's pool-labelled tile-miss counter (0.0 before any
+        miss)."""
+        fam = _metrics.default_registry().get("raft_tpu_tile_misses_total")
+        if fam is not None:
+            for labels, series in fam.series():
+                if labels.get("pool") == self.name:
+                    return float(series.value)
+        return 0.0
+
+    def _ooc_storm_check(self) -> None:
+        """Record a ``tile_miss_storm`` flight event when the working set
+        has outrun the hot set and the staging window: the recent tile
+        misses per batch exceed two tiles (every batch streams more than
+        the double buffer holds).  Reads the counter on the maintenance
+        seam only."""
+        batches = self._ooc_batches_total - self._storm_batches0
+        if batches < 8:
+            return
+        misses = self._tile_misses_now()
+        per_batch = (misses - self._storm_misses0) / batches
+        self._storm_batches0 = self._ooc_batches_total
+        self._storm_misses0 = misses
+        if per_batch > 2.0 * self._ooc_pool.tile_slots:
+            flight.record("tile_miss_storm", service=self.name,
+                          misses_per_batch=round(per_batch, 2),
+                          tile_slots=int(self._ooc_pool.tile_slots), batches=int(batches))
 
     # ------------------------------------------------------------------ #
     # warmup: every bucket rung x every nprobe cell, both delta arms
@@ -514,18 +756,21 @@ class ANNService(Service):
         of :meth:`calibrate` once on the centroids, on the worker's
         stream, and wait.  Every kernel library serving, calibration
         and compaction reach is then built and loaded; the count taken
-        here is what ``stats()`` holds still."""
+        here is what ``stats()`` holds still.  An out-of-core service
+        also streams one tile a search (``force_rounds=1``), so the pool
+        has staged before traffic."""
         st = self._ann_state
         dev = self.device
         with torch.cuda.stream(self._stream):
             blank = (torch.zeros((self._delta_cap, self.dim), dtype=self.dtype, device=dev),
                      torch.full((self._delta_cap,), -1, dtype=torch.int32, device=dev))
+            force = 1 if self._ooc_pool is not None else 0
             for rung in self.policy.rungs:
                 for cell in self._nprobe_ladder:
                     for delta in (None, blank):
                         self._snapshot_search(
                             st, torch.zeros((rung, self.dim), dtype=self.dtype, device=dev),
-                            cell, delta)
+                            cell, delta, force_rounds=force)
             brute_force_knn(st.index.centroids, torch.zeros((1, self.dim), dtype=self.dtype,
                                                             device=dev),
                             min(self.k, self._nlist), device=dev)
@@ -587,15 +832,19 @@ class ANNService(Service):
         return at + n
 
     def _maintenance_tick(self) -> None:
-        """Worker-loop hook: compact when the delta crosses the threshold
-        (never while draining: drain serves out, it starts no rebuild),
-        then the durability tick (deferred fsync, interval snapshot of
-        the immutable state, one scrub step)."""
+        """Worker-loop hook: promote the out-of-core hot set when probe
+        traffic moved and flag tile-miss storms, compact when the delta
+        crosses the threshold (never while draining: drain serves out,
+        it starts no rebuild), then the durability tick (deferred fsync,
+        interval snapshot of the immutable state, one scrub step)."""
+        if self._ooc is not None:
+            self._ooc_storm_check()
+            self._ooc_promote_tick()
         if (self._compact_rows and self._delta_count >= self._compact_rows
                 and not self.batcher.draining()):
             self.compact()
         if self._persist is not None:
-            self._persist.maintenance_tick(self._ann_state)
+            self._persist.maintenance_tick(self._ann_state, ooc=self._ooc)
 
     def compact(self) -> bool:
         """Fold the delta segment into the IVF slots and swap the served
@@ -615,9 +864,7 @@ class ANNService(Service):
                 old_index = self._index
             t0 = self._clock()
             with torch.cuda.stream(self._stream):
-                new_index = _ann.ivf_flat_extend(old_index, vecs, keys,
-                                                 slot_multiple=self._slot_multiple,
-                                                 device=self.device)
+                new_index = self._extend(old_index, vecs, keys)
             if self._stream is not None:
                 self._stream.synchronize()
             with self._delta_lock:
@@ -628,6 +875,8 @@ class ANNService(Service):
                 self._delta_ids[rem:] = -1
                 self._delta_count = rem
                 self._index = new_index
+                if self._ooc is not None:
+                    self._ooc_swap_locked(old_index, new_index)
                 self._publish_state_locked()   # the atomic swap
         if self._persist is not None:
             # the snapshot on disk no longer matches the served index
@@ -657,6 +906,8 @@ class ANNService(Service):
         if reference is not None:
             vecs = as_tensor(reference, _CPU).numpy()
             ids = np.arange(vecs.shape[0], dtype=np.int64)
+        elif isinstance(st.index, _ooc.OocIVFFlat):
+            vecs, ids = _ooc.ooc_reconstruct(st.index)   # the store is host memory
         elif isinstance(st.index, _ann.IVFFlatIndex):
             vecs, ids = _ann.ivf_flat_reconstruct(st.index)
         elif isinstance(st.index, _ann.IVFPQIndex) and st.index.vectors is not None:
@@ -755,4 +1006,15 @@ class ANNService(Service):
         })
         if self._persist is not None:
             out["persist"] = self._persist.stats()
+        if self._ooc is not None:
+            out["ooc"] = {
+                "budget_bytes": self._ooc_budget,
+                "store_bytes": self._ooc.store_bytes(),
+                "hot_slots": 0 if self._ooc_hot is None else len(self._ooc_hot_ids),
+                "hot_cap": self._ooc_hot_cap,
+                "tile_slots": self._ooc_pool.tile_slots,
+                "pool_budget_bytes": self._ooc_pool.budget_bytes,
+                "staged_bytes": self._ooc_pool.staged_bytes(),
+                "overlap": self._ooc_overlap,
+            }
         return out

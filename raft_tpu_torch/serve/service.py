@@ -28,8 +28,8 @@ What is not ported, and why:
 - ``KNNService``'s ``mesh``, ``axis``, ``merge``, ``group_size``,
   ``replicas`` and ``hedge_ms`` (sharded and replicated serving) wait
   for the multi-GPU slice, and ``post_recover``/``repartition`` with
-  the ``RecoveryManager`` for the session slice; ``ANNService`` waits
-  for the ANN serving slice.
+  the ``RecoveryManager`` for the session slice (``ANNService``, with
+  its resident and out-of-core arms, is in ``serve/ann_service.py``).
 
 Results: a kNN request's result depends only on its own query row, and
 the kernels' arithmetic is per row, so a served kNN result equals the

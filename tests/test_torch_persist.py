@@ -32,9 +32,10 @@ from raft_tpu.persist import snapshot as jsnap
 from raft_tpu.persist.wal import WriteAheadLog as JaxWriteAheadLog
 from raft_tpu.serve import ANNService as JaxANNService
 from raft_tpu.spatial import ann as jann
+from raft_tpu.spatial import ooc as jooc
 from raft_tpu_torch import ANNService, LogicError, RaftError
 from raft_tpu_torch.convert import (ivf_flat_index_from_reference, ivf_pq_index_from_reference,
-                                    ivf_sq_index_from_reference)
+                                    ivf_sq_index_from_reference, ooc_ivf_flat_from_reference)
 from raft_tpu_torch.core.error import DataCorruptionError
 from raft_tpu_torch.persist import (FSYNC_POLICIES, PersistManager, WriteAheadLog,
                                     current_manifest, load_current, replay_wal, write_snapshot)
@@ -190,16 +191,124 @@ def test_supersede_sweeps_old_and_stray_directories(flat_index, tmp_path):
     assert load_current(str(tmp_path), device="cpu") is not None
 
 
-def test_out_of_core_kind_raises_naming_its_item(flat_index, tmp_path):
-    from typing import NamedTuple
+def test_out_of_core_kind_raises_naming_its_item(jax_indexes, tmp_path):
+    # the out-of-core kind and the memory-mapped store were refused until
+    # they were ported; both round-trip now and nothing names queue 1 item 5
+    ooc = ooc_ivf_flat_from_reference(jooc.ivf_flat_to_ooc(jax_indexes["flat"]), device="cpu")
+    write_snapshot(str(tmp_path), ooc, seq=1, wal_seq=0)
+    idx, _, _, manifest = load_current(str(tmp_path), mmap_store=True, device="cpu")
+    assert manifest["kind"] == "OocIVFFlat" and isinstance(idx.store, np.memmap)
+    _assert_index_equal(idx, ooc)
 
-    class OocIVFFlat(NamedTuple):
-        centroids: np.ndarray
 
-    with pytest.raises(RaftError, match="queue 1 item 5"):
-        write_snapshot(str(tmp_path), OocIVFFlat(np.zeros((2, 2))), seq=1, wal_seq=0)
-    with pytest.raises(RaftError, match="queue 1 item 5"):
+# --------------------------------------------------------------------- #
+# the out-of-core kind (OocIVFFlat): a host store chunked per slot
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def ooc_pair(jax_indexes):
+    jo = jooc.ivf_flat_to_ooc(jax_indexes["flat"])
+    return jo, ooc_ivf_flat_from_reference(jo, device="cpu")
+
+
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_ooc_snapshot_directories_are_byte_identical(ooc_pair, rng, tmp_path, with_delta):
+    jo, po = ooc_pair
+    delta = _delta(rng) if with_delta else None
+    jm = jsnap.write_snapshot(str(tmp_path / "jax"), jo, seq=5, wal_seq=2, delta=delta)
+    pm = write_snapshot(str(tmp_path / "port"), po, seq=5, wal_seq=2, delta=delta)
+    assert pm == jm
+    assert _same_tree(str(tmp_path / "jax"), str(tmp_path / "port"))
+    store = [e for e in pm["arrays"] if e["name"] == "store"][0]
+    # chunked per slot: a chunk index is a slot id
+    assert store["chunk_bytes"] == po.slot_bytes() and len(store["crc32s"]) == po.n_slots
+
+
+@pytest.mark.parametrize("mmap_store", [False, True])
+def test_ooc_snapshots_cross_both_ways(ooc_pair, tmp_path, mmap_store):
+    jo, po = ooc_pair
+    jsnap.write_snapshot(str(tmp_path / "jax"), jo, seq=1, wal_seq=0)
+    idx, _, _, _ = load_current(str(tmp_path / "jax"), mmap_store=mmap_store, device="cpu")
+    _assert_index_equal(idx, po)
+    assert isinstance(idx.store, np.memmap) == mmap_store
+    assert isinstance(idx.slot_centroid, np.ndarray) and idx.store.flags.writeable
+    write_snapshot(str(tmp_path / "port"), po, seq=1, wal_seq=0)
+    jidx, _, _, _ = jsnap.load_current(str(tmp_path / "port"), mmap_store=mmap_store)
+    _assert_index_equal(jidx, po)
+
+
+def test_mmap_store_is_copy_on_write_and_verified(ooc_pair, tmp_path):
+    _, po = ooc_pair
+    write_snapshot(str(tmp_path), po, seq=1, wal_seq=0)
+    idx, _, _, manifest = load_current(str(tmp_path), mmap_store=True, device="cpu")
+    path = os.path.join(manifest["_dir"], "store.bin")
+    before = open(path, "rb").read()
+    idx.store[0, 0, 0] += 1.0              # a repair changes memory, never the file
+    assert open(path, "rb").read() == before
+    del idx
+    _flip_byte(path, po.slot_bytes() * 3 + 5)
+    with pytest.raises(DataCorruptionError, match="store.bin") as ei:
         load_current(str(tmp_path), mmap_store=True, device="cpu")
+    assert ei.value.offset == po.slot_bytes() * 3
+
+
+def _ooc_budget(index):
+    """Half the store: three tiles and a hot set of a few slots."""
+    return int(index.store_bytes() * 0.5)
+
+
+def _ooc_svc(index, tmp, **kw):
+    return make_svc(index, tmp, ooc=True, device_budget_bytes=_ooc_budget(index), **kw)
+
+
+def test_ooc_service_restores_with_a_memory_mapped_store(ooc_pair, rng, tmp_path):
+    _, po = ooc_pair
+    svc = _ooc_svc(po, tmp_path, snapshot_interval_s=1e9)
+    q = rng.standard_normal((6, DIM)).astype(np.float32)
+    svc.insert(np.arange(7000, 7004), rng.standard_normal((4, DIM)).astype(np.float32))
+    want = _state_search(svc, q)
+    svc.close(snapshot=False)
+    back = make_svc(None, tmp_path, ooc=True, device_budget_bytes=_ooc_budget(po),
+                    persist_mmap=True, snapshot_interval_s=1e9)
+    try:
+        assert isinstance(back.index.store, np.memmap) and back.stats()["kind"] == "OocIVFFlat"
+        assert back.delta_rows == 4
+        got = _state_search(back, q)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        back.close(snapshot=False)
+    with pytest.raises(LogicError, match="persist_mmap"):
+        make_svc(po, None, ooc=True, device_budget_bytes=_ooc_budget(po), persist_mmap=True)
+
+
+def test_scrub_quarantines_and_rebuilds_a_host_store_slot(ooc_pair, rng, tmp_path):
+    _, po = ooc_pair
+    svc = _ooc_svc(po, tmp_path, scrub_chunks=10_000)
+    try:
+        store = svc._ooc.store
+        assert store.flags.writeable
+        q = rng.standard_normal((6, DIM)).astype(np.float32)
+        want = _state_search(svc, q)
+        slot = svc._ooc.n_slots - 1           # a cold slot (the hot set is the largest lists)
+        clean = store[slot].copy()
+        store[slot, 0, 0] += 1000.0           # a poisoned host-memory slot
+        svc.worker.run_maintenance()
+        ps = svc.stats()["persist"]
+        assert ps["last_scrub"]["rebuilt"] == 1 and not ps["corruption_detected"]
+        assert ps["last_scrub"]["last_error"]["where"] == "host-store-slot"
+        assert ps["last_scrub"]["last_error"]["repaired"] is True
+        np.testing.assert_array_equal(store[slot], clean)
+        got = _state_search(svc, q)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # the snapshot's copy bad as well: reported, not repaired
+        name = "snapshot-%010d" % svc._persist.snapshot_seq
+        _flip_byte(os.path.join(str(tmp_path), "snapshots", name, "store.bin"),
+                   po.slot_bytes() * slot + 9)
+        store[slot, 0, 1] += 1000.0
+        svc.worker.run_maintenance()
+        assert svc.stats()["persist"]["corruption_detected"]
+        assert svc.stats()["persist"]["last_scrub"]["rebuilt"] == 1
+    finally:
+        svc.close(snapshot=False)
 
 
 # --------------------------------------------------------------------- #
