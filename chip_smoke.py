@@ -118,7 +118,41 @@ paths through the public entry points with ``device="cuda"``:
   arm's, the ids equal except among ties, recall@100 (256 rows, against
   K1) equal; the staged high water within the pool's budget, the peak
   under half the store; K3 held at a staged tile's geometry (32 slots, a
-  128-row batch).
+  128-row batch);
+- the multi-GPU session on worlds of rank slots on the card (queue 1
+  item 6; ranks that share one card measure the cost of the merge, not
+  scaling): ``comms_selftest_4`` (the self-test battery on a world of 4,
+  the status test, and a ring of 1 MB rows by the device, ppermute and
+  host routes: zero host-staged bytes on the first two, the host route's
+  counted); ``mnmg_knn_1M`` (``BASELINE.md`` config #5 at config #3's
+  shape: the 1M index sharded over 4 ranks, allgather, ring and
+  hierarchical (group 2) and a world of 1, each held to
+  ``brute_force_knn``, the three bitwise equal, ms each and the merge's
+  share beside the local searches alone, K1 at a shard's shape, K2 bit
+  for bit on the merges' own keys); ``mnmg_ivf_1M`` (the IVF-Flat index
+  slot-sharded over 4 ranks at nprobe 32: distances within 1e-4 of
+  ``ivf_flat_search``, ids equal but for rows that differ among ties,
+  counted; a full probe against brute force; K3 at a rank's slots);
+  ``serve_knn_sharded_500k`` (the JAX serve_sharded rung,
+  ``bench.py:1167-1247``: 500,000 x 128, k 100, a closed loop of 16
+  threads sending 16-row requests from the rung's query pool (index rows
+  plus noise), rungs 8/32/64/128, a 4 s window for each of worlds 1, 2,
+  4 and 8 hierarchical and 2 s for each other topology at 8; every
+  response bitwise equal to the unbatched sharded call of its rows, no
+  kernel build after warmup);
+  ``session_recover`` (a session on a world of 4 serving a sharded
+  ``KNNService`` over the 500k rows and a sharded ``ANNService`` over the
+  IVF index with 2,048 inserts; rank 3 lost through the fault seam,
+  ``health_check`` flags it and verbs fail fast; ``RecoveryManager``
+  onto ranks 0-2: the self-tests pass on 3, both services re-partitioned,
+  fixed queries against the single-device answers, every insert found at
+  distance 0 with its own id; each phase's seconds); and
+  ``serve_knn_replicas`` (two replicas of two ranks, a fixed hedge of
+  25 ms, the same pool and loop for 4 s unfaulted and 4 s with replica 1
+  delayed 0.1 s: hedges fire and
+  win, every response bitwise equal to the unbatched call, p50 and p99
+  and the hedge and failover counters).  Where the machine shows more
+  than one card, ``mnmg_knn_1M`` also runs over distinct cards.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -155,6 +189,7 @@ check, a ``paths`` JSON line (launches and end-to-end milliseconds per
 path), a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import itertools
 import json
 import statistics
@@ -266,6 +301,23 @@ RBC_HAV_ATOL = 1e-5
 OOC_NLIST, OOC_TRAIN_ROWS, OOC_NPROBE, OOC_BUDGET_FRAC = 2048, 65_536, 8, 0.25
 OOC_THREADS, OOC_ROWS, OOC_RESIDENT_S, OOC_ARM_S = 8, 16, 2.0, 4.0
 OOC_FIXED, OOC_RECALL_ROWS, OOC_PEAK_FRAC = 1024, 256, 0.5
+# the multi-GPU session (queue 1 item 6): a world of 4 rank slots on the
+# card for BASELINE.md config #5 at config #3's shape; the p2p ring's rows
+# (1 MB); the sharded distances' tolerance against the unsharded search
+# (tests/test_mnmg.py:216-229); the JAX serve_sharded rung
+# (bench.py:1167-1247, called at :2907-2908: 500,000 x 128, k 100, 16
+# threads of 16-row requests, rungs 8/32/64/128, merge hierarchical) at
+# worlds of 1, 2, 4 and 8; the session's inserts and fixed queries; the
+# replicas' fixed hedge threshold and the delay injected on replica 1
+MNMG_WORLD, SELFTEST_P2P_FLOATS, IVF_ATOL = 4, 262_144, 1e-4
+SHARDED_N, SHARDED_THREADS, SHARDED_ROWS, SHARDED_SECONDS = 500_000, 16, 16, 4.0
+SHARDED_RUNGS = (8, 32, 64, 128)
+SHARDED_POOL, SHARDED_NOISE = 32, 0.1   # tools/loadgen.py:make_query_pool's defaults
+SESSION_INSERT, SESSION_FIXED = 2048, 256
+REPLICA_HEDGE_MS, REPLICA_DELAY_S = 25.0, 0.1
+# the K2 shapes of these paths are timed on normal keys (their merges
+# re-order candidates by global id first, so no sorted runs survive)
+NORMAL_KEY_PATHS = ("mnmg_", "serve_knn_sharded_500k", "session_recover", "serve_knn_replicas")
 QUANTIZED_PATHS = ("ivf_pq_1M", "ivf_sq_1M", "serve_ann_pq_1M", "serve_ann_sq_1M",
                    "persist_ann_1M", "rbc_haversine_1M", "rbc_l2_3d_1M")
 
@@ -1026,12 +1078,15 @@ def serve_quantized(kind, index, X, ann_load, dev, reset, counts, m):
     return out
 
 
-def closed_loop(svc, blocks, n_threads, seconds):
+def closed_loop(svc, blocks, n_threads, seconds, served=None):
     """``n_threads`` threads each submit a block of ``blocks`` (in turn),
     wait for its answer and submit the next, until ``seconds`` pass.
-    Returns (rows answered, wall ms, request latencies in ms, sorted)."""
+    With a ``served`` list, every answer is appended to it as (block
+    index, answer).  Returns (rows answered, wall ms, request latencies
+    in ms, sorted)."""
     stop_at = [0.0]
     lat, rows, errors = [[] for _ in range(n_threads)], [0] * n_threads, []
+    got = [[] for _ in range(n_threads)]
     start = threading.Barrier(n_threads + 1)
 
     def client(t):
@@ -1041,9 +1096,11 @@ def closed_loop(svc, blocks, n_threads, seconds):
             while time.perf_counter() < stop_at[0]:
                 b = blocks[i % len(blocks)]
                 t0 = time.perf_counter()
-                svc.submit(b).result(timeout=120)
+                out = svc.submit(b).result(timeout=120)
                 lat[t].append((time.perf_counter() - t0) * 1e3)
                 rows[t] += len(b)
+                if served is not None:
+                    got[t].append((i % len(blocks), out))
                 i += n_threads
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
@@ -1060,6 +1117,8 @@ def closed_loop(svc, blocks, n_threads, seconds):
     wall_ms = (time.perf_counter() - t0) * 1e3
     assert not errors, errors
     assert not any(th.is_alive() for th in threads)
+    if served is not None:
+        served.extend(x for per in got for x in per)
     return sum(rows), wall_ms, sorted(x for per in lat for x in per)
 
 
@@ -1413,6 +1472,462 @@ def rbc_path(kind, dev, reset, counts, m):
             "max_err": err, "atol": atol}
 
 
+# --------------------------------------------------------------------- #
+# the multi-GPU session (queue 1 item 6): a world of rank slots on the card
+# --------------------------------------------------------------------- #
+def query_pool(index, rows, seed=1):
+    """``SHARDED_POOL`` query blocks near the data, as
+    ``tools/loadgen.py:make_query_pool`` draws them: ``rows`` index rows
+    a block (numpy picks from ``seed``) plus ``SHARDED_NOISE`` N(0, 1),
+    summed in float64, then float32."""
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, index.shape[0], (SHARDED_POOL, rows))
+    return [(index[torch.from_numpy(p).to(index.device)].double()
+             + torch.from_numpy(SHARDED_NOISE * rng.standard_normal((rows, index.shape[1])))
+             .to(index.device)).float() for p in picks]
+
+
+def assert_served_unbatched(name, served, blocks, unbatched):
+    """Every served answer, ``served`` as (block index, (d, i)), bitwise
+    equal to ``unbatched(block)``: one call a pool block, then one
+    comparison a block over all of its answers stacked."""
+    for b in sorted({j for j, _ in served}):
+        d0, i0 = unbatched(blocks[b])
+        got = [out for j, out in served if j == b]
+        ds, ids = torch.stack([d for d, _ in got]), torch.stack([i for _, i in got])
+        assert torch.equal(ds, d0.expand_as(ds)) and torch.equal(ids, i0.expand_as(ids)), (
+            "%s: an answer to pool block %d differs from the unbatched call" % (name, b))
+
+
+def service_counter(name, service):
+    """A service-labelled counter's total in the default registry (0 when absent)."""
+    from raft_tpu_torch.core.metrics import default_registry
+
+    fam = default_registry().get(name)
+    if fam is None:
+        return 0.0
+    return float(sum(s.value for labels, s in fam.series() if labels.get("service") == service))
+
+
+def staged_bytes():
+    from raft_tpu_torch.core.metrics import default_registry
+
+    fam = default_registry().get("raft_tpu_comms_host_staged_bytes")
+    return 0.0 if fam is None else float(sum(s.value for _, s in fam.series()))
+
+
+def tie_rows(name, got_d, got_i, ref_d, ref_i, atol):
+    """Rows whose ids differ from the reference's, each held to differ
+    only among ties: at a differing position the distance is shared with
+    another position of the row (within ``atol``) or with the k-th.
+    Returns (rows that differ, rows that differ only among exact ties)."""
+    rows = torch.nonzero((got_i != ref_i).any(dim=1)).flatten().tolist()
+    exact = 0
+    for r in rows:
+        d = ref_d[r]
+        only_exact = True
+        for p in torch.nonzero(got_i[r] != ref_i[r]).flatten().tolist():
+            near = ((d - d[p]).abs() <= atol).sum().item()
+            assert near >= 2 or abs(d[p].item() - d[-1].item()) <= atol, (
+                "%s: row %d position %d differs off a tie" % (name, r, p))
+            only_exact &= bool((d == d[p]).sum().item() >= 2 or d[p].item() == d[-1].item())
+        exact += int(only_exact)
+    return len(rows), exact
+
+
+def session_paths(ctx, m):
+    """The multi-GPU session on the card (queue 1 item 6): the paths
+    ``comms_selftest_4``, ``mnmg_knn_1M``, ``mnmg_ivf_1M``,
+    ``serve_knn_sharded_500k``, ``session_recover`` and
+    ``serve_knn_replicas`` (module doc).  A world of N is N rank slots on
+    ``ctx.dev``; ranks that share one card measure the cost of the merge,
+    not scaling.  Returns (paths, kernel rows' extra entries)."""
+    dev, D, reset, counts = ctx.dev, m.D, ctx.reset, ctx.counts
+    paths, extra = {}, {}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def world(n):
+        return m.Mesh([dev] * n, ("ranks",))
+
+    # comms_selftest_4: the battery on a world of 4, the status test, and
+    # the three p2p routes' host-staged bytes on a ring of 1 MB rows
+    mesh4 = world(MNMG_WORLD)
+    t0 = time.perf_counter()
+    battery = m.selftest.run_all(m.HostComms(mesh4))
+    battery_ms = (time.perf_counter() - t0) * 1e3
+    assert all(battery.values()), battery
+    assert m.selftest.test_sync_stream_status(m.HostComms(mesh4))
+    comms = m.HostComms(mesh4)
+    staged = {}
+    for route in ("device", "ppermute", "host"):
+        sends = [torch.full((SELFTEST_P2P_FLOATS,), float(r), device=dev)
+                 for r in range(MNMG_WORLD)]
+        recvs = []
+        for r in range(MNMG_WORLD):
+            comms.isend(sends[r], rank=r, dest=(r + 1) % MNMG_WORLD, tag=3)
+            recvs.append(comms.irecv(rank=r, source=(r - 1) % MNMG_WORLD, tag=3))
+        before = staged_bytes()
+        t0 = time.perf_counter()
+        comms.waitall(staging=route)
+        sync()
+        staged[route] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "host_staged_bytes": staged_bytes() - before}
+        for r in range(MNMG_WORLD):
+            got = recvs[r].result
+            assert got.device == dev and bool((got == float((r - 1) % MNMG_WORLD)).all()), route
+    row_bytes = 4 * SELFTEST_P2P_FLOATS
+    assert staged["device"]["host_staged_bytes"] == 0, staged
+    assert staged["ppermute"]["host_staged_bytes"] == 0, staged
+    assert staged["host"]["host_staged_bytes"] == MNMG_WORLD * row_bytes, staged
+    paths["comms_selftest_4"] = {"ranks": MNMG_WORLD, "tests": battery, "battery_ms": battery_ms,
+                                 "p2p_row_bytes": row_bytes, "p2p": staged}
+    print("comms_selftest_4: %s" % json.dumps(paths["comms_selftest_4"]), flush=True)
+
+    # mnmg_knn_1M (BASELINE.md config #5 at config #3's shape): the index
+    # sharded over a world of 4, each topology, and a world of 1
+    index, queries = ctx.index, ctx.queries
+    n, nq = index.shape[0], queries.shape[0]
+    rows = -(-n // MNMG_WORLD)
+    atol = ctx.l2_atol(queries, index)
+    cases = [("allgather", mesh4, "allgather", None), ("ring", mesh4, "ring", None),
+             ("hierarchical", mesh4, "hierarchical", 2), ("world1", world(1), "allgather", None)]
+    out = {"ranks": MNMG_WORLD, "shard_rows": rows, "runs": {}}
+    results = {}
+    reset()
+    for name, mesh, merge, g in cases:
+        c0 = counts()
+        d, i = m.mnmg_knn(index, queries, K, D.L2SqrtExpanded, mesh=mesh, axis="ranks",
+                          merge=merge, group_size=g)
+        sync()
+        c1 = counts()
+        results[name] = (d, i)
+        err = ctx.check_knn("mnmg_knn_1M %s vs brute_force_knn (squared)" % name, d ** 2, i,
+                            ctx.bf_d ** 2, ctx.bf_i, atol)
+        out["runs"][name] = {"launches": {k: c1[k] - c0[k] for k in c1}, "max_err": err,
+                             "ranks": mesh.size, "merge": merge, "group_size": g}
+    out["launches"] = counts("mnmg_knn_1M")
+    assert out["launches"]["knn_tile"] >= 3 * MNMG_WORLD + 1, out["launches"]
+    assert out["launches"]["select_tile"] > 0, out["launches"]
+    ref = results["allgather"]
+    for name in ("ring", "hierarchical"):
+        assert torch.equal(results[name][0], ref[0]) and torch.equal(results[name][1], ref[1]), (
+            "mnmg_knn_1M: %s differs from allgather" % name)
+    out["topologies_bitwise_equal"] = True
+    shards = list(index.split(rows))
+    local_ms = ctx.time_ms(lambda: [m.fused_knn_tile(s, queries, K) for s in shards], reps=5)
+    out["local_search_ms"] = local_ms
+    for name, mesh, merge, g in cases:
+        ms = ctx.time_ms(lambda: m.mnmg_knn(index, queries, K, D.L2SqrtExpanded, mesh=mesh,
+                                            axis="ranks", merge=merge, group_size=g), reps=5)
+        out["runs"][name]["ms"] = ms
+        if mesh.size == MNMG_WORLD:
+            out["runs"][name]["merge_share"] = max(0.0, 1.0 - local_ms / ms)
+    # K1 at a shard's shape, and K2 bit for bit on the merges' own keys
+    k1 = m.fused_knn_tile(shards[0], queries, K)
+    k1_ref = m.knn_tile_plain(shards[0], queries[:N_CHECK], K)
+    k1_err = ctx.check_knn("knn_tile at a shard's shape", k1[0][:N_CHECK], k1[1][:N_CHECK],
+                           *k1_ref, atol)
+    local = [m.fused_knn_tile(s, queries, K) for s in shards]
+    cand = [(d, (ii + j * rows).to(torch.int32)) for j, (d, ii) in enumerate(local)]
+
+    def by_id(parts):
+        ids = torch.cat([p[1] for p in parts], dim=1)
+        ids, order = torch.sort(ids, dim=1, stable=True)
+        return torch.gather(torch.cat([p[0] for p in parts], dim=1), 1, order)
+
+    merge_keys = {"allgather": by_id(cand), "hierarchical group": by_id(cand[:2]),
+                  "ring step": by_id([cand[1], cand[0]])}
+    for what, keys in merge_keys.items():
+        got, want = m.select_tile(keys, K), m.select_tile_plain(keys, K)
+        ctx.check_exact("select_tile mnmg merge %s values" % what, got[0], want[0])
+        ctx.check_exact("select_tile mnmg merge %s ids" % what, got[1], want[1])
+    out["k2_merge_checks"] = {what: list(keys.shape) for what, keys in merge_keys.items()}
+    knn_ops = 2.0 * nq * rows * DIM
+    knn_bytes = 4.0 * (rows + nq) * DIM + 8.0 * nq * K
+    b, by = bound_tf32x3(knn_ops, knn_bytes)
+
+    def shard_topk():
+        return torch.topk((queries * queries).sum(1, keepdim=True) + (shards[0] * shards[0]).sum(1)
+                          - 2.0 * (queries @ shards[0].T), K, dim=1, largest=False)
+
+    extra["k1_shard"] = {
+        "shape": "shard %dx%d f32, %d queries, k=%d" % (rows, DIM, nq, K),
+        "launches": out["launches"]["knn_tile"], "max_abs_err": k1_err,
+        "ms": ctx.time_ms(lambda: m.fused_knn_tile(shards[0], queries, K), reps=5),
+        "plain_ms": ctx.time_ms(lambda: m.knn_tile_plain(shards[0], queries, K), reps=1),
+        "bound_ms": b, "bound_by": by, "library_ms": ctx.time_ms(shard_topk, reps=3)}
+    ctx.errs["knn_tile"] = max(ctx.errs["knn_tile"], k1_err)
+    if torch.cuda.device_count() > 1:
+        cards = m.Mesh([torch.device("cuda", c)
+                        for c in range(min(MNMG_WORLD, torch.cuda.device_count()))], ("ranks",))
+        d, i = m.mnmg_knn(index, queries, K, D.L2SqrtExpanded, mesh=cards, axis="ranks")
+        out["distinct_cards"] = {
+            "cards": cards.size,
+            "max_err": ctx.check_knn("mnmg_knn_1M on distinct cards", d ** 2, i,
+                                     ctx.bf_d ** 2, ctx.bf_i, atol),
+            "ms": ctx.time_ms(lambda: m.mnmg_knn(index, queries, K, D.L2SqrtExpanded,
+                                                 mesh=cards, axis="ranks"), reps=5)}
+    del shards, local, cand, merge_keys, results
+    paths["mnmg_knn_1M"] = out
+    print("mnmg_knn_1M: %s" % json.dumps(out), flush=True)
+
+    # mnmg_ivf_1M: the IVF-Flat index slot-sharded over the world of 4
+    ivf, ivf_q = ctx.ivf, ctx.ivf_q
+    sharded = m.shard_ivf_flat_index(ivf, mesh4, "ranks")
+    out = {"ranks": MNMG_WORLD, "nprobe": NPROBE,
+           "slots_per_rank": [int(v.shape[0]) for v in sharded.slot_vecs], "runs": {}}
+    results = {}
+    reset()
+    for merge in ("allgather", "ring", "hierarchical"):
+        c0 = counts()
+        d, i = m.mnmg_ivf_flat_search(sharded, ivf_q, K, nprobe=NPROBE, merge=merge)
+        sync()
+        c1 = counts()
+        results[merge] = (d, i)
+        assert (d - ctx.ivf_d).abs().max().item() <= IVF_ATOL, (merge, (d - ctx.ivf_d).abs().max())
+        err = ctx.check_knn("mnmg_ivf_1M %s vs ivf_flat_search (squared)" % merge, d ** 2, i,
+                            ctx.ivf_d ** 2, ctx.ivf_i, ctx.l2_atol(ivf_q, ctx.X))
+        differ, exact = tie_rows("mnmg_ivf_1M " + merge, d, i, ctx.ivf_d, ctx.ivf_i, IVF_ATOL)
+        out["runs"][merge] = {"launches": {k: c1[k] - c0[k] for k in c1}, "max_err": err,
+                              "max_abs_dist_diff": (d - ctx.ivf_d).abs().max().item(),
+                              "rows_differing_among_ties": differ,
+                              "of_which_exact_ties": exact}
+    out["launches"] = counts("mnmg_ivf_1M")
+    assert out["launches"]["ivf_tile"] >= MNMG_WORLD and out["launches"]["select_tile"] > 0
+    for merge in ("ring", "hierarchical"):
+        assert torch.equal(results[merge][0], results["allgather"][0]) and torch.equal(
+            results[merge][1], results["allgather"][1]), "mnmg_ivf_1M: %s differs" % merge
+    out["topologies_bitwise_equal"] = True
+    fp_d, fp_i = m.mnmg_ivf_flat_search(sharded, ivf_q[:N_FULL_PROBE], K, nprobe=NLIST)
+    bf_d, bf_i = m.brute_force_knn(ctx.X, ivf_q[:N_FULL_PROBE], K, D.L2SqrtExpanded, device=dev)
+    out["full_probe_max_err"] = ctx.check_knn("mnmg_ivf_1M full probe vs brute force (squared)",
+                                              fp_d ** 2, fp_i, bf_d ** 2, bf_i,
+                                              ctx.l2_atol(ivf_q, ctx.X))
+    for merge in ("allgather", "ring", "hierarchical"):
+        out["runs"][merge]["ms"] = ctx.time_ms(
+            lambda: m.mnmg_ivf_flat_search(sharded, ivf_q, K, nprobe=NPROBE, merge=merge), reps=5)
+    # K3 at a shard's shape: rank 0's slots, its probe scan lists
+    sv, sn, si = sharded.slot_vecs[0], sharded.slot_norms[0], sharded.slot_ids[0]
+    slots, _ = m.probe_compact(ivf_q, sharded.centroids[0], sharded.cent_slots_local[0], NPROBE)
+    slots = slots[:, :min(slots.shape[1], sv.shape[0])].contiguous()
+    args = (ivf_q, sv, sn, si, slots, K)
+    k3_err = ctx.check_knn("ivf_tile at a shard's shape", *m.fused_ivf_scan(*args),
+                           *m.fused_ivf_scan_plain(*args), ctx.l2_atol(ivf_q, ctx.X))
+    ctx.errs["ivf_tile"] = max(ctx.errs["ivf_tile"], k3_err)
+    rows_in_slot = (si >= 0).sum(dim=1)
+    live = slots >= 0
+    scanned = int(rows_in_slot[slots[live].long()].sum())
+    distinct = int(rows_in_slot[torch.unique(slots[live].long())].sum())
+    io = 4.0 * nq * DIM + 4.0 * slots.numel() + 8.0 * nq * K
+    b, by = bound_tf32x3(2.0 * DIM * scanned, distinct * (4.0 * DIM + 8.0) + io)
+    extra["k3_shard"] = {
+        "shape": "%d queries x %d scan steps over rank 0's %d slots of %d x %d f32, k=%d"
+                 % (nq, slots.shape[1], sv.shape[0], sv.shape[1], DIM, K),
+        "launches": out["launches"]["ivf_tile"], "max_abs_err": k3_err,
+        "ms": ctx.time_ms(lambda: m.fused_ivf_scan(*args), reps=5),
+        "plain_ms": ctx.time_ms(lambda: m.fused_ivf_scan_plain(*args), reps=1),
+        "bound_ms": b, "bound_by": by, "library_ms": None}
+    del sharded, results, slots, args
+    paths["mnmg_ivf_1M"] = out
+    print("mnmg_ivf_1M: %s" % json.dumps(out), flush=True)
+
+    # serve_knn_sharded_500k: the JAX rung bench.py:1167-1247 (500,000 x
+    # 128, k 100, 16 threads of 16-row requests drawn from its query pool,
+    # a 4 s closed loop a world), worlds 1-8 hierarchical, the other two
+    # topologies at the top world for 2 s each
+    index500 = index[:SHARDED_N]
+    blocks = query_pool(index500, SHARDED_ROWS)
+    out = {"index_rows": SHARDED_N, "runs": {}, "launches": None,
+           "query_pool": "%d blocks of %d index rows + %.1f N(0, 1), numpy seed 1"
+                         % (SHARDED_POOL, SHARDED_ROWS, SHARDED_NOISE),
+           "note": "ranks that share one card measure the cost of the merge, not scaling"}
+    total = None
+    for w, merge, seconds in [(1, "hierarchical", SHARDED_SECONDS),
+                              (2, "hierarchical", SHARDED_SECONDS),
+                              (4, "hierarchical", SHARDED_SECONDS),
+                              (8, "hierarchical", SHARDED_SECONDS),
+                              (8, "allgather", SHARDED_SECONDS / 2),
+                              (8, "ring", SHARDED_SECONDS / 2)]:
+        name = "serve_knn_sharded_500k_w%d_%s" % (w, merge)
+        svc = m.KNNService(index500, K, D.L2SqrtExpanded, mesh=world(w), axis="ranks",
+                           merge=merge, max_batch_rows=SHARDED_RUNGS[-1],
+                           bucket_rungs=list(SHARDED_RUNGS), max_wait_ms=2.0, queue_cap=4096,
+                           device=dev, name=name)
+        svc.warmup()
+        reset()
+        served = []
+        rows_served, wall_ms, lat = closed_loop(svc, blocks, SHARDED_THREADS, seconds, served)
+        sync()
+        launched = counts(name)
+        after = svc.kernel_libraries_after_warmup()
+        batches = service_counter("raft_tpu_serve_batches_total", name)
+        spmd = svc._spmd
+        svc.close()
+        assert after == {"builds": 0, "loads": 0}, (name, after)
+        assert launched["knn_tile"] > 0 and launched["select_tile"] > 0, launched
+        assert_served_unbatched(name, served, blocks, lambda q: m.mnmg_knn(
+            spmd.index, q, K, D.L2SqrtExpanded, mesh=spmd.mesh, axis="ranks",
+            n_rows=spmd.n_rows, merge=merge))
+        total = launched if total is None else {k: total[k] + launched[k] for k in total}
+        out["runs"]["w%d_%s" % (w, merge)] = {
+            "ranks": w, "merge": merge, "seconds": seconds, "requests": len(served),
+            "batches": int(batches),
+            "rows_per_batch": rows_served / max(batches, 1), "wall_ms": wall_ms,
+            "rows_per_s": rows_served / wall_ms * 1e3, "p50_ms": statistics.median(lat),
+            "p99_ms": quantile(lat, 0.99), "launches": launched,
+            "kernel_libraries_after_warmup": after}
+        del svc, spmd, served
+    out["launches"] = total
+    out["every_response_bitwise_equal_to_unbatched"] = True
+    paths["serve_knn_sharded_500k"] = out
+    print("serve_knn_sharded_500k: %s" % json.dumps(out), flush=True)
+
+    # session_recover: a session on a world of 4 serving a sharded
+    # KNNService and a sharded ANNService; rank 3 lost through the fault
+    # seam; RecoveryManager onto ranks 0-2
+    phases = {}
+    t0 = time.perf_counter()
+    sess = m.Comms(mesh=world(MNMG_WORLD)).init()
+    common = dict(max_batch_rows=SHARDED_RUNGS[-1], bucket_rungs=list(SHARDED_RUNGS),
+                  max_wait_ms=2.0, queue_cap=4096)
+    try:
+        knn = sess.serve("knn", index=index500, k=K, metric=D.L2SqrtExpanded, axis="ranks",
+                         merge="hierarchical", name="session_knn", **common)
+        ann = sess.serve("ann", index=ivf, k=K, nprobe=NPROBE, nprobe_ladder=[NPROBE],
+                         axis="ranks", merge="hierarchical", delta_cap=SESSION_INSERT * 2,
+                         compact_rows=0, name="session_ann", **common)
+        knn.warmup()
+        ann.warmup()
+        sync()
+        phases["serve_and_warmup_s"] = time.perf_counter() - t0
+        reset()
+        new_vecs = ctx.mixture(SESSION_INSERT)
+        new_ids = torch.arange(N_INDEX, N_INDEX + SESSION_INSERT, dtype=torch.int32)
+        t0 = time.perf_counter()
+        for c in range(0, SESSION_INSERT, ANN_CHUNK):
+            ann.insert(new_ids[c:c + ANN_CHUNK], new_vecs[c:c + ANN_CHUNK])
+        phases["insert_s"] = time.perf_counter() - t0
+        fq_knn, fq_ann = queries[:SESSION_FIXED], ivf_q[:SESSION_FIXED]
+        pre = [f.result(timeout=120) for f in [knn.submit(b) for b in fq_knn.split(64)]]
+        with m.faults.inject(sess.comms, m.faults.Abort(rank=MNMG_WORLD - 1)):
+            t0 = time.perf_counter()
+            health = sess.health_check()
+            phases["health_check_s"] = time.perf_counter() - t0
+            assert not health["ok"], health
+            assert health["ranks"] == {r: r != MNMG_WORLD - 1 for r in range(MNMG_WORLD)}, health
+            assert health["services"]["session_knn"]["mesh_ok"], health["services"]
+            t0 = time.perf_counter()
+            try:
+                sess.comms.allreduce(torch.ones((MNMG_WORLD, 1), device=dev))
+                raise AssertionError("a verb on the aborted communicator ran")
+            except m.CommAbortedError:
+                phases["fail_fast_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            rep = m.RecoveryManager(sess).recover(devices=list(range(MNMG_WORLD - 1)))
+            phases["recover_s"] = time.perf_counter() - t0
+        phases["recovery_report_s"] = rep["recovery_s"]
+        assert rep["comms_recovered"] and rep["quiesced"], rep
+        t0 = time.perf_counter()
+        after_tests = m.selftest.run_all(sess.comms)
+        phases["selftest_after_s"] = time.perf_counter() - t0
+        assert sess.comms.get_size() == MNMG_WORLD - 1 and all(after_tests.values()), after_tests
+        survivors = tuple(range(MNMG_WORLD - 1))
+        assert knn.mesh.rank_ids() == survivors and ann.mesh.rank_ids() == survivors
+        assert knn.stats()["shard_devices"] == ann.stats()["shard_devices"] == MNMG_WORLD - 1
+        assert sess.health_check()["ok"]
+        t0 = time.perf_counter()
+        post = [f.result(timeout=120) for f in [knn.submit(b) for b in fq_knn.split(64)]]
+        ann_out = [f.result(timeout=120) for f in [ann.submit(b) for b in fq_ann.split(64)]]
+        found = [f.result(timeout=120) for f in [ann.submit(v) for v in new_vecs.split(128)]]
+        sync()
+        phases["post_queries_s"] = time.perf_counter() - t0
+        launched = counts("session_recover")
+        after_warmup = {s.name: s.kernel_libraries_after_warmup() for s in (knn, ann)}
+        st = ann._ann_state
+    finally:
+        sess.destroy()
+    assert launched["knn_tile"] > 0 and launched["ivf_tile"] > 0 and launched["select_tile"] > 0
+    for name, a in after_warmup.items():
+        assert a == {"builds": 0, "loads": 0}, (name, a)
+    kd = torch.cat([d for d, _ in post])
+    ki = torch.cat([i for _, i in post])
+    bf_d, bf_i = m.brute_force_knn(index500, fq_knn, K, D.L2SqrtExpanded, device=dev)
+    knn_err = ctx.check_knn("session_recover knn vs brute force (squared)", kd ** 2, ki,
+                            bf_d ** 2, bf_i, ctx.l2_atol(fq_knn, index500))
+    pre_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(pre, post))
+    ad = torch.cat([d for d, _ in ann_out])
+    ai = torch.cat([i for _, i in ann_out])
+    rd, ri = m.ivf_flat_search(ivf, fq_ann, K, nprobe=NPROBE,
+                               delta=(st.delta_vecs, st.delta_ids), device=dev)
+    ann_err = ctx.check_knn("session_recover ann vs ivf_flat_search (squared)", ad ** 2, ai,
+                            rd ** 2, ri, ctx.l2_atol(fq_ann, ctx.X))
+    fd = torch.cat([d for d, _ in found])
+    fi = torch.cat([i for _, i in found])
+    ins_tol = ctx.l2_atol(new_vecs, ctx.X) ** 0.5
+    assert torch.equal(fi[:, 0].cpu(), new_ids), "session_recover: an insert lost its id"
+    assert fd[:, 0].max().item() <= ins_tol, (fd[:, 0].max().item(), ins_tol)
+    paths["session_recover"] = {
+        "ranks_before": MNMG_WORLD, "ranks_after": MNMG_WORLD - 1, "phases_s": phases,
+        "health_ranks": {str(k): v for k, v in health["ranks"].items()},
+        "health_tests_passed": sum(health["tests"].values()),
+        "selftests_after": sum(after_tests.values()), "launches": launched,
+        "knn_max_err": knn_err, "knn_answers_equal_to_pre_fault": pre_equal,
+        "ann_max_err": ann_err, "inserted": SESSION_INSERT,
+        "insert_max_dist": fd[:, 0].max().item(), "kernel_libraries_after_warmup": after_warmup}
+    print("session_recover: %s" % json.dumps(paths["session_recover"]), flush=True)
+    del knn, ann, st
+
+    # serve_knn_replicas: two replicas of two ranks over the world of 4, a
+    # fixed hedge threshold, unfaulted and then with replica 1 delayed
+    name = "serve_knn_replicas"
+    svc = m.KNNService(index500, K, D.L2SqrtExpanded, mesh=world(MNMG_WORLD), axis="ranks",
+                       replicas=2, hedge_ms=REPLICA_HEDGE_MS, merge="hierarchical",
+                       device=dev, name=name, **common)
+    svc.warmup()
+    reset()
+    out = {"replicas": 2, "ranks_per_replica": MNMG_WORLD // 2, "hedge_ms": REPLICA_HEDGE_MS,
+           "delay_s": REPLICA_DELAY_S, "seconds_per_arm": SHARDED_SECONDS}
+    served = []
+    counters = ("raft_tpu_serve_hedges_total", "raft_tpu_serve_hedge_wins_total",
+                "raft_tpu_serve_hedge_cancelled_total", "raft_tpu_serve_replica_failovers_total",
+                "raft_tpu_serve_replica_errors_total")
+    try:
+        for arm in ("unfaulted", "replica1_delayed"):
+            c0 = {c: service_counter(c, name) for c in counters}
+            with (m.inject_replica(svc, 1, m.faults.Delay(REPLICA_DELAY_S))
+                  if arm != "unfaulted" else contextlib.nullcontext()):
+                got = []
+                rows_served, wall_ms, lat = closed_loop(svc, blocks, SHARDED_THREADS,
+                                                        SHARDED_SECONDS, got)
+            sync()
+            served += got
+            out[arm] = {"requests": len(got), "wall_ms": wall_ms,
+                        "rows_per_s": rows_served / wall_ms * 1e3,
+                        "p50_ms": statistics.median(lat), "p99_ms": quantile(lat, 0.99),
+                        **{c[len("raft_tpu_serve_"):]: service_counter(c, name) - c0[c]
+                           for c in counters}}
+        launched = counts(name)
+        after = svc.kernel_libraries_after_warmup()
+        state = svc._replica_set.replicas[0]
+        rep_desc = svc.stats()["replicas"]
+    finally:
+        svc.close()
+    assert after == {"builds": 0, "loads": 0}, after
+    assert launched["knn_tile"] > 0 and launched["select_tile"] > 0, launched
+    assert out["replica1_delayed"]["hedges_total"] >= 1, out
+    assert out["replica1_delayed"]["hedge_wins_total"] >= 1, out
+    sharded0, _ = m.shard_knn_index(index500, state.mesh, "ranks")
+    assert_served_unbatched(name, served, blocks, lambda q: m.mnmg_knn(
+        sharded0, q, K, D.L2SqrtExpanded, mesh=state.mesh, axis="ranks", merge="hierarchical"))
+    out.update({"launches": launched, "kernel_libraries_after_warmup": after,
+                "replica_ranks": [r["ranks"] for r in rep_desc["replicas"]],
+                "every_response_bitwise_equal_to_unbatched": True})
+    paths[name] = out
+    print("%s: %s" % (name, json.dumps(out)), flush=True)
+    return paths, extra
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1451,6 +1966,12 @@ def main():
     from raft_tpu_torch.spatial import ball_cover
     from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
     from raft_tpu_torch.spatial.ooc import _part_positions, ivf_flat_to_ooc
+    from raft_tpu_torch.comms import HostComms, Mesh, faults, selftest
+    from raft_tpu_torch.core.error import CommAbortedError
+    from raft_tpu_torch.serve import RecoveryManager, inject_replica
+    from raft_tpu_torch.session import Comms
+    from raft_tpu_torch.spatial.mnmg_knn import (mnmg_ivf_flat_search, mnmg_knn,
+                                                 shard_ivf_flat_index, shard_knn_index)
 
     # the serve_ann_1M checks read every batch of its load back from the
     # flight recorder: a ring that holds the whole run
@@ -2280,6 +2801,26 @@ def main():
     errs["ivf_tile"] = max(errs["ivf_tile"], paths["serve_ann_ooc_1M"]["k3_tile"]["max_abs_err"])
     print("serve_ann_ooc_1M: %s" % json.dumps(paths["serve_ann_ooc_1M"]), flush=True)
 
+    # 5j. the multi-GPU session (queue 1 item 6): worlds of rank slots on
+    # the card; K1, K2 and K3 at the sharded paths' shapes
+    sctx = types.SimpleNamespace(
+        dev=dev, reset=reset, counts=counts, index=index, queries=queries, bf_d=dist,
+        bf_i=ids, X=X, ivf=ivf, ivf_q=ivf_q, ivf_d=ivf_d, ivf_i=ivf_i, mixture=mixture,
+        randn=randn, errs=errs, check_knn=check_knn, check_exact=check_exact, l2_atol=l2_atol,
+        time_ms=time_ms)
+    smods = types.SimpleNamespace(
+        D=D, Mesh=Mesh, HostComms=HostComms, selftest=selftest, faults=faults, Comms=Comms,
+        RecoveryManager=RecoveryManager, KNNService=KNNService, mnmg_knn=mnmg_knn,
+        mnmg_ivf_flat_search=mnmg_ivf_flat_search, shard_knn_index=shard_knn_index,
+        shard_ivf_flat_index=shard_ivf_flat_index, inject_replica=inject_replica,
+        brute_force_knn=brute_force_knn, ivf_flat_search=ivf_flat_search,
+        fused_knn_tile=fused_knn_tile, knn_tile_plain=knn_tile_plain, select_tile=select_tile,
+        select_tile_plain=select_tile_plain, fused_ivf_scan=fused_ivf_scan,
+        fused_ivf_scan_plain=fused_ivf_scan_plain, probe_compact=_probe_compact,
+        CommAbortedError=CommAbortedError)
+    spaths, sextra = session_paths(sctx, smods)
+    paths.update(spaths)
+
     # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
     # precisions, row norm, the two reductions and the transpose, each held
     # against float64 on the card and timed with CUDA events
@@ -2616,7 +3157,7 @@ def main():
         "ms": k1_ms, "clocks_sm_power_after": k1_clocks,
         "plain_ms": time_ms(lambda: knn_tile_plain(index, queries, K), reps=2),
         "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(knn_ops, knn_bytes)[0],
-        "library_ms": time_ms(full_l2_topk, reps=3)})
+        "library_ms": time_ms(full_l2_topk, reps=3), "mnmg_shard": sextra["k1_shard"]})
 
     keys = pairwise_tile(queries, index_l1, D.L1)
     got, ref = select_tile(keys, K), select_tile_plain(keys, K)
@@ -2655,6 +3196,7 @@ def main():
             # of the quantized and ball-cover paths only the ball cover's
             # merges (two sorted runs of k) are runs
             normal = (path == "bfknn_L1_100k" or w % run
+                      or path.startswith(NORMAL_KEY_PATHS)
                       or (path in ("ivf_search_1M", "serve_ann_1M") and k != K)
                       or (path in QUANTIZED_PATHS and not (path.startswith("rbc_")
                                                            and w == 2 * k)))
@@ -2847,7 +3389,7 @@ def main():
         "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
         "item_bytes": n_items * cap * row_bytes + io_bytes,
         "per_query_bytes": rows_scanned * row_bytes + io_bytes,
-        "ooc_tile": paths["serve_ann_ooc_1M"]["k3_tile"]})
+        "ooc_tile": paths["serve_ann_ooc_1M"]["k3_tile"], "mnmg_shard": sextra["k3_shard"]})
 
     # K6 at the two-phase path's shape: the whole call and phase 1 alone
     bn, n_tiles = twophase_geometry(N_INDEX, TWOPHASE_BLOCK_N)

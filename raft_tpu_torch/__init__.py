@@ -14,7 +14,11 @@ indexes IVF-Flat, IVF-PQ and IVF-SQ (``ivf_flat_build``,
 serving layer in front of brute-force kNN, pairwise distances and the
 IVF indexes (``KNNService``, ``PairwiseService``, ``ANNService``; more in
 :mod:`raft_tpu_torch.serve`), with durable ANN serving state
-(:mod:`raft_tpu_torch.persist`: snapshots and a write-ahead log), and the dense
+(:mod:`raft_tpu_torch.persist`: snapshots and a write-ahead log), the
+communicator over a mesh of rank slots and the session that recovers it
+(:mod:`raft_tpu_torch.comms`, :mod:`raft_tpu_torch.session`), the sharded
+searches (``mnmg_knn``, ``mnmg_ivf_flat_search``) behind sharded and
+replicated serving, the dense
 library (:mod:`raft_tpu_torch.linalg`, :mod:`raft_tpu_torch.matrix`,
 :mod:`raft_tpu_torch.stats`, :mod:`raft_tpu_torch.random`,
 :mod:`raft_tpu_torch.label`, :mod:`raft_tpu_torch.lap`, with ``Handle`` in
@@ -41,7 +45,8 @@ from raft_tpu_torch.spatial import (BallCoverIndex, IVFFlatIndex, IVFFlatParams,
                                     fused_l2_knn, haversine_knn, ivf_flat_build, ivf_flat_extend,
                                     ivf_flat_reconstruct, ivf_flat_search, ivf_pq_build,
                                     ivf_pq_search, ivf_sq_build, ivf_sq_search, knn_merge_parts,
-                                    rbc_all_knn_query, rbc_build_index, rbc_knn_query, select_k)
+                                    mnmg_ivf_flat_search, mnmg_knn, rbc_all_knn_query,
+                                    rbc_build_index, rbc_knn_query, select_k)
 from raft_tpu_torch.serve import ANNService, KNNService, PairwiseService
 from raft_tpu_torch.spectral import KmeansResult, kmeans
 
@@ -83,6 +88,8 @@ __all__ = [
     "ivf_sq_search",
     "kmeans",
     "knn_merge_parts",
+    "mnmg_ivf_flat_search",
+    "mnmg_knn",
     "pairwise_distance",
     "rbc_all_knn_query",
     "rbc_build_index",

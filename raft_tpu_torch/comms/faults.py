@@ -1,13 +1,16 @@
 """Deterministic, seedable fault injection for an execute seam.
 
 A copy of ``raft_tpu/comms/faults.py`` with its imports re-pointed at
-this package.  In the JAX package the harness wraps a communicator's
-``_execute`` (every eager collective funnels through it); the port has
-no communicator yet, so here it drives the **serving** execute seam
+this package.  The harness wraps a communicator's ``_execute``
+(:class:`~raft_tpu_torch.comms.host_comms.HostComms`: every eager
+collective, the p2p ``waitall`` and the per-rank liveness probe funnel
+through it) with :func:`inject`, and the same fault objects drive the
+**serving** execute seam
 (:func:`raft_tpu_torch.serve.resilience.inject_worker` patches
-``ServeWorker._execute``).  ``inject(comms, ...)`` waits for the comms
-slice.  The injector patches **below** the retry/breaker machinery, so
-an injected failure takes the path a real device failure takes.
+``ServeWorker._execute``) and a replica's
+(:func:`raft_tpu_torch.serve.replicas.inject_replica`).  The injector
+patches **below** the retry/abort and breaker machinery, so an injected
+failure takes the path a real device failure takes.
 
 Faults (compose freely, first match wins per call):
 
@@ -18,10 +21,21 @@ Faults (compose freely, first match wins per call):
   parameters involve a given rank.
 - :class:`Abort` — from the nth matching call on, latch the target
   aborted and raise :class:`~raft_tpu_torch.core.error.CommAbortedError`
-  (comms only: it needs a target with ``abort()``).
+  (comms only: it needs a target with ``abort()``).  With ``rank=`` it
+  is the loss of that rank: it matches every verb the rank takes part
+  in (every collective, a p2p layer or a probe that names it), so the
+  communicator aborts and the session's per-rank probe reports that rank
+  dead while the others answer.  On a card whose rank slots share the
+  device, this seam is how a rank is lost.
 - :class:`RandomFail` — fail each matching call with probability ``p``
   from a private ``random.Random(seed)`` stream: deterministic for a
   given seed.
+
+Usage::
+
+    with faults.inject(comms, faults.FailNth(1, verb="allreduce")) as log:
+        out = comms.allreduce(x)      # first execution fails, retry wins
+    assert log.injected[0].verb == "allreduce"
 """
 
 from __future__ import annotations
@@ -31,7 +45,7 @@ import enum
 import random
 import threading
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.error import CommAbortedError, CommError, CommTimeoutError
@@ -144,17 +158,31 @@ class Delay(Fault):
 class Abort(Fault):
     """From the nth matching call on: latch the communicator aborted and
     raise :class:`CommAbortedError` — the peer-observed ``ncclCommAbort``.
-    Persistent by construction (the latch outlives the injector)."""
+    Persistent by construction (the latch outlives the injector).
+    ``rank`` scopes it to the verbs that rank takes part in (module
+    doc): the lost-rank fault."""
 
-    def __init__(self, n: int = 1, verb: Optional[str] = None):
+    # verbs whose key names their participants; every other verb is a
+    # collective of the whole communicator
+    _NAMED = ("probe", "p2p")
+
+    def __init__(self, n: int = 1, verb: Optional[str] = None, rank: Optional[int] = None):
         super().__init__(verb)
         self.n = int(n)
+        self.rank = rank
+
+    def matches(self, verb, key):
+        if not super().matches(verb, key):
+            return False
+        return (self.rank is None or key[0] not in self._NAMED
+                or self.rank in _ranks_in_key(key))
 
     def apply(self, comms, verb, key, n_match):
         if n_match >= self.n:
             comms.abort()
             raise CommAbortedError(
-                "injected abort: verb=%s call=%d" % (verb, n_match))
+                "injected abort: verb=%s call=%d%s"
+                % (verb, n_match, "" if self.rank is None else " rank=%d" % self.rank))
 
 
 class RandomFail(Fault):
@@ -239,3 +267,15 @@ class FaultInjector:
             self._comms._execute = self._orig_execute
             self._orig_execute = None
 
+
+@contextlib.contextmanager
+def inject(comms, *faults_: Fault) -> Iterator[FaultInjector]:
+    """Scoped fault injection on ``comms``: patch its execute seam for
+    the duration of the block, restore it after (even on error — but an
+    :class:`Abort`'s latch, like the real thing, persists)."""
+    injector = FaultInjector(comms, list(faults_))
+    injector.activate()
+    try:
+        yield injector
+    finally:
+        injector.deactivate()

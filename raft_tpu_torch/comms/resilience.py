@@ -5,9 +5,11 @@ imports re-pointed at this package: a deterministic exponential-backoff
 schedule, an optional per-attempt watchdog deadline, and an exception
 taxonomy that distinguishes transient failures (retry), invariant
 violations (propagate — retrying a shape error cannot help), and aborts
-(latch).  In the port it wraps the serving worker's device call
-(``Service(retry_policy=...)``); the communicator and bootstrap that
-also use it in the JAX package wait for the comms slice.
+(latch).  In the port it wraps every eager verb of a
+:class:`~raft_tpu_torch.comms.host_comms.HostComms`
+(``retry_policy=``) and the serving worker's device call
+(``Service(retry_policy=...)``); the multi-process bootstrap that also
+uses it in the JAX package is item 8 of ``ROADMAP.md``.
 
 Every retry/timeout is reported through
 :func:`raft_tpu_torch.core.tracing.event` (span + monotonic counter)

@@ -53,6 +53,16 @@ serve_slo_target_ms / serve_slo_objective / serve_slo_windows_s
     The per-service SLO tracker (:mod:`raft_tpu_torch.core.flight`).
 flight_events
     The flight recorder's ring size in events.
+mnmg_merge
+    The cross-shard top-k merge of the sharded searches
+    (:func:`raft_tpu_torch.spatial.mnmg_knn.mnmg_knn`,
+    ``mnmg_ivf_flat_search`` and the sharded services): ``allgather`` |
+    ``ring`` | ``hierarchical``.
+serve_hedge_ms / serve_hedge_factor / serve_hedge_min_ms
+    Hedged dispatch of a replicated ``KNNService(replicas=...)``: a fixed
+    threshold in milliseconds (``0`` = adaptive: ``serve_hedge_factor`` x
+    the fastest in-rotation replica's p99 at the batch's rung, floored at
+    ``serve_hedge_min_ms``).
 """
 
 from __future__ import annotations
@@ -83,6 +93,10 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "serve_ann_degrade_frac": ("RAFT_TPU_SERVE_ANN_DEGRADE_FRAC", "0.75"),
     "serve_ann_device_budget_bytes": ("RAFT_TPU_SERVE_ANN_DEVICE_BUDGET_BYTES", "0"),
     "flight_events": ("RAFT_TPU_FLIGHT_EVENTS", "4096"),
+    "mnmg_merge": ("RAFT_TPU_MNMG_MERGE", "allgather"),
+    "serve_hedge_ms": ("RAFT_TPU_SERVE_HEDGE_MS", "0"),
+    "serve_hedge_factor": ("RAFT_TPU_SERVE_HEDGE_FACTOR", "1.5"),
+    "serve_hedge_min_ms": ("RAFT_TPU_SERVE_HEDGE_MIN_MS", "10"),
     "persist_fsync": ("RAFT_TPU_PERSIST_FSYNC", "always"),
     "persist_snapshot_interval_s": ("RAFT_TPU_PERSIST_SNAPSHOT_INTERVAL_S", "30"),
     "persist_scrub_chunks": ("RAFT_TPU_PERSIST_SCRUB_CHUNKS", "4"),

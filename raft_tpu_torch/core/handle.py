@@ -14,7 +14,9 @@ the device's properties.  On the card those are PyTorch's own:
 - ``Stream.record`` records a CUDA event on the stream, and
   ``Stream.sync`` waits for the last one recorded;
 - :meth:`Handle.set_comms` / :meth:`Handle.get_comms` inject a
-  communicator, as in the reference;
+  communicator, as in the reference, and ``mesh=`` carries the rank
+  mesh (:class:`~raft_tpu_torch.comms.mesh.Mesh`) that SPMD primitives
+  such as :func:`~raft_tpu_torch.spatial.mnmg_knn.mnmg_knn` fall back to;
 - :meth:`Handle.get_device_properties` reads
   :func:`torch.cuda.get_device_properties`.
 
@@ -103,10 +105,13 @@ class Handle:
         The span profiler of the primitives called with this handle
         (default: the process profiler, so calls with and without a
         handle land in one report).
+    mesh:
+        Optional rank mesh (:class:`~raft_tpu_torch.comms.mesh.Mesh`) for
+        the SPMD primitives.
     """
 
     def __init__(self, device="cuda", n_streams: int = 0,
-                 profiler: Optional[Profiler] = None):
+                 profiler: Optional[Profiler] = None, mesh=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -114,6 +119,7 @@ class Handle:
         self._stream_pool = [Stream("pool%d" % i, self.device) for i in range(n_streams)]
         self._comms = None
         self._subcomms: Dict[str, Any] = {}
+        self.mesh = mesh
         self.profiler = profiler if profiler is not None else default_profiler()
 
     # streams (reference handle.hpp:148-227)

@@ -1,7 +1,7 @@
-"""Serving layer: dynamic micro-batching query engine on one device.
+"""Serving layer: dynamic micro-batching query engine.
 
-Port of ``raft_tpu/serve`` for the brute-force, pairwise and IVF-Flat
-paths.
+Port of ``raft_tpu/serve`` for the brute-force, pairwise and IVF paths,
+on one device or sharded over a rank mesh.
 Concurrent callers submit small query blocks; a per-service worker
 coalesces them into one padded device call per shape bucket, so
 
@@ -19,17 +19,18 @@ coalesces them into one padded device call per shape bucket, so
   :class:`ANNService` serves an IVF-Flat index with streaming ingestion,
   compaction and recall-targeted probe counts
   (:mod:`~raft_tpu_torch.serve.ann_service`),
-- the serving failure contract — serve-seam fault injection and the
-  per-service circuit breaker — lives in
-  :mod:`~raft_tpu_torch.serve.resilience`.
+- the serving failure contract — serve-seam fault injection, the
+  per-service circuit breaker and the :class:`RecoveryManager` —
+  lives in :mod:`~raft_tpu_torch.serve.resilience`, and replica groups
+  with hedged dispatch (``KNNService(replicas=...)``) in
+  :mod:`~raft_tpu_torch.serve.replicas`.
 
 Every layer records into the flight recorder
 (:mod:`raft_tpu_torch.core.flight`): each admitted request carries a
 trace_id and ``ServeFuture.trace()`` returns its complete timeline.
 
-Not ported yet: replicas and sharded serving,
-``RecoveryManager`` and ``session.serve``, and the ops plane with its
-anomaly sentinel.
+Not ported yet: the ops plane with its anomaly sentinel (queue 1 item
+7 of ``ROADMAP.md``).
 """
 
 from raft_tpu_torch.serve.ann_service import ANNService  # noqa: F401
@@ -41,9 +42,16 @@ from raft_tpu_torch.serve.bucketing import (  # noqa: F401
     resolve_rungs,
     split_rows,
 )
+from raft_tpu_torch.serve.replicas import (  # noqa: F401
+    ReplicaFaultInjector,
+    ReplicaSet,
+    inject_replica,
+    split_mesh,
+)
 from raft_tpu_torch.serve.resilience import (  # noqa: F401
     BreakerState,
     CircuitBreaker,
+    RecoveryManager,
     ServeFaultInjector,
     inject_worker,
 )
@@ -59,4 +67,5 @@ __all__ = [
     "MicroBatcher", "ServeFuture", "ServeWorker",
     "Service", "KNNService", "PairwiseService", "ANNService",
     "BreakerState", "CircuitBreaker", "ServeFaultInjector", "inject_worker",
+    "RecoveryManager", "ReplicaSet", "split_mesh", "inject_replica", "ReplicaFaultInjector",
 ]

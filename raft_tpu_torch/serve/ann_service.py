@@ -92,11 +92,22 @@ and ``recall{nprobe=}``; ``raft_tpu_serve_degraded_batches_total`` and
 ``raft_tpu_serve_degraded_active``.  Each compaction records a
 ``compaction`` flight event.
 
-Not ported yet, each raising a :class:`RaftError` that names its queue
-item (``ROADMAP.md``, queue 1) when asked for: ``mesh``, ``axis``,
-``merge`` and ``group_size``, with ``repartition`` and ``post_recover``
-(item 6); and ``select_impl`` (item 7).  The JAX package's buffer donation has no
-PyTorch counterpart (``serve/scheduler.py``).
+**Sharded serving.**  ``mesh``/``axis`` (with ``merge`` and
+``group_size``) slot-shard an IVF-Flat index over a rank mesh
+(:func:`~raft_tpu_torch.spatial.mnmg_knn.shard_ivf_flat_index`): every
+batch runs :func:`~raft_tpu_torch.spatial.mnmg_knn.mnmg_ivf_flat_search`
+(each rank probes and scans its own slots on K3, the merge topology
+gives the global top-k), and the replicated delta merges after it.  The
+sharded mirror is cached by the index object, so an insert re-shards
+nothing; a compaction's swap or :meth:`ANNService.repartition` (run by
+``post_recover`` after a communicator rebuild) re-shards the whole
+index over the current mesh, the delta carried along.  Sharded serving
+is IVF-Flat only and resident only: PQ, SQ and ``ooc=True`` are refused,
+as the JAX service refuses them.
+
+Not ported yet: ``select_impl`` raises a :class:`RaftError` naming its
+queue item (``ROADMAP.md``, queue 1, item 7).  The JAX package's buffer
+donation has no PyTorch counterpart (``serve/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -111,16 +122,19 @@ import torch
 from raft_tpu_torch import config
 from raft_tpu_torch.core import flight
 from raft_tpu_torch.core import metrics as _metrics
-from raft_tpu_torch.core.device import as_tensor, resolve_device
+from raft_tpu_torch.core.device import as_tensor
 from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects, fail
 from raft_tpu_torch.mr.tile_pool import TilePool
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.persist import PersistManager
 from raft_tpu_torch.serve.resilience import BreakerState
-from raft_tpu_torch.serve.service import Service, _knob_float, _knob_int, _service_seq
+from raft_tpu_torch.comms.mesh import as_mesh
+from raft_tpu_torch.serve.service import (Service, _knob_float, _knob_int, _resolve_shard_spec,
+                                          _service_device, _service_seq, _shard_gauge)
 from raft_tpu_torch.spatial import ann as _ann
 from raft_tpu_torch.spatial import ooc as _ooc
 from raft_tpu_torch.spatial.knn import brute_force_knn
+from raft_tpu_torch.spatial.mnmg_knn import mnmg_ivf_flat_search, shard_ivf_flat_index
 
 __all__ = ["ANNService"]
 
@@ -128,10 +142,6 @@ _CPU = torch.device("cpu")
 
 # arguments of the JAX ANNService that wait for a later item of queue 1
 _DEFERRED = {
-    "mesh": "item 6 (session and multi-GPU)",
-    "axis": "item 6 (session and multi-GPU)",
-    "merge": "item 6 (session and multi-GPU)",
-    "group_size": "item 6 (session and multi-GPU)",
     "select_impl": "item 7 (core/tuning.py)",
 }
 
@@ -150,6 +160,9 @@ class _AnnState(NamedTuple):
     # the out-of-core hot set (hot_vecs, hot_ids on the device, hot_mask
     # numpy) or None: swapped whole by promotion and compaction
     ooc_hot: object = None
+    # the slot-sharded mirror of ``index`` (ShardedIVFFlat) on a sharded
+    # service, None otherwise: rebuilt when the index or the mesh changes
+    sharded: object = None
 
 
 def _labeled(kind: str, name: str, help: str, service: str, **extra):
@@ -237,6 +250,11 @@ class ANNService(Service):
         tile (default: auto-sized), the double buffer (False: the
         synchronous arm) and the batches between hot-set promotions.
         The budget and ``tile_slots`` need ``ooc=True``.
+    mesh / axis / merge / group_size:
+        Sharded serving (module doc): slot-shard the index over ``axis``
+        of ``mesh`` (``axis`` alone takes the default mesh of ``device``;
+        a session's ``serve`` passes its own), the merge topology (None:
+        the ``mnmg_merge`` knob) and the hierarchical group size.
     persist_dir / persist_fsync / snapshot_interval_s / persist_mmap / scrub_chunks:
         Durable state (module doc): the directory, the WAL's fsync
         policy, the least seconds between interval snapshots, a restored
@@ -244,7 +262,8 @@ class ANNService(Service):
         snapshot chunks scrubbed a tick, the defaults their ``persist_*``
         knobs; they need ``persist_dir``.
     device:
-        Where the index lives and the searches run (default ``"cuda"``;
+        Where the index lives and the searches run (default: the first
+        rank's device of ``mesh`` when one is given, else ``"cuda"``;
         raises when CUDA is missing).
     **opts:
         The shared :class:`~raft_tpu_torch.serve.service.Service`
@@ -272,13 +291,18 @@ class ANNService(Service):
                  snapshot_interval_s: Optional[float] = None,
                  persist_mmap: bool = False,
                  scrub_chunks: Optional[int] = None,
+                 mesh=None, axis: Optional[str] = None,
+                 merge: Optional[str] = None,
+                 group_size: Optional[int] = None,
                  name: Optional[str] = None,
-                 device="cuda", **opts):
+                 device=None, **opts):
         for arg, item in _DEFERRED.items():
             if opts.pop(arg, None) not in (None, False):
                 raise RaftError("ANNService: %s= is not ported yet; it waits for queue 1 %s"
                                 % (arg, item), collect_stack=False)
-        dev = resolve_device(device)
+        if mesh is not None:
+            mesh = as_mesh(mesh)
+        dev = _service_device(device, mesh)
         # the name first: the persist manager labels its metrics with it
         self.name = name or "ann%d" % next(_service_seq)
         self._persist = None
@@ -312,6 +336,23 @@ class ANNService(Service):
                 "(IVFFlatIndex/IVFPQIndex/IVFSQIndex/OocIVFFlat), got %r", type(index).__name__)
         if isinstance(index, _ooc.OocIVFFlat):
             ooc = True
+        # slot-sharded dispatch (module doc); the delta stays replicated
+        self._sharded_cache = None       # ShardedIVFFlat of _sharded_for
+        self._sharded_for = None         # the index object it mirrors
+        self._group_size = group_size
+        self.merge = None
+        if mesh is not None or axis is not None:
+            expects(isinstance(index, _ann.IVFFlatIndex),
+                    "ANNService: sharded serving requires an IVFFlatIndex (PQ/SQ slot stores "
+                    "hold codes, an out-of-core store lives on the host: serve them "
+                    "single-device)")
+            expects(refine_ratio is None, "ANNService: refine_ratio is PQ-only; sharded "
+                    "serving is IVF-Flat-only: drop it")
+            expects(not ooc, "ANNService: ooc=True does not compose with sharded serving "
+                    "(the tier trades device memory for host streaming; shard the resident "
+                    "path instead)")
+            self.mesh, self.axis, self.merge = _resolve_shard_spec("ANNService", mesh, axis,
+                                                                   merge, dev)
         expects(k >= 1, "ANNService: k=%d", k)
         self.k = int(k)
         self._refine_ratio = refine_ratio
@@ -414,14 +455,20 @@ class ANNService(Service):
 
         super().__init__(self.name, execute, dim=dim, dtype=dtype, device=dev,
                          maintenance=self._maintenance_tick, **opts)
+        if self.axis is not None:
+            _shard_gauge(self.name, int(self.mesh.shape[self.axis]))
 
     # ------------------------------------------------------------------ #
     # snapshot plumbing
     # ------------------------------------------------------------------ #
     def _snapshot_search(self, st: _AnnState, q, nprobe, delta, force_rounds: int = 0):
         """The one search entry of dispatch, warmup and calibrate: the
-        streamed out-of-core search when the service owns a tile pool,
-        the quantizer's search otherwise."""
+        slot-sharded search when the snapshot carries a sharded mirror,
+        the streamed out-of-core search when the service owns a tile
+        pool, the quantizer's search otherwise."""
+        if st.sharded is not None:
+            return mnmg_ivf_flat_search(st.sharded, q, self.k, nprobe=nprobe, merge=self.merge,
+                                        group_size=self._group_size, delta=delta)
         if self._ooc_pool is not None:
             return _ooc.ooc_ivf_flat_search(
                 st.index, q, self.k, nprobe=nprobe, pool=self._ooc_pool, hot=st.ooc_hot,
@@ -435,12 +482,21 @@ class ANNService(Service):
         """Rebuild the immutable snapshot from the host mirror (callers
         hold ``_delta_lock``, or are in ``__init__``).  The device copy is
         made from a private copy of the mirror, synchronously, on the
-        worker's stream (module doc)."""
+        worker's stream (module doc).  The slot-sharded mirror is cached
+        by the index object: an insert re-shards nothing, a compaction's
+        swap or a re-partition does."""
         vecs, ids = self._delta_vecs.clone(), self._delta_ids.clone()
         with torch.cuda.stream(self._stream):
             vecs, ids = vecs.to(self.device), ids.to(self.device)
+            sharded = None
+            if self.axis is not None:
+                if self._sharded_cache is None or self._sharded_for is not self._index:
+                    self._sharded_cache = shard_ivf_flat_index(self._index, self.mesh,
+                                                               self.axis)
+                    self._sharded_for = self._index
+                sharded = self._sharded_cache
         self._ann_state = _AnnState(self._index, vecs, ids, self._delta_count,
-                                    self._persist_wal_seq, self._ooc_hot)
+                                    self._persist_wal_seq, self._ooc_hot, sharded)
         _labeled("gauge", "raft_tpu_serve_ann_delta_rows",
                  "rows in the append-only delta segment", self.name).set(self._delta_count)
 
@@ -974,6 +1030,45 @@ class ANNService(Service):
             self.set_nprobe(chosen)
         return {"chosen_nprobe": chosen, "target_recall": target_recall, "met_target": met,
                 "k": self.k, "table": table}
+
+    # ------------------------------------------------------------------ #
+    # recovery
+    # ------------------------------------------------------------------ #
+    def repartition(self, mesh=None) -> bool:
+        """Re-shard the slots over ``mesh`` (default: the owning session's
+        current mesh), the shard-loss lever: the lost shard's slots
+        redistribute over the surviving ranks, exactly (the full index is
+        the source), and the delta is re-published with them.  Call
+        ``warmup()`` after.  True when the mesh changed."""
+        expects(self.axis is not None, "%s.repartition: service is not sharded", self.name)
+        mesh = self._recovery_mesh() if mesh is None else as_mesh(mesh)
+        expects(self.axis in mesh.axis_names,
+                "%s.repartition: replacement mesh lacks axis %r", self.name, self.axis)
+        changed = mesh is not self.mesh
+        if changed:
+            self._drop_stale_group_size(mesh)
+        with self._delta_lock:
+            self.mesh = mesh
+            self._sharded_cache = None       # force the re-shard
+            self._publish_state_locked()     # the atomic swap
+        if changed:
+            self._record_repartition(mesh)
+        return changed
+
+    def post_recover(self) -> None:
+        """Carry the serving snapshot across a communicator rebuild
+        (:class:`~raft_tpu_torch.serve.resilience.RecoveryManager` step 4):
+        a sharded service re-partitions onto the rebuilt session mesh; an
+        out-of-core one re-copies its hot set from the host store; every
+        service re-publishes its ``(index, delta)`` snapshot, so each row
+        inserted before the failure is still found."""
+        if self.axis is not None:
+            self.repartition()   # republishes the snapshot
+            return
+        with self._delta_lock:
+            if self._ooc is not None:
+                self._ooc_rebuild_hot()
+            self._publish_state_locked()
 
     def close(self, drain: bool = True, timeout: Optional[float] = None, *,
               snapshot: bool = True) -> None:

@@ -1,7 +1,7 @@
 """Serving resilience: fault seam and circuit breaker.
 
 Port of ``raft_tpu/serve/resilience.py`` (host Python; its imports
-re-pointed at this package).  Two pieces:
+re-pointed at this package).  Three pieces:
 
 **Serve-seam fault injection** — :func:`inject_worker` patches
 :attr:`ServeWorker._execute` with the seedable fault vocabulary of
@@ -19,15 +19,22 @@ queueing requests into a broken worker, the worker holds dispatch, and
 after ``cooldown_s`` half-open probe traffic re-closes (or re-opens)
 the breaker.
 
-``RecoveryManager`` (pause, quiesce, rebuild the communicator, re-warm,
-re-admit) waits for the session and comms slice, and ANNService's
-degraded-mode dispatch for the ANN serving slice.
+**Recovery orchestration** — :class:`RecoveryManager` owns the
+sequence a persistent failure (a lost rank) needs: pause admission,
+quiesce in-flight work, rebuild the communicator on the surviving ranks
+(``session.recover()``), then per service ``post_recover()`` (an
+``ANNService`` re-publishes its ``(index, delta)`` snapshot; a sharded
+service re-partitions onto the rebuilt mesh, a replicated one re-cuts
+its replica groups) and ``warmup()``, restart dead workers, and
+re-admit.  Riders in flight at the failure were re-enqueued once by the
+worker, never lost; the queued backlog serves out after re-admission.
 
 Metrics (labels ``service=``): ``raft_tpu_serve_breaker_state`` gauge
 (0=closed, 1=open, 2=half-open), ``raft_tpu_serve_breaker_trips_total``,
 ``raft_tpu_serve_breaker_probes_total``,
 ``raft_tpu_serve_unavailable_total`` (admission sheds),
-``raft_tpu_serve_requeued_total`` (recovery re-enqueues, scheduler).
+``raft_tpu_serve_requeued_total`` (recovery re-enqueues, scheduler),
+``raft_tpu_serve_recoveries_total`` and ``raft_tpu_serve_recovery_seconds``.
 """
 
 from __future__ import annotations
@@ -37,15 +44,15 @@ import contextlib
 import enum
 import threading
 import time
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 from raft_tpu_torch.comms.faults import Fault, FaultInjector
 from raft_tpu_torch.core import flight
 from raft_tpu_torch.core.error import CALLER_BUG_ERRORS, expects
-from raft_tpu_torch.serve.scheduler import ServeWorker, _counter, _gauge
+from raft_tpu_torch.serve.scheduler import ServeWorker, _counter, _gauge, _timer
 
 __all__ = ["BreakerState", "CircuitBreaker", "ServeFaultInjector",
-           "inject_worker"]
+           "inject_worker", "RecoveryManager"]
 
 
 class BreakerState(enum.Enum):
@@ -388,3 +395,183 @@ def inject_worker(worker: ServeWorker,
     finally:
         injector.deactivate()
 
+
+# ---------------------------------------------------------------------- #
+# recovery orchestration
+# ---------------------------------------------------------------------- #
+class RecoveryManager:
+    """Orchestrate serving recovery after a persistent failure.
+
+    One manager spans a set of services — either an explicit list or a
+    session's registered services (``Comms.serve``) — plus, optionally,
+    the session itself so a rank loss rebuilds the communicator on
+    the surviving ranks before the services warm back up.
+
+    :meth:`recover` is THE sequence :
+
+    1. **pause** — every service stops forming batches
+       (``MicroBatcher.pause``) and sheds new submits with
+       :class:`~raft_tpu_torch.core.error.ServiceUnavailableError`
+       (``reason="recovering"``); queued requests stay queued.
+    2. **quiesce** — wait for in-flight batches to clear the workers
+       (their riders resolved, or re-enqueued by the breaker path).
+    3. **rebuild** — ``session.recover(devices=...)``: fresh
+       communicator on the survivors, re-injected on every handle.
+    4. **re-publish + warmup** — per service: ``post_recover()``
+       (ANNService re-materializes its immutable ``(index, delta)``
+       snapshot — inserted rows survive the failure; sharded services
+       additionally **re-partition** the lost shard's rows/slots
+       across the surviving sub-mesh via ``repartition()``, exactly —
+       the pinned full index is the re-shard source), then
+       ``warmup()`` runs every bucket rung on the new mesh, so no kernel
+       library is built or loaded once traffic resumes.
+    5. **re-admit** — restart a dead worker thread
+       (:meth:`ServeWorker.restart`), resume batch formation, reset the
+       breaker.  The queued backlog (including the riders re-enqueued
+       at the moment of failure) serves out first.
+
+    Call it from a supervising thread (an operator loop, a test, the
+    chaos harness) — never from a worker thread: quiesce waits on the
+    workers.  Serialized by an internal lock; concurrent calls queue.
+    """
+
+    def __init__(self, session=None,
+                 services: Optional[Sequence] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        expects(session is not None or services is not None,
+                "RecoveryManager: pass a session and/or services")
+        self._session = session
+        self._explicit = list(services) if services is not None else None
+        self._clock = clock
+        self._lock = threading.Lock()
+
+    def _services(self) -> List:
+        svcs = list(self._explicit) if self._explicit is not None else []
+        if self._session is not None:
+            for svc in self._session.services.values():
+                if svc not in svcs:
+                    svcs.append(svc)
+        return [s for s in svcs if s.is_open()]
+
+    def recover(self, devices: Optional[Sequence] = None, mesh=None, *,
+                recover_comms: Optional[bool] = None,
+                warmup: bool = True,
+                quiesce_timeout: float = 30.0) -> Dict:
+        """Run the full recovery sequence (class doc); returns a report
+        ``{"services": [names], "comms_recovered": bool,
+        "recovery_s": float}``.
+
+        ``devices`` / ``mesh`` name the survivors for the communicator
+        rebuild (rank ids or ranks, forwarded to ``Comms.recover``);
+        ``recover_comms`` defaults to True when the manager has an
+        initialized session.  ``warmup=False`` skips the re-warm
+        (transient faults where the mesh never changed).  ``"quiesced": False`` in the report flags a batch that
+        was still wedged mid-dispatch past ``quiesce_timeout`` when the
+        rebuild proceeded (its riders resolve against the old state —
+        recovery cannot wait forever on a dead device call)."""
+        if recover_comms is None:
+            recover_comms = (self._session is not None
+                             and getattr(self._session, "initialized",
+                                         False))
+        with self._lock:
+            t0 = self._clock()
+            svcs = self._services()
+            # recovery phase events + the pre-recovery black box: the
+            # tape of the seconds leading INTO the failure is captured
+            # before the sequence mutates any state
+            flight.record("recovery_begin",
+                          services=[s.name for s in svcs],
+                          comms=bool(recover_comms))
+            flight.default_recorder().blackbox("recovery")
+            for svc in svcs:
+                svc.pause()
+                flight.record("recovery_pause", service=svc.name)
+            try:
+                # materialized first: all() over a generator would stop
+                # at the first wedged worker and leave later services
+                # un-quiesced when the communicator rebuild starts
+                quiesced = all([
+                    svc.worker.quiesce(timeout=quiesce_timeout)
+                    for svc in svcs])
+                if recover_comms:
+                    flight.record("recovery_rebuild_comms")
+                    self._session.recover(devices=devices, mesh=mesh)
+                for svc in svcs:
+                    svc.post_recover()
+                    if warmup:
+                        svc.warmup()
+                        flight.record("recovery_warmup",
+                                      service=svc.name)
+                    if (svc.worker.started()
+                            and not svc.worker.is_alive()):
+                        svc.worker.restart()
+                    svc.resume()
+                    flight.record("recovery_readmit", service=svc.name)
+                    _counter("raft_tpu_serve_recoveries_total",
+                             "completed serving recoveries",
+                             svc.name).inc()
+            except BaseException:
+                # a FAILED recovery must not strand the queue behind a
+                # paused batcher forever: un-pause (queued riders can
+                # dispatch/expire/fail — each still resolves exactly
+                # once) but leave each breaker in its tripped state —
+                # the service is still broken and admission must keep
+                # shedding until a later recovery succeeds
+                for svc in svcs:
+                    if svc.batcher.paused():
+                        svc.batcher.resume()
+                raise
+            dt = self._clock() - t0
+            for svc in svcs:
+                _timer("raft_tpu_serve_recovery_seconds",
+                       "pause-to-readmit recovery latency",
+                       svc.name).observe(dt)
+            flight.record("recovery_done",
+                          services=[s.name for s in svcs],
+                          quiesced=bool(quiesced),
+                          recovery_s=round(dt, 6))
+        return {"services": [s.name for s in svcs],
+                "comms_recovered": bool(recover_comms),
+                "quiesced": quiesced,
+                "recovery_s": dt}
+
+    def check_and_recover(self, **recover_kwargs) -> Dict:
+        """Health-check the session and recover if anything is wrong:
+        a failed ``health_check()`` (aborted communicator, dead rank,
+        dead worker) runs the full :meth:`recover` sequence on the
+        ranks the check reported live; an open breaker with an
+        otherwise-healthy mesh takes the CHEAP path — re-admit without
+        a communicator rebuild or re-warmup (the mesh and the warmed
+        shapes are fine; the breaker would have probed its way closed in
+        a cooldown anyway, so escalating a transient trip into a rebuild
+        would be self-inflicted downtime).  Returns
+        ``{"report": health report, "recovered": bool, "recovery":
+        recover report or None}``."""
+        expects(self._session is not None,
+                "check_and_recover: manager has no session")
+        report = self._session.health_check()
+        breaker_open = any(
+            getattr(getattr(svc, "breaker", None), "state", None)
+            is BreakerState.OPEN for svc in self._services())
+        if report["ok"] and not breaker_open:
+            return {"report": report, "recovered": False,
+                    "recovery": None}
+        # the MESH verdict, not the overall one: health_check's ok also
+        # fails on a tripped breaker / dead worker, which the cheap
+        # path exists to handle without a communicator rebuild
+        mesh_ok = (all(report["tests"].values())
+                   and all(report["ranks"].values()))
+        if mesh_ok:
+            # comms + ranks healthy; only service-level trouble
+            # (tripped breaker, dead worker): restart/re-admit without
+            # rebuilding the communicator or re-warming
+            recover_kwargs.setdefault("recover_comms", False)
+            recover_kwargs.setdefault("warmup", False)
+        if "devices" in recover_kwargs or "mesh" in recover_kwargs:
+            survivors = recover_kwargs.pop("devices", None)
+        else:
+            survivors = [rank for rank, ok in report["ranks"].items()
+                         if ok]
+        recovery = self.recover(devices=survivors, **recover_kwargs)
+        return {"report": report, "recovered": True,
+                "recovery": recovery}

@@ -1,13 +1,18 @@
 """Service facades: warmup / submit / drain / close over hot primitives.
 
-Port of ``raft_tpu/serve/service.py`` on one device.  A service pins the
+Port of ``raft_tpu/serve/service.py``.  A service pins the
 heavy, shape-stable half of a query workload at construction (the kNN
 index, the pairwise reference matrix, k, the metric) and serves the
 light, shape-varying half (query rows) through the micro-batching
 engine:
 
 - :class:`KNNService`  — ``submit((n_i, d) queries) -> (dists, ids)``
-  over :func:`raft_tpu_torch.spatial.brute_force_knn`;
+  over :func:`raft_tpu_torch.spatial.brute_force_knn`, or, with
+  ``mesh``/``axis``, over the sharded search
+  :func:`raft_tpu_torch.spatial.mnmg_knn.mnmg_knn` (the index
+  row-sharded over a rank mesh once at construction), or, with
+  ``replicas``, over R replicas of it on disjoint sub-meshes with hedged
+  dispatch (:mod:`raft_tpu_torch.serve.replicas`);
 - :class:`PairwiseService` — ``submit((n_i, d) x) -> (n_i, n_y)`` over
   :func:`raft_tpu_torch.distance.pairwise_distance`.
 
@@ -25,15 +30,22 @@ What is not ported, and why:
 
 - ``profiled_jit`` and the donating twins: PyTorch runs eagerly and has
   no buffer donation, so ``donate=`` is not an argument here.
-- ``KNNService``'s ``mesh``, ``axis``, ``merge``, ``group_size``,
-  ``replicas`` and ``hedge_ms`` (sharded and replicated serving) wait
-  for the multi-GPU slice, and ``post_recover``/``repartition`` with
-  the ``RecoveryManager`` for the session slice (``ANNService``, with
-  its resident and out-of-core arms, is in ``serve/ann_service.py``).
+
+(``ANNService``, with its resident, sharded and out-of-core arms, is in
+``serve/ann_service.py``.)
+
+Recovery seams: :meth:`Service.pause`/:meth:`Service.resume` and
+:meth:`Service.post_recover`, which the
+:class:`~raft_tpu_torch.serve.resilience.RecoveryManager` runs after a
+communicator rebuild: a sharded service re-partitions onto the rebuilt
+session mesh (:meth:`KNNService.repartition`), a replicated one re-cuts
+its replica groups (:meth:`KNNService.rebuild_replicas`).
 
 Results: a kNN request's result depends only on its own query row, and
 the kernels' arithmetic is per row, so a served kNN result equals the
-unbatched ``brute_force_knn`` of the same rows on the card.  A pairwise
+unbatched ``brute_force_knn`` of the same rows on the card, and a
+sharded or replicated one the unbatched ``mnmg_knn`` of its rows (its
+merges order ties by global id, row by row).  A pairwise
 metric on the card's matmul (the expanded ones) may round differently
 at another row count, since cuBLAS may pick another kernel; it is
 bitwise equal to the call on the same padded batch, sliced, as the JAX
@@ -52,7 +64,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,6 +86,7 @@ from raft_tpu_torch.serve.bucketing import BucketPolicy, resolve_rungs
 from raft_tpu_torch.serve.resilience import BreakerState, CircuitBreaker
 from raft_tpu_torch.serve.scheduler import ServeWorker, _counter, _gauge, _tenant_counter
 from raft_tpu_torch.spatial.knn import brute_force_knn
+from raft_tpu_torch.spatial.mnmg_knn import mnmg_knn, resolve_merge, shard_knn_index
 
 __all__ = ["Service", "KNNService", "PairwiseService"]
 
@@ -185,6 +198,12 @@ class Service:
         Spawn the worker thread now (False = threadless: tests drive
         :attr:`worker` ``.run_once()`` under an injected ``clock``).
     """
+
+    # sharded-serving contract: non-None on services dispatching into a
+    # sharded search.  The session's health_check validates them against
+    # its (possibly rebuilt) mesh; post_recover re-partitions through them.
+    axis: Optional[str] = None
+    mesh = None
 
     def __init__(self, name: str, execute: Callable, dim: int,
                  dtype=torch.float32, *,
@@ -318,6 +337,38 @@ class Service:
         self.batcher.resume()
         if self.breaker is not None:
             self.breaker.reset()
+
+    def post_recover(self) -> None:
+        """Hook run by :class:`~raft_tpu_torch.serve.resilience.RecoveryManager`
+        after a communicator rebuild, before ``warmup()``.  The base
+        services pin only immutable operands: nothing to redo; an
+        ``ANNService`` re-publishes its snapshot, and the sharded services
+        re-partition onto the rebuilt mesh."""
+
+    # -- the sharded-recovery plumbing shared by KNNService and ANNService
+    def _recovery_mesh(self):
+        """The mesh ``repartition()`` re-cuts onto when none is given: the
+        owning session's rebuilt mesh when it still has our axis
+        (``Comms.serve`` binds ``_session``), else the current one."""
+        session = getattr(self, "_session", None)
+        comms = getattr(session, "comms", None)
+        if comms is not None and self.axis in comms.mesh.axis_names:
+            return comms.mesh
+        return self.mesh
+
+    def _drop_stale_group_size(self, mesh) -> None:
+        """A pinned hierarchical ``group_size`` that does not divide the
+        survivor mesh's axis size must not brick recovery: drop the pin
+        and let ``resolve_group_size`` re-derive it per mesh."""
+        g = getattr(self, "_group_size", None)
+        if g and int(mesh.shape[self.axis]) % int(g):
+            self._group_size = None
+
+    def _record_repartition(self, mesh) -> None:
+        _counter("raft_tpu_serve_repartitions_total",
+                 "sharded-index re-partitions (shard-loss recovery)", self.name).inc()
+        _shard_gauge(self.name, int(mesh.shape[self.axis]))
+        flight.record("repartition", service=self.name, devices=int(mesh.shape[self.axis]))
 
     def close(self, drain: bool = True,
               timeout: Optional[float] = None) -> None:
@@ -544,25 +595,116 @@ class Service:
                        "depth": depths.get(name, 0),
                        "cap": self.batcher.tenant_cap(name)}
                 for name, w in self.batcher.tenants().items()}
+        rs = getattr(self, "_replica_set", None)
+        if rs is not None:
+            out["replicas"] = rs.describe()
+        if self.axis is not None:
+            out.update({"sharded": True, "axis": self.axis,
+                        "shard_devices": int(self.mesh.shape[self.axis]),
+                        "shard_ranks": list(self.mesh.rank_ids()),
+                        "merge": getattr(self, "merge", None)})
         return out
 
 
+def _shard_gauge(service: str, ranks: int) -> None:
+    _gauge("raft_tpu_serve_shard_devices",
+           "rank slots the service's sharded index spans (0/absent = one device)",
+           service).set(ranks)
+
+
+def _resolve_shard_spec(cls_name: str, mesh, axis, merge, device):
+    """Shared sharded-constructor resolution (KNNService and ANNService):
+    default the mesh (the default mesh of ``device``), default the axis
+    to the mesh's first, validate, resolve the merge knob once."""
+    from raft_tpu_torch.comms.mesh import as_mesh, default_mesh
+
+    mesh = default_mesh(device=device) if mesh is None else as_mesh(mesh)
+    if axis is None:
+        axis = mesh.axis_names[0]
+    expects(axis in mesh.axis_names, "%s: axis %r not in mesh axes %r", cls_name, axis,
+            tuple(mesh.axis_names))
+    return mesh, axis, resolve_merge(merge, devices=int(mesh.shape[axis]))
+
+
+def _service_device(device, mesh):
+    """A sharded or replicated service's device: the one asked for, else
+    the first rank's of its mesh, else ``"cuda"``."""
+    if device is not None:
+        return resolve_device(device)
+    if mesh is not None:
+        return mesh.ranks.flat[0].device
+    return resolve_device("cuda")
+
+
+class _ShardState(NamedTuple):
+    """One immutable sharded-dispatch snapshot: the shards and the mesh
+    they were cut for travel together, so a concurrent
+    :meth:`KNNService.repartition` never pairs new shards with the old
+    mesh mid-dispatch."""
+
+    index: object       # ShardedRows
+    n_rows: int
+    mesh: object
+    axis: str
+
+
 class KNNService(Service):
-    """Micro-batched :func:`brute_force_knn` over one pinned index on
-    one device.
+    """Micro-batched :func:`brute_force_knn` over one pinned index, or,
+    with ``mesh``/``axis``, :func:`~raft_tpu_torch.spatial.mnmg_knn.mnmg_knn`
+    over the index row-sharded on a rank mesh once, or, with
+    ``replicas``, R such replicas with hedged dispatch.
 
     ``submit((n_i, d))`` futures resolve to ``(distances, indices)`` of
-    shape ``(n_i, k)``, equal to the unbatched
-    ``brute_force_knn(index, queries, k)`` of the same rows (module
-    doc).  The sharding and replica arguments of the JAX
-    ``KNNService`` wait for the multi-GPU slice.
+    shape ``(n_i, k)``, equal bit for bit to the unbatched call of the
+    same rows (module doc).
+
+    Sharded parameters
+    ------------------
+    mesh / axis:
+        Shard the index rows over ``axis`` of ``mesh`` (a
+        :class:`~raft_tpu_torch.comms.mesh.Mesh`; ``axis`` alone takes the
+        default mesh of ``device``; a session's ``serve`` passes its own).
+    merge:
+        ``allgather`` | ``ring`` | ``hierarchical``; None resolves the
+        ``mnmg_merge`` knob.
+    group_size:
+        Hierarchical group size; None resolves per mesh.
+
+    On a lost shard, :meth:`repartition` (run by ``post_recover`` in the
+    :class:`~raft_tpu_torch.serve.resilience.RecoveryManager` sequence)
+    re-shards the full index over the surviving ranks, and ``warmup()``
+    runs every rung on them.
+
+    Replica parameters
+    ------------------
+    replicas:
+        Build this many replicas of the index over **disjoint**
+        sub-meshes of ``mesh`` (:func:`~raft_tpu_torch.serve.replicas.split_mesh`;
+        each sharded over its group), dispatched through a
+        :class:`~raft_tpu_torch.serve.replicas.ReplicaSet`: rotation with
+        per-replica breakers and hedged re-dispatch of straggling
+        batches, first result wins, the loser cancelled.
+        ``mesh``/``axis``/``merge`` describe the parent span.
+    hedge_ms:
+        Fixed hedge threshold in ms; None resolves ``serve_hedge_ms``
+        (0 = adaptive: ``serve_hedge_factor`` x the per-rung p99,
+        floored at ``serve_hedge_min_ms``).
+    device:
+        Where the index lives and the unsharded search runs (default: the
+        first rank's device of ``mesh`` when one is given, else
+        ``"cuda"``).
     """
 
     def __init__(self, index, k: int,
                  metric: DistanceType = DistanceType.L2Expanded,
                  tile_n: int = 8192, precision: str = "highest",
-                 name: Optional[str] = None, device="cuda", **opts):
-        dev = resolve_device(device)
+                 mesh=None, axis: Optional[str] = None,
+                 merge: Optional[str] = None,
+                 group_size: Optional[int] = None,
+                 replicas: Optional[int] = None,
+                 hedge_ms: Optional[float] = None,
+                 name: Optional[str] = None, device=None, **opts):
+        dev = _service_device(device, mesh)
         index = as_tensor(index, dev)
         expects(index.ndim == 2, "KNNService: (n, d) index required")
         expects(1 <= k <= index.shape[0],
@@ -573,15 +715,183 @@ class KNNService(Service):
         self.metric = metric
         self._tile_n = int(tile_n)
         self._precision = precision
+        self._group_size = group_size
+        self._spmd: Optional[_ShardState] = None
+        self._replica_set = None
+        self._n_replicas = 0
+        self.merge = None
+        # the name first: replica breakers and metric labels need it
+        name = name or "knn%d" % next(_service_seq)
+        self.name = name
+        if replicas is not None:
+            expects(int(replicas) >= 2, "KNNService: replicas=%d (need >= 2; one replica "
+                    "is just a [sharded] service)", int(replicas))
+            mesh, axis, self.merge = _resolve_shard_spec("KNNService", mesh, axis, merge, dev)
+            if hedge_ms is None:
+                hedge_ms = _knob_float("serve_hedge_ms")
+            self._hedge_s = None if float(hedge_ms) <= 0.0 else float(hedge_ms) / 1e3
+            self._hedge_factor = _knob_float("serve_hedge_factor")
+            self._hedge_min_s = _knob_float("serve_hedge_min_ms") / 1e3
+            self._n_replicas = int(replicas)
+            self._replica_axis = axis
+            self._replica_parent = mesh
+            self._replica_set = self._build_replica_set(
+                mesh, axis, self._n_replicas, opts.get("clock", time.monotonic))
+        elif mesh is not None or axis is not None:
+            mesh, axis, self.merge = _resolve_shard_spec("KNNService", mesh, axis, merge, dev)
+            self._shard_to(mesh, axis)
 
         def execute(padded):
+            rs = self._replica_set      # one snapshot per batch
+            if rs is not None:
+                return rs.run(padded)
+            spmd = self._spmd           # one snapshot per batch
+            if spmd is not None:
+                return mnmg_knn(spmd.index, padded, self.k, metric=self.metric,
+                                mesh=spmd.mesh, axis=spmd.axis, n_rows=spmd.n_rows,
+                                tile_n=self._tile_n, precision=self._precision,
+                                merge=self.merge, group_size=self._group_size)
             return brute_force_knn(self.index, padded, self.k,
                                    metric=self.metric, tile_n=self._tile_n,
                                    precision=self._precision, device=dev)
 
-        super().__init__(
-            name or "knn%d" % next(_service_seq), execute,
-            dim=index.shape[1], dtype=index.dtype, device=dev, **opts)
+        super().__init__(name, execute, dim=index.shape[1], dtype=index.dtype, device=dev,
+                         **opts)
+        if self.axis is not None:
+            _shard_gauge(self.name, int(self.mesh.shape[self.axis]))
+
+    # -- sharded serving ------------------------------------------------ #
+    @property
+    def mesh(self):
+        return self._spmd.mesh if self._spmd is not None else None
+
+    @property
+    def axis(self) -> Optional[str]:
+        return self._spmd.axis if self._spmd is not None else None
+
+    def _shard_to(self, mesh, axis: str) -> None:
+        """(Re-)shard the pinned index over ``axis``: one reference
+        assignment of an immutable :class:`_ShardState`, so a batch reads
+        the old or the new snapshot whole."""
+        sharded, n_rows = shard_knn_index(self.index, mesh, axis)
+        self._spmd = _ShardState(sharded, n_rows, mesh, axis)
+        if "worker" in self.__dict__:
+            _shard_gauge(self.name, int(mesh.shape[axis]))
+
+    def repartition(self, mesh=None) -> bool:
+        """Re-shard the index rows over ``mesh`` (default: the owning
+        session's current mesh): the lost shard's rows redistribute over
+        the surviving ranks, exactly (the full index is the source).
+        Call ``warmup()`` after.  True when the mesh changed."""
+        expects(self.axis is not None, "%s.repartition: service is not sharded", self.name)
+        mesh = self._recovery_mesh() if mesh is None else mesh
+        expects(self.axis in mesh.axis_names,
+                "%s.repartition: replacement mesh lacks axis %r", self.name, self.axis)
+        if mesh is self.mesh:
+            return False
+        self._drop_stale_group_size(mesh)
+        self._shard_to(mesh, self.axis)
+        self._record_repartition(mesh)
+        return True
+
+    # -- replica groups and hedged dispatch ------------------------------ #
+    def _replica_group_size(self, mesh) -> Optional[int]:
+        """The pinned group size, dropped where it does not divide a
+        replica sub-mesh's axis."""
+        g = self._group_size
+        if g and int(mesh.shape[self._replica_axis]) % int(g):
+            return None
+        return g
+
+    def _build_replica_set(self, parent_mesh, axis: str, n: int, clock):
+        """Cut ``parent_mesh`` into ``n`` disjoint sub-meshes, shard a full
+        copy of the index over each, and wrap them in a
+        :class:`~raft_tpu_torch.serve.replicas.ReplicaSet` with fresh
+        per-replica breakers."""
+        from raft_tpu_torch.serve.replicas import ReplicaSet, split_mesh
+
+        members = []
+        for m in split_mesh(parent_mesh, axis, n):
+            sharded, n_rows = shard_knn_index(self.index, m, axis)
+            state = _ShardState(sharded, n_rows, m, axis)
+
+            def exec_replica(padded, st=state):
+                return mnmg_knn(st.index, padded, self.k, metric=self.metric, mesh=st.mesh,
+                                axis=st.axis, n_rows=st.n_rows, tile_n=self._tile_n,
+                                precision=self._precision, merge=self.merge,
+                                group_size=self._replica_group_size(st.mesh))
+
+            members.append((m, exec_replica))
+        breakers = [_breaker_from_knobs("%s/r%d" % (self.name, i), clock)
+                    for i in range(len(members))]
+        return ReplicaSet(self.name, members, hedge_s=self._hedge_s,
+                          hedge_factor=self._hedge_factor, hedge_min_s=self._hedge_min_s,
+                          breakers=breakers, clock=clock)
+
+    def replica_rank_ids(self) -> Optional[set]:
+        """Rank ids the replica set spans (None when not replicated); the
+        session's ``health_check`` validates them against its mesh."""
+        rs = self._replica_set
+        return rs.rank_ids() if rs is not None else None
+
+    def rebuild_replicas(self, mesh=None) -> bool:
+        """Re-cut the replica groups over ``mesh`` (default: the owning
+        session's current mesh), the replica-loss lever.  A mesh too small
+        for two replicas degrades to plain sharded serving over the whole
+        mesh (a later rebuild on a grown mesh restores the replicas).
+        Fresh per-replica breakers.  Call ``warmup()`` after.  True when
+        the mesh changed."""
+        expects(self._n_replicas > 0, "%s.rebuild_replicas: service was not built with "
+                "replicas", self.name)
+        if mesh is None:
+            session = getattr(self, "_session", None)
+            comms = getattr(session, "comms", None)
+            if comms is not None and self._replica_axis in comms.mesh.axis_names:
+                mesh = comms.mesh
+            else:
+                mesh = self._replica_parent
+        changed = mesh is not self._replica_parent
+        n = min(self._n_replicas, int(mesh.size))
+        self._replica_parent = mesh
+        if n >= 2:
+            self._spmd = None
+            self._replica_set = self._build_replica_set(mesh, self._replica_axis, n,
+                                                        self._clock)
+        else:
+            self._replica_set = None
+            self._shard_to(mesh, self._replica_axis)
+        if changed:
+            _counter("raft_tpu_serve_repartitions_total",
+                     "sharded-index re-partitions (shard-loss recovery)", self.name).inc()
+            _shard_gauge(self.name, int(mesh.size))
+            flight.record("repartition", service=self.name, devices=int(mesh.size),
+                          replicas=(len(self._replica_set.replicas)
+                                    if self._replica_set is not None else 0))
+        return changed
+
+    def warmup(self) -> "Service":
+        rs = self._replica_set
+        if rs is None:
+            return super().warmup()
+        # hedged dispatch may route any rung to any replica: warm them all
+        with torch.cuda.stream(self.worker.stream):
+            for rung in self.policy.rungs:
+                rs.warm(torch.zeros((rung, self.dim), dtype=self.dtype, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmed = self.policy.rungs
+        self._warm_kernels = _build.stats()
+        return self
+
+    def post_recover(self) -> None:
+        """Re-partition onto the rebuilt session mesh (RecoveryManager
+        step 4), keyed off the constructor's replica intent: a service
+        degraded to unreplicated by a small survivor mesh regains its
+        replicas when a later recovery regrows the mesh."""
+        if self._n_replicas:
+            self.rebuild_replicas()
+        elif self.axis is not None:
+            self.repartition()
 
 
 class PairwiseService(Service):

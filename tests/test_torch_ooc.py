@@ -21,8 +21,9 @@ the resident kernel route, and the service (threadless, ``start=False``):
 the budget split as the JAX service splits it, served rows bitwise equal
 to the port's resident search of the padded batch, the budget's high
 water, compaction, promotion, calibration and the refusals.  Left out:
-the approximate select (queue 1 item 7), ``post_recover`` (item 6), the
-JAX lint's device-put ban, and the load-sensitive loadgen report.
+the approximate select (queue 1 item 7), the JAX lint's device-put ban,
+and the load-sensitive loadgen report (``post_recover`` of an
+out-of-core service is in ``test_torch_serve_sharded.py``).
 Counters are read per pool, never process-wide."""
 
 import time
