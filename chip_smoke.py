@@ -153,6 +153,31 @@ paths through the public entry points with ``device="cuda"``:
   win, every response bitwise equal to the unbatched call, p50 and p99
   and the hedge and failover counters).  Where the machine shows more
   than one card, ``mnmg_knn_1M`` also runs over distinct cards.
+- the fleet (queue 1 item 7), a ``Router`` in this process and worker
+  processes (``python -m raft_tpu_torch.fleet.worker``) on ``cuda:0``:
+  ``fleet_ann_1M`` (the 1M x 128 mixture of ``fleet/worker.py:_synth``,
+  seed 5, 64 clusters, k 100, 512 lists a shard at nprobe 32, the WAL
+  fsync'd before every ack) as one worker holding the whole index and
+  as two holding 500,000 rows each: time to ready, 8 client threads of
+  16-row requests for 5 s (rows/s, p50/p99, errors), recall@100 on 256
+  queries against K1's exact top 100 in this process, the router's
+  answers bitwise equal to the merge of each worker's own ``/search``,
+  every ops-plane endpoint of each worker (K2, K3 and K4 in its
+  inventory with their counts, no kernel build or load after warmup)
+  and the router's, and w0's device idle share from a ``torch.profiler``
+  window inside the load (``POST /debug/profile``); then the chaos arm
+  on the two workers (query threads and 8-row WAL-acked inserts while
+  w1 takes a ``SIGKILL`` and restarts from snapshot + WAL: the fleet
+  reads degraded and the router's sentinel trips ``worker_dead``, then
+  both clear after the rejoin; every acked id answers at distance 0
+  under its own id; every admitted request has one terminal flight
+  event; four fixed requests answer bitwise alike before the kill and
+  after the rejoin; the restore's seconds and replayed records, the
+  rows/s before and after); and ``fleet_replicated_200k`` (two workers
+  each holding 200,000 rows, a hedge of 60 ms, one tenant's primary
+  hung through ``/chaos`` for 1 s: every request answered, hedges and
+  wins counted).  The kernels' launches on these paths are read from
+  the workers' inventories.  No worker outlives its fleet.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -243,7 +268,6 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 OFFSET = 100.0             # offset data for K1 and K6: the expanded form cancels most
-K5_INSTR_PER_STEP = 2      # FP32 instructions a step of L1, L2Unexpanded and Linf
 # spectral partitioning on CSR (BASELINE.md config #4): the graph of
 # bench.py:two_community_graph with 40 bridges at the JAX rung's size
 # (bench.py:2598-2621, 100,000 vertices) and at 1,000,000, with the stored
@@ -315,6 +339,22 @@ SHARDED_RUNGS = (8, 32, 64, 128)
 SHARDED_POOL, SHARDED_NOISE = 32, 0.1   # tools/loadgen.py:make_query_pool's defaults
 SESSION_INSERT, SESSION_FIXED = 2048, 256
 REPLICA_HEDGE_MS, REPLICA_DELAY_S = 25.0, 0.1
+# the fleet (queue 1 item 7): the JAX serve_fleet rung's drill
+# (bench.py:1713-1830) at the width of the serve_ann_1m configuration (1M x
+# 128 float32, k 100), the data the JAX fleet's (fleet/worker.py:_synth,
+# seed 5, 64 clusters), nlist 512 a shard at nprobe 32; 8 client threads of
+# 16-row requests a window; recall@100 on 256 queries; a snapshot interval
+# long enough that a restore replays the WAL since the bootstrap snapshot;
+# the chaos arm's query threads and 8-row inserts; the replicated fleet's
+# depth (cut to 200,000 rows for the script's time) and hedge
+FLEET_ROWS, FLEET_SEED, FLEET_CLUSTERS, FLEET_NLIST, FLEET_NPROBE = 1_000_000, 5, 64, 512, 32
+FLEET_THREADS, FLEET_ROWS_A_REQ, FLEET_SECONDS, FLEET_RECALL_Q = 8, 16, 5.0, 256
+FLEET_SNAPSHOT_S, FLEET_READY_S = 30.0, 600.0
+FLEET_SERVICE_OPTS = {"delta_cap": 8192, "max_batch_rows": 128, "bucket_rungs": [8, 32, 64, 128],
+                      "nprobe_ladder": [8, 16, 32]}
+CHAOS_QUERY_THREADS, CHAOS_INSERT_ROWS, CHAOS_MAX_INSERTS = 4, 8, 400
+CHAOS_BEFORE_S, CHAOS_OUTAGE_S, CHAOS_AFTER_S = 3.0, 1.0, 3.0
+REPL_ROWS, REPL_NLIST, REPL_HEDGE_MS, REPL_HANG_S = 200_000, 256, 60.0, 1.0
 # the K2 shapes of these paths are timed on normal keys (their merges
 # re-order candidates by global id first, so no sorted runs survive)
 NORMAL_KEY_PATHS = ("mnmg_", "serve_knn_sharded_500k", "session_recover", "serve_knn_replicas")
@@ -1642,8 +1682,7 @@ def session_paths(ctx, m):
         ctx.check_exact("select_tile mnmg merge %s values" % what, got[0], want[0])
         ctx.check_exact("select_tile mnmg merge %s ids" % what, got[1], want[1])
     out["k2_merge_checks"] = {what: list(keys.shape) for what, keys in merge_keys.items()}
-    knn_ops = 2.0 * nq * rows * DIM
-    knn_bytes = 4.0 * (rows + nq) * DIM + 8.0 * nq * K
+    knn_ops, knn_bytes = m.cost.knn_cost(nq, rows, DIM, K)
     b, by = bound_tf32x3(knn_ops, knn_bytes)
 
     def shard_topk():
@@ -1718,8 +1757,7 @@ def session_paths(ctx, m):
     live = slots >= 0
     scanned = int(rows_in_slot[slots[live].long()].sum())
     distinct = int(rows_in_slot[torch.unique(slots[live].long())].sum())
-    io = 4.0 * nq * DIM + 4.0 * slots.numel() + 8.0 * nq * K
-    b, by = bound_tf32x3(2.0 * DIM * scanned, distinct * (4.0 * DIM + 8.0) + io)
+    b, by = bound_tf32x3(*m.cost.ivf_scan_cost(nq, DIM, K, slots.numel(), scanned, distinct))
     extra["k3_shard"] = {
         "shape": "%d queries x %d scan steps over rank 0's %d slots of %d x %d f32, k=%d"
                  % (nq, slots.shape[1], sv.shape[0], sv.shape[1], DIM, K),
@@ -1928,6 +1966,500 @@ def session_paths(ctx, m):
     return paths, extra
 
 
+def http_json(url, body=None, timeout=30.0):
+    """(status, parsed body) of a GET (``body`` None) or a JSON POST; a
+    status of 400 or more is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode("utf-8")
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, raw = resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read().decode("utf-8")
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw
+
+
+def fleet_traffic(router, blocks, n_threads, stop, records, tenant=None):
+    """``n_threads`` clients, each sending ``blocks`` in turn to
+    ``router.search`` until ``stop`` is set and appending (end time,
+    rows, latency ms, outcome) to ``records``: outcome ``"ok"``,
+    ``"degraded"`` (a partial answer) or the error's class name.  The
+    threads are daemons: the caller sets ``stop`` and joins them in a
+    ``finally``."""
+    def client(t):
+        i = t
+        while not stop.is_set():
+            b = blocks[i % len(blocks)]
+            t0 = time.perf_counter()
+            try:
+                out = router.search(b, tenant=tenant, timeout_s=30.0)
+                outcome = "degraded" if out["degraded"] else "ok"
+            except Exception as e:  # noqa: BLE001 — counted: the fleet's errors
+                outcome = type(e).__name__
+            t1 = time.perf_counter()
+            records.append((t1, len(b), (t1 - t0) * 1e3, outcome))
+            i += n_threads
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    return threads
+
+
+def stop_threads(stop, threads, timeout=120.0):
+    stop.set()
+    for th in threads:
+        th.join(timeout)
+    assert not any(th.is_alive() for th in threads), "a client thread did not stop"
+
+
+def window_stats(records, t0, t1):
+    """Rows/s of the answered requests, p50/p99 ms and the outcome
+    counts of the requests that ended in [t0, t1)."""
+    sel = [r for r in records if t0 <= r[0] < t1]
+    lat = sorted(r[2] for r in sel)
+    outcomes = {}
+    for r in sel:
+        outcomes[r[3]] = outcomes.get(r[3], 0) + 1
+    answered = sum(r[1] for r in sel if r[3] in ("ok", "degraded"))
+    return {"rows_per_s": answered / (t1 - t0), "window_s": t1 - t0,
+            "p50_ms": quantile(lat, 0.5) if lat else None,
+            "p99_ms": quantile(lat, 0.99) if lat else None,
+            "requests": len(sel), "outcomes": outcomes,
+            "errors": sum(n for k, n in outcomes.items() if k not in ("ok", "degraded"))}
+
+
+def wait_for(cond, timeout, what):
+    """Poll ``cond`` every 50 ms; the seconds it took, or raise."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise TimeoutError("fleet: %s within %.0f s" % (what, timeout))
+
+
+def search_in_requests(router, rows):
+    """``router.search`` of ``rows`` (a list of lists) in requests of
+    ``FLEET_ROWS_A_REQ``: (distances, ids), row-major lists."""
+    d, i = [], []
+    for at in range(0, len(rows), FLEET_ROWS_A_REQ):
+        out = router.search(rows[at:at + FLEET_ROWS_A_REQ], timeout_s=60.0)
+        assert not out["degraded"], "fleet: a partial answer on a healthy fleet"
+        d += out["distances"]
+        i += out["ids"]
+    return d, i
+
+
+def scrape_worker(ops_url, service, built=True):
+    """The worker's ops plane, every read endpoint: each answers, and the
+    inventory holds K2 and K3 (and K4, where the worker ``built`` its
+    index rather than restoring it) with their counts.  Returns (the
+    inventory's per-kernel summary, the kernel build counts)."""
+    code, text = http_json(ops_url + "/metrics")
+    assert code == 200 and "raft_tpu_serve_requests_total" in text, ("worker /metrics", code)
+    code, body = http_json(ops_url + "/healthz")
+    assert code == 200 and body["ok"] and body["services"][service]["worker_alive"], body
+    code, body = http_json(ops_url + "/statusz")
+    assert code == 200 and service in body["services"] and body["tuning_table"] is None, code
+    code, body = http_json(ops_url + "/debug/config")
+    assert code == 200 and body["knobs"]["fleet_lease_interval_s"]["layer"], code
+    code, inv = http_json(ops_url + "/debug/inventory")
+    assert code == 200, code
+    for kernel in ("select_tile", "ivf_tile") + (("nn_tile",) if built else ()):
+        entries = inv["detail"].get(kernel, {}).values()
+        assert entries, "worker inventory lacks %s" % kernel
+        for e in entries:
+            assert e["flops"] > 0 and e["bytes_accessed"] > 0 and e["hbm_bytes"] > 0 \
+                and e["launches"] > 0, (kernel, e)
+    code, snap = http_json(ops_url + "/debug/snapshot")
+    assert code == 200 and set(snap) >= {"metrics", "kernel_builds", "flight", "inventory"}
+    return inv["summary"]["per_fn"], snap["kernel_builds"]
+
+
+def request_breakdown(router, pool, data_url, ops_url, n=20):
+    """Where a request's time goes: the median ms of ``n`` requests sent
+    one at a time through the router and straight to the worker, beside
+    the worker's serve timers over everything it served so far (a
+    request's wait for its batch, a batch's device call, a batch's
+    rows)."""
+    out = {}
+    for how in ("router", "direct"):
+        lat = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            if how == "router":
+                router.search(pool[i % len(pool)], timeout_s=60.0)
+            else:
+                code, _ = http_json(data_url + "/search", {"vectors": pool[i % len(pool)]})
+                assert code == 200, code
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out["sequential_%s_ms" % how] = statistics.median(lat)
+    metrics = http_json(ops_url + "/debug/snapshot")[1]["metrics"]
+    for name, key, scale in (("raft_tpu_serve_wait_seconds", "wait_ms_a_request", 1e3),
+                             ("raft_tpu_serve_exec_seconds", "exec_ms_a_batch", 1e3),
+                             ("raft_tpu_serve_batch_rows", "rows_a_batch", 1.0)):
+        series = metrics[name]["series"]
+        count = sum(x["count"] for x in series)
+        out[key] = scale * sum(x["total"] for x in series) / count
+        out[name[len("raft_tpu_serve_"):] + "_count"] = count
+    return out
+
+
+def profiled_window(router, pool, data_url):
+    """The device's idle share in a worker under the load's traffic: a
+    ``torch.profiler`` window of 2 s (its kernels only) taken inside a
+    window of its own, after every gate, since tracing slows the worker
+    it traces.  Returns the profile beside that window's rows/s."""
+    records, stop = [], threading.Event()
+    t0 = time.perf_counter()
+    threads = fleet_traffic(router, pool, FLEET_THREADS, stop, records)
+    try:
+        time.sleep(0.5)
+        code, prof = http_json(data_url + "/debug/profile", {"seconds": 2.0}, timeout=120)
+        time.sleep(0.5)
+    finally:
+        stop_threads(stop, threads)
+    assert code == 200 and 0.0 <= prof["device_idle_share"] <= 1.0, (code, prof)
+    prof["window_rows_per_s"] = window_stats(records, t0, time.perf_counter())["rows_per_s"]
+    return prof
+
+
+def worker_launches(per_fn, wrappers):
+    return {name: int(per_fn.get(name, {}).get("launches", 0)) for name in wrappers}
+
+
+def fleet_paths(ctx, m):
+    """The fleet on the card (queue 1 item 7): ``fleet_ann_1M`` (a fleet
+    of one worker holding the 1M index, then of two holding 500,000 rows
+    each, both on ``cuda:0``; the chaos arm on the two), and
+    ``fleet_replicated_200k`` (hedged dispatch).  The router runs in this
+    process, each worker in its own (``python -m
+    raft_tpu_torch.fleet.worker``); the kernels' launches are read from
+    the workers' inventories.  Fleets run in ``with`` blocks and no
+    worker outlives its fleet."""
+    import shutil
+
+    dev, wrappers = ctx.dev, ctx.wrappers
+    base = ROOT / "build" / "fleet"
+    shutil.rmtree(base, ignore_errors=True)
+    paths = {}
+    full = m.synth(FLEET_ROWS, DIM, FLEET_SEED, FLEET_CLUSTERS)
+    rng = np.random.default_rng(9)
+
+    def near_rows(n):
+        picks = rng.integers(0, FLEET_ROWS, n)
+        return (full[picks] + SHARDED_NOISE * rng.standard_normal((n, DIM))).astype(np.float32)
+
+    # the exact top-100 of 256 queries near the data, by K1 on the same
+    # regenerated rows (the ground truth: not the fleet's path)
+    queries = near_rows(FLEET_RECALL_Q)
+    ctx.reset()
+    X = torch.from_numpy(full).to(dev)
+    _, gt_ids = m.fused_knn_tile(X, torch.from_numpy(queries).to(dev), K)
+    gt_ids = gt_ids.cpu().numpy()
+    gt_launches = ctx.counts()["knn_tile"]
+    del X
+    torch.cuda.empty_cache()
+    q_rows = queries.tolist()
+    pool = [near_rows(FLEET_ROWS_A_REQ).tolist() for _ in range(SHARDED_POOL)]
+    fixed = [near_rows(FLEET_ROWS_A_REQ).tolist() for _ in range(4)]
+    out = {"rows": FLEET_ROWS, "dim": DIM, "k": K, "nlist_a_shard": FLEET_NLIST,
+           "nprobe": FLEET_NPROBE, "threads": FLEET_THREADS, "rows_a_request": FLEET_ROWS_A_REQ,
+           "ground_truth_k1_launches": gt_launches, "fleets": {}}
+    launches = dict.fromkeys(wrappers, 0)
+    try:
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            with m.Fleet(n, root=str(base / ("ann%d" % n)), index_rows=FLEET_ROWS, dim=DIM, k=K,
+                         seed=FLEET_SEED, clusters=FLEET_CLUSTERS, nlist=FLEET_NLIST,
+                         nprobe=FLEET_NPROBE, persist_fsync="always",
+                         snapshot_interval_s=FLEET_SNAPSHOT_S,
+                         service_opts=FLEET_SERVICE_OPTS, device="cuda") as f:
+                f.wait_ready(timeout=FLEET_READY_S)
+                res = {"ready_s": time.perf_counter() - t0}
+                router = f.router
+                reg = router.registry()
+                ops = {w: "http://127.0.0.1:%d" % p["ops_port"] for w, p in reg.items()}
+                data_urls = {w: "http://127.0.0.1:%d" % p["data_port"] for w, p in reg.items()}
+                builds_ready = {w: http_json(u + "/debug/snapshot")[1]["kernel_builds"]
+                                for w, u in ops.items()}
+                assert all(b["builds"] == 0 for b in builds_ready.values()), (
+                    "a worker built a kernel: the supervisor builds them", builds_ready)
+
+                # the load: 8 clients, 16-row requests, 5 s
+                records, stop = [], threading.Event()
+                t_load = time.perf_counter()
+                threads = fleet_traffic(router, pool, FLEET_THREADS, stop, records)
+                try:
+                    time.sleep(FLEET_SECONDS)
+                finally:
+                    stop_threads(stop, threads)
+                res["load"] = window_stats(records, t_load, t_load + FLEET_SECONDS)
+                load = res["load"]
+                assert load["errors"] == 0 and not load["outcomes"].get("degraded"), load
+
+                # recall@100 against K1's exact top-100
+                _, ids = search_in_requests(router, q_rows)
+                hits = sum(len(set(a) & set(b.tolist())) for a, b in zip(ids, gt_ids))
+                res["recall_at_100"] = hits / (FLEET_RECALL_Q * K)
+                assert res["recall_at_100"] >= 0.9, res["recall_at_100"]
+
+                # the router's merge: its answer to each fixed request equals
+                # the merge of each worker's own /search answer, bit for bit
+                for block in fixed:
+                    got = router.search(block, timeout_s=60.0)
+                    parts = []
+                    for w in sorted(data_urls):
+                        code, rep = http_json(data_urls[w] + "/search", {"vectors": block})
+                        assert code == 200, (w, code, rep)
+                        parts.append((rep["distances"], rep["ids"]))
+                    want = m.protocol.merge_topk(parts, K)
+                    assert (got["distances"], got["ids"]) == want, "fleet: the router's merge"
+                res["merge_check_requests"] = len(fixed)
+                res["w0_breakdown"] = request_breakdown(router, pool, data_urls["w0"],
+                                                        ops["w0"])
+
+                # the ops plane: every endpoint of each worker, no kernel
+                # built or loaded after warmup; the router's scrape surface
+                per_worker = {}
+                for w, u in sorted(ops.items()):
+                    per_fn, builds = scrape_worker(u, "ann_%s" % w)
+                    assert builds == builds_ready[w], ("kernel build or load after warmup",
+                                                       w, builds_ready[w], builds)
+                    per_worker[w] = worker_launches(per_fn, wrappers)
+                res["worker_launches"] = per_worker
+                for path in ("/metrics", "/healthz", "/fleet/statusz", "/debug/snapshot"):
+                    code, body = http_json(router.url + path)
+                    assert code == 200, (path, code)
+                assert 'worker="w%d"' % (n - 1) in http_json(router.url + "/metrics")[1]
+                if n == 2:
+                    res["chaos"] = chaos_arm(f, m, pool, fixed)
+                    # the launches of the whole run: w0's, the killed w1's
+                    # (read above) and the restarted w1's
+                    w1_ops = "http://127.0.0.1:%d" % router.registry()["w1"]["ops_port"]
+                    per_worker["w1_restarted"] = worker_launches(
+                        scrape_worker(w1_ops, "ann_w1", built=False)[0], wrappers)
+                    per_worker["w0"] = worker_launches(
+                        scrape_worker(ops["w0"], "ann_w0")[0], wrappers)
+                res["w0_profile"] = profiled_window(router, pool, data_urls["w0"])
+                for counts in per_worker.values():
+                    for name in wrappers:
+                        launches[name] += counts[name]
+                for name in ("select_tile", "ivf_tile", "nn_tile"):
+                    assert sum(c[name] for c in per_worker.values()) > 0, (n, name)
+                res["workers"] = n
+                out["fleets"]["workers_%d" % n] = res
+                wids = sorted(reg)
+            assert not any(f.proc_alive(w) for w in wids), "a worker outlived its fleet"
+            print("fleet_ann_1M, %d worker(s): %s" % (n, json.dumps(res)), flush=True)
+        out["launches"] = launches
+        paths["fleet_ann_1M"] = out
+        paths["fleet_replicated_200k"] = replicated_path(m, base / "repl", wrappers)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return paths
+
+
+def chaos_arm(f, m, pool, fixed):
+    """The JAX serve_fleet rung's drill on the two-worker fleet: query
+    traffic and 8-row WAL-acked inserts while w1 takes a SIGKILL; its
+    restart restores from snapshot + WAL and rejoins.  Gates: the fleet
+    reads degraded during the outage and healthy after the rejoin (the
+    router's sentinel trips ``worker_dead`` and clears), every acked id
+    answers at distance 0 (within the expanded form's rounding) under its
+    own id, every admitted request has exactly one terminal flight event
+    at the router, and the fixed requests' answers are bitwise equal
+    before the kill and after the rejoin."""
+    import signal
+
+    router = f.router
+    rec = m.flight.default_recorder()
+    rec.clear()
+    rng = np.random.default_rng(23)
+    acked, lock, ins_stop = {}, threading.Lock(), threading.Event()
+    ins_errors = []
+
+    def inserter():
+        # N(0, 1) rows: far from the mixture's clusters, so no fixed
+        # query's top 100 changes; ids above the base rows
+        for n in range(CHAOS_MAX_INSERTS):
+            if ins_stop.is_set():
+                return
+            ids = list(range(FLEET_ROWS + n * CHAOS_INSERT_ROWS,
+                             FLEET_ROWS + (n + 1) * CHAOS_INSERT_ROWS))
+            vecs = rng.standard_normal((CHAOS_INSERT_ROWS, DIM)).astype(np.float32)
+            try:
+                rep = router.insert(ids, vecs.tolist(), timeout_s=5.0)
+            except Exception as e:  # noqa: BLE001 — an unacked batch is the outcome
+                ins_errors.append(type(e).__name__)
+                continue
+            with lock:
+                for i, v in zip(ids, vecs):
+                    if i in set(rep["acked_ids"]):
+                        acked[i] = v
+            time.sleep(0.005)
+
+    # the fixed requests alone, before any traffic and after it all
+    before = [router.search(b, timeout_s=60.0) for b in fixed]
+    records, stop = [], threading.Event()
+    res = {}
+    threads = fleet_traffic(router, pool, CHAOS_QUERY_THREADS, stop, records)
+    th_ins = threading.Thread(target=inserter, daemon=True)
+    th_ins.start()
+    try:
+        t_start = time.perf_counter()
+        time.sleep(CHAOS_BEFORE_S)
+        gen_before = router.registry()["w1"]["generation"]
+        t_kill = time.perf_counter()
+        f.kill("w1", signal.SIGKILL)
+        res["to_degraded_s"] = wait_for(lambda: router.fleet_health()[1]["degraded"], 30.0,
+                                        "/fleet/healthz degraded after the kill")
+        code, body = http_json(router.url + "/fleet/healthz")
+        assert body["degraded"] and body["ok"], ("degraded, still serving", code, body)
+
+        def tripped():
+            router.sentinel.tick(force=True)
+            return any(a["rule"] == "worker_dead" for a in router.sentinel.active())
+
+        res["sentinel_worker_dead_s"] = wait_for(tripped, 30.0, "worker_dead trips")
+        time.sleep(CHAOS_OUTAGE_S)       # ingestion against the survivor
+        t_restart = time.perf_counter()
+        f.restart("w1")
+        res["rejoin_s"] = wait_for(
+            lambda: router.registry()["w1"]["state"] == "active"
+            and router.registry()["w1"]["generation"] > gen_before, FLEET_READY_S, "w1 rejoins")
+
+        def healed():
+            router.sentinel.tick(force=True)
+            return (not router.fleet_health()[1]["degraded"]
+                    and not any(a["rule"] == "worker_dead" for a in router.sentinel.active()))
+
+        res["to_healthy_after_rejoin_s"] = wait_for(healed, 60.0, "the fleet heals")
+        t_healed = time.perf_counter()
+        code, body = http_json(router.url + "/fleet/healthz")
+        assert code == 200 and body["ok"] and not body["degraded"], ("healed", code, body)
+        time.sleep(CHAOS_AFTER_S)
+        t_end = time.perf_counter()
+    finally:
+        ins_stop.set()
+        stop_threads(stop, threads)
+        th_ins.join(120)
+    assert not th_ins.is_alive(), "the inserter did not stop"
+    res["before"] = window_stats(records, t_start + 0.5, t_kill)
+    res["outage"] = window_stats(records, t_kill, t_healed)
+    res["after"] = window_stats(records, t_healed, t_end)
+    assert res["before"]["errors"] == 0 and res["after"]["errors"] == 0, res
+    res["restart_to_healthy_s"] = t_healed - t_restart
+    w1 = router.registry()["w1"]
+    code, info = http_json("http://127.0.0.1:%d/info" % w1["data_port"])
+    assert code == 200 and info["restore"]["restored"], info
+    res["restore"] = info["restore"]
+    res["insert_batches_acked"] = len(acked) // CHAOS_INSERT_ROWS
+    res["insert_errors"] = len(ins_errors)
+    res["rows_acked"] = len(acked)
+    assert acked, "the drill needs acked inserts"
+
+    # every acked id answers from the healed fleet at distance 0 under
+    # its own id: 1e-5 of |x|^2, the expanded form's float32 rounding
+    items = sorted(acked.items())
+    d, ids = search_in_requests(router, [v.tolist() for _, v in items])
+    for (i, v), drow, irow in zip(items, d, ids):
+        assert irow[0] == i, ("acked row lost or not first", i, irow[:3])
+        assert 0.0 <= drow[0] <= 1e-5 * max(1.0, float((v.astype(np.float64) ** 2).sum())), (
+            i, drow[0])
+    # exactly one terminal flight event for every admitted request
+    admitted = [e.attrs["rid"] for e in rec.events(kind="fleet_admitted")]
+    terminals = {}
+    for kind in ("fleet_resolved", "fleet_failed", "fleet_expired"):
+        for e in rec.events(kind=kind):
+            terminals[e.attrs["rid"]] = terminals.get(e.attrs["rid"], 0) + 1
+    assert len(rec) < rec.capacity, "the flight ring wrapped: raise flight_events"
+    bad = [rid for rid in admitted if terminals.get(rid, 0) != 1]
+    assert admitted and not bad, ("requests without exactly one terminal", bad[:5])
+    res["admitted_requests"] = len(admitted)
+    # the fixed requests: bitwise equal before the kill and after the rejoin
+    # (the inserted rows lie far from every fixed query's top 100)
+    after = [router.search(b, timeout_s=60.0) for b in fixed]
+    for a, b in zip(before, after):
+        assert not a["degraded"] and not b["degraded"]
+        assert a["ids"] == b["ids"] and a["distances"] == b["distances"], (
+            "fixed answers differ across the kill")
+    res["fixed_requests_equal"] = len(fixed)
+    return res
+
+
+def replicated_path(m, root, wrappers):
+    """``fleet_replicated_200k``: two workers each holding the whole
+    200,000-row index, queries placed by rendezvous on their tenant; the
+    primary of one tenant hangs (``/chaos``) for less than the lease, so
+    only the hedges (after ``REPL_HEDGE_MS``) answer in time."""
+    res = {"rows": REPL_ROWS, "nlist": REPL_NLIST, "hedge_ms": REPL_HEDGE_MS,
+           "hang_s": REPL_HANG_S}
+    data = m.synth(REPL_ROWS, DIM, FLEET_SEED, FLEET_CLUSTERS)
+    picks = list(range(0, REPL_ROWS, REPL_ROWS // 64))[:64]
+    router = m.Router(mode="replicated", shard_count=1, hedge_ms=REPL_HEDGE_MS, timeout_s=10.0)
+    t0 = time.perf_counter()
+    with m.Fleet(2, root=str(root), index_rows=REPL_ROWS, dim=DIM, k=K, mode="replicated",
+                 seed=FLEET_SEED, clusters=FLEET_CLUSTERS, nlist=REPL_NLIST, nprobe=FLEET_NPROBE,
+                 persist=False, service_opts=FLEET_SERVICE_OPTS, router=router,
+                 device="cuda") as f:
+        f.wait_ready(timeout=FLEET_READY_S)
+        res["ready_s"] = time.perf_counter() - t0
+        tenant = "hedged"
+        primary = m.protocol.rendezvous_rank(tenant, router.active_workers())[0]
+        reg = router.registry()
+        hedges0 = m.default_registry().family_total("raft_tpu_fleet_hedges_total")
+        wins0 = m.default_registry().family_total("raft_tpu_fleet_hedge_wins_total")
+        code, _ = http_json("http://127.0.0.1:%d/chaos" % reg[primary]["data_port"],
+                            {"fault": "hang", "duration_s": REPL_HANG_S})
+        assert code == 200, code
+        answers, errors = [], []
+
+        def client(rows):
+            try:
+                answers.append((rows, router.search([data[r].tolist() for r in rows],
+                                                    tenant=tenant, timeout_s=8.0)))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t_hang = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(picks[i:i + 8],), daemon=True)
+                   for i in range(0, len(picks), 8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        res["answered_s"] = time.perf_counter() - t_hang
+        assert not errors and len(answers) == len(threads), errors
+        for rows, out in answers:
+            assert [r[0] for r in out["ids"]] == rows, "a hedged answer is wrong"
+        res["requests"] = len(answers)
+        res["hedged_answers"] = sum(1 for _, out in answers if out["hedged"])
+        reg_now = m.default_registry()
+        res["hedges"] = reg_now.family_total("raft_tpu_fleet_hedges_total") - hedges0
+        res["hedge_wins"] = reg_now.family_total("raft_tpu_fleet_hedge_wins_total") - wins0
+        assert res["hedges"] >= 1 and res["hedge_wins"] >= 1, res
+        time.sleep(REPL_HANG_S + 0.5)      # the hang expires before teardown
+        per_worker = {}
+        for w, p in sorted(router.registry().items()):
+            per_fn, _ = scrape_worker("http://127.0.0.1:%d" % p["ops_port"], "ann_%s" % w)
+            per_worker[w] = worker_launches(per_fn, wrappers)
+        res["worker_launches"] = per_worker
+        wids = sorted(reg)
+    assert not any(f.proc_alive(w) for w in wids), "a worker outlived its fleet"
+    res["launches"] = {name: sum(c[name] for c in per_worker.values()) for name in wrappers}
+    print("fleet_replicated_200k: %s" % json.dumps(res), flush=True)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1946,7 +2478,7 @@ def main():
     from raft_tpu_torch.core.handle import Handle
     from raft_tpu_torch.core.metrics import default_registry
     from raft_tpu_torch.distance.pairwise import expanded_sq_dists
-    from raft_tpu_torch.ops import _build, ivf_tile
+    from raft_tpu_torch.ops import _build, cost, ivf_tile
     from raft_tpu_torch.ops.ivf_tile import (fused_ivf_scan, fused_ivf_scan_plain, item_queries,
                                              ivf_items, ivf_items_plain, scan_work_list)
     from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
@@ -1975,7 +2507,7 @@ def main():
 
     # the serve_ann_1M checks read every batch of its load back from the
     # flight recorder: a ring that holds the whole run
-    config.configure(flight_events="65536")
+    config.configure(flight_events="262144")
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
                 "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
@@ -2817,9 +3349,20 @@ def main():
         fused_knn_tile=fused_knn_tile, knn_tile_plain=knn_tile_plain, select_tile=select_tile,
         select_tile_plain=select_tile_plain, fused_ivf_scan=fused_ivf_scan,
         fused_ivf_scan_plain=fused_ivf_scan_plain, probe_compact=_probe_compact,
-        CommAbortedError=CommAbortedError)
+        CommAbortedError=CommAbortedError, cost=cost)
     spaths, sextra = session_paths(sctx, smods)
     paths.update(spaths)
+
+    # 5k. the fleet (queue 1 item 7): a router in this process, worker
+    # processes on the card; the kernels' launches read from the workers
+    from raft_tpu_torch.fleet import Fleet, Router, protocol
+    from raft_tpu_torch.fleet.worker import _synth
+
+    fctx = types.SimpleNamespace(dev=dev, reset=reset, counts=counts, wrappers=wrappers)
+    fmods = types.SimpleNamespace(synth=_synth, Fleet=Fleet, Router=Router, protocol=protocol,
+                                  flight=flight, default_registry=default_registry,
+                                  fused_knn_tile=fused_knn_tile)
+    paths.update(fleet_paths(fctx, fmods))
 
     # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
     # precisions, row norm, the two reductions and the transpose, each held
@@ -2964,7 +3507,7 @@ def main():
         assert (res.iters_eig, res.iters_cluster) == (res2.iters_eig, res2.iters_cluster)
         labels = res.clusters.cpu().numpy()
         ari = adjusted_rand_index(labels, truth)
-        edge_cut, cost = spectral.analyze_partition(csr, 2, res.clusters, device=dev)
+        edge_cut, ratio_cut = spectral.analyze_partition(csr, 2, res.clusters, device=dev)
         L = spectral.LaplacianMatrix(csr)
         resid = [float(torch.linalg.vector_norm(L.mv(v) - lam * v))
                  for lam, v in zip(res.eig_vals, res.eig_vecs.T.contiguous())]
@@ -3014,7 +3557,7 @@ def main():
             "lanczos_iters": res.iters_eig, "lanczos_iter_cap": cap_iters,
             "stopped_on_tol": res.iters_eig < cap_iters, "ritz_residuals": resid,
             "eig_vals": res.eig_vals.tolist(), "kmeans_iters": res.iters_cluster,
-            "ari": ari, "edge_cut": float(edge_cut), "ratio_cut": float(cost),
+            "ari": ari, "edge_cut": float(edge_cut), "ratio_cut": float(ratio_cut),
             "lanczos_ms": lanczos_ms, "spmv_queued_ms": spmv_q,
             "spmv_library_queued_ms": queued_ms(lambda: a_lib @ x[:, None]),
             "spmv_library_max_rel_err": lib_err,
@@ -3144,8 +3687,7 @@ def main():
         xn = (index * index).sum(1)
         return torch.topk(qn + xn - 2.0 * (queries @ index.T), K, dim=1, largest=False)
 
-    knn_ops = 2.0 * N_QUERIES * N_INDEX * DIM
-    knn_bytes = 4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * K
+    knn_ops, knn_bytes = cost.knn_cost(N_QUERIES, N_INDEX, DIM, K)
     b, by = bound_tf32x3(knn_ops, knn_bytes)
     k1_ms = time_ms(lambda: fused_knn_tile(index, queries, K), reps=5)
     k1_clocks = clocks_line()
@@ -3163,7 +3705,7 @@ def main():
     got, ref = select_tile(keys, K), select_tile_plain(keys, K)
     check_exact("select_tile main-path values", got[0], ref[0])
     check_exact("select_tile main-path ids", got[1], ref[1])
-    b, by = bound(1.0 * N_QUERIES * N_L1, 4.0 * N_QUERIES * N_L1 + 8.0 * N_QUERIES * K)
+    b, by = bound(*cost.select_cost(N_QUERIES, N_L1, K))
     rows.append({
         "name": "select_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/select_tile.cu",
         "replaces": "raft_tpu/ops/select_tile.py:133",
@@ -3214,7 +3756,7 @@ def main():
                         "route": "wide, %d blocks a row" % chunks if chunks else "held",
                         "ms": time_ms(lambda: select_tile(path_keys, k), reps=20),
                         "queued_ms": queued_ms(lambda: select_tile(path_keys, k)),
-                        "bound_ms": (4.0 * m * w + 8.0 * m * k) / PEAK_BYTES * 1e3,
+                        "bound_ms": cost.select_cost(m, w, k)[1] / PEAK_BYTES * 1e3,
                         "bound_by": "bytes",
                         "library_ms": time_ms(topk, reps=20),
                         "library_queued_ms": queued_ms(topk)})
@@ -3233,15 +3775,16 @@ def main():
     ref_keys = pairwise_tile_plain(queries, index_l1, D.L1)
     errs["pairwise_tile"] = max(errs["pairwise_tile"], (keys - ref_keys).abs().max().item())
     del ref_keys
-    # K5's bound: issued FP32 instructions, K5_INSTR_PER_STEP a step, 128 a
-    # clock on each SM at the SM clock read right after the timing
+    # K5's bound: issued FP32 instructions, cost.K5_INSTR_PER_STEP a step,
+    # 128 a clock on each SM at the SM clock read right after the timing
     k5_ms = time_ms(lambda: pairwise_tile(queries, index_l1, D.L1), reps=5)
     k5_clocks = clocks_line()
     k5_metric_ms = {metric.name: time_ms(lambda: pairwise_tile(queries, index_l1, metric), reps=3)
                     for metric in (D.L2Unexpanded, D.Linf)}
     sm_hz = float(k5_clocks.split(",")[0].split()[0]) * 1e6
-    t_ops = (1.0 * N_QUERIES * N_L1 * DIM * K5_INSTR_PER_STEP / (128.0 * n_sms * sm_hz) * 1e3)
-    t_bytes = (4.0 * (N_QUERIES + N_L1) * DIM + 4.0 * N_QUERIES * N_L1) / PEAK_BYTES * 1e3
+    k5_ops, k5_bytes = cost.pairwise_cost(N_QUERIES, N_L1, DIM)
+    t_ops = k5_ops / (128.0 * n_sms * sm_hz) * 1e3
+    t_bytes = k5_bytes / PEAK_BYTES * 1e3
     rows.append({
         "name": "pairwise_tile", "route": "cuda",
         "source": "raft_tpu_torch/ops/csrc/pairwise_tile.cu",
@@ -3252,7 +3795,7 @@ def main():
         "plain_ms": time_ms(lambda: pairwise_tile_plain(queries, index_l1, D.L1), reps=2),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_note": "%d FP32 instructions a step (L1, L2Unexpanded, Linf), 128 a clock on "
-                      "each of %d SMs at %.0f MHz" % (K5_INSTR_PER_STEP, n_sms, sm_hz / 1e6),
+                      "each of %d SMs at %.0f MHz" % (cost.K5_INSTR_PER_STEP, n_sms, sm_hz / 1e6),
         "library_ms": time_ms(lambda: torch.cdist(queries, index_l1, p=1), reps=3)})
     del keys
     # K5's accumulate-only mode at the column-tiled engine's launch shape
@@ -3273,8 +3816,9 @@ def main():
     raw_ms = time_ms(lambda: pairwise_tile(xa, xb, D.L1, epilog=False), reps=5)
     raw_clocks = clocks_line()
     raw_hz = float(raw_clocks.split(",")[0].split()[0]) * 1e6
-    r_ops = 1.0 * rm * rn * rk * K5_INSTR_PER_STEP / (128.0 * n_sms * raw_hz) * 1e3
-    r_bytes = 4.0 * ((rm + rn) * rk + rm * rn) / PEAK_BYTES * 1e3
+    r_ops, r_bytes = cost.pairwise_cost(rm, rn, rk)
+    r_ops = r_ops / (128.0 * n_sms * raw_hz) * 1e3
+    r_bytes = r_bytes / PEAK_BYTES * 1e3
     rows[-1]["raw_mode"] = {
         "shape": "L1 without the epilog, x %dx%d, y %dx%d f32" % (rm, rk, rn, rk),
         "max_abs_err": raw_err, "max_rel_err": raw_err / raw_scale, "ms": raw_ms,
@@ -3296,7 +3840,7 @@ def main():
         return torch.min(xn[:, None] + cn[None, :] - 2.0 * (xs @ cents.T), dim=1)
 
     m, n = xs.shape[0], cents.shape[0]
-    nn_ops, nn_bytes = 2.0 * m * n * DIM, 4.0 * (m + n) * DIM + 8.0 * m
+    nn_ops, nn_bytes = cost.nn_cost(m, n, DIM)
     b, by = bound_tf32x3(nn_ops, nn_bytes)
     rows.append({
         "name": "nn_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/nn_tile.cu",
@@ -3315,7 +3859,7 @@ def main():
     cb_err = check_nn("nn_tile at a codebook's shape", *got, *ref, xs, cents, l2_atol(xs, cents))
     errs["nn_tile"] = max(errs["nn_tile"], cb_err)
     m, n = xs.shape[0], cents.shape[0]
-    cb_ops, cb_bytes = 2.0 * m * n * xs.shape[1], 4.0 * (m + n) * xs.shape[1] + 8.0 * m
+    cb_ops, cb_bytes = cost.nn_cost(m, n, xs.shape[1])
     b, by = bound_tf32x3(cb_ops, cb_bytes)
     rows[-1]["codebook"] = {
         "shape": "x %dx%d f32 against %d codewords" % (m, xs.shape[1], n), "max_abs_err": cb_err,
@@ -3366,8 +3910,9 @@ def main():
     row_bytes = 4.0 * DIM + 8.0                  # vector, norm, id
     io_bytes = 4.0 * N_QUERIES * DIM + 4.0 * slots.numel() + 8.0 * N_QUERIES * K
     n_items = int(work.n_items)
-    scan_ops = 2.0 * DIM * rows_scanned
-    b, by = bound_tf32x3(scan_ops, rows_distinct * row_bytes + io_bytes)
+    scan_ops, least_bytes = cost.ivf_scan_cost(N_QUERIES, DIM, K, slots.numel(), rows_scanned,
+                                               rows_distinct)
+    b, by = bound_tf32x3(scan_ops, least_bytes)
     rows.append({
         "name": "ivf_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/ivf_tile.cu",
         "replaces": "raft_tpu/ops/ivf_tile.py:230",
@@ -3382,11 +3927,11 @@ def main():
         "merge_ms": time_ms(merge, reps=5),
         "plain_ms": time_ms(lambda: fused_ivf_scan_plain(*scan_args), reps=2),
         "bound_ms": b, "bound_by": by,
-        "bound_fp32_ms": bound(scan_ops, rows_distinct * row_bytes + io_bytes)[0],
+        "bound_fp32_ms": bound(scan_ops, least_bytes)[0],
         "library_ms": None, "library": "none: no single PyTorch call scans an IVF list",
         "bf16_ms": time_ms(lambda: fused_ivf_scan(*scan_args, accum_bf16=True), reps=5),
         "bf16_kernel_ms": time_ms(lambda: ivf_items(*flat, accum_bf16=True), reps=5),
-        "rows_scanned": rows_scanned, "least_bytes": rows_distinct * row_bytes + io_bytes,
+        "rows_scanned": rows_scanned, "least_bytes": least_bytes,
         "item_bytes": n_items * cap * row_bytes + io_bytes,
         "per_query_bytes": rows_scanned * row_bytes + io_bytes,
         "ooc_tile": paths["serve_ann_ooc_1M"]["k3_tile"], "mnmg_shard": sextra["k3_shard"]})
@@ -3407,7 +3952,7 @@ def main():
         "plain_ms": time_ms(lambda: knn_twophase_plain(index, queries, K, TWOPHASE_BLOCK_N),
                             reps=2),
         "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(knn_ops, knn_bytes)[0],
-        "phase1_bytes": 4.0 * (N_INDEX + N_QUERIES) * DIM + 8.0 * N_QUERIES * n_tiles * 128,
+        "phase1_bytes": cost.knn_cost(N_QUERIES, N_INDEX, DIM, n_tiles * 128)[1],
         "library_ms": time_ms(full_l2_topk, reps=3),
         "library": "composition: expanded-L2 matmul + torch.topk, as K1's"})
 

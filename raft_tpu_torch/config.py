@@ -13,7 +13,9 @@ variables.  Resolution order (first hit wins):
 Every knob here is read at construction time (a service, a recorder),
 so a change affects the next construction.  The JAX
 package's tuning-table layer and the impl-choice and block-shape knobs
-that it serves (``core/tuning.py``) are not ported.  Free-form numeric
+that it serves (``core/tuning.py``) are not ported yet (queue 1 item 7b
+of ``ROADMAP.md``): :func:`describe` attributes each knob to one of the
+four rungs above, never to a tuning table.  Free-form numeric
 and list knobs read through the typed helpers (:func:`get_int`,
 :func:`get_float`, :func:`get_int_list`, :func:`get_float_list`), so
 that a malformed value fails as a :class:`LogicError` naming the knob
@@ -63,6 +65,34 @@ serve_hedge_ms / serve_hedge_factor / serve_hedge_min_ms
     threshold in milliseconds (``0`` = adaptive: ``serve_hedge_factor`` x
     the fastest in-rotation replica's p99 at the batch's rung, floored at
     ``serve_hedge_min_ms``).
+ops_healthz_ttl_s
+    TTL of the ops plane's cached full ``health_check()`` verdict
+    (``/healthz?full=1``, :class:`raft_tpu_torch.serve.opsplane.OpsPlane`):
+    scrapes within the window share one battery run.
+ops_sentinel_interval_s / ops_sentinel_latency_factor /
+ops_sentinel_min_samples / ops_sentinel_queue_frac / ops_sentinel_burn /
+ops_sentinel_wal_records / ops_sentinel_stall_frac /
+ops_sentinel_rejoin_ms_per_record / ops_sentinel_rejoin_hold_s
+    The anomaly sentinel (:mod:`raft_tpu_torch.serve.sentinel`): the least
+    seconds between evaluations, the ``exec_latency`` breach multiplier
+    over the rolling baseline, the batches (and per-tenant SLO outcomes)
+    before a baseline rule judges, the ``queue_depth`` fraction of the
+    admission cap, the ``slo_burn`` threshold, the ``wal_depth`` record
+    threshold, the ``tile_stall`` fraction of H2D time, the
+    ``rejoin_lag`` milliseconds per replayed WAL record, and how long
+    after a rejoin that rule judges it.
+fleet_lease_interval_s / fleet_lease_misses
+    The fleet's heartbeat period and the missed beats before the router
+    evicts a worker (:mod:`raft_tpu_torch.fleet.router`).
+fleet_retry_max / fleet_retry_backoff_s
+    The router's dispatch retry budget and its initial backoff (doubling;
+    a worker's ``retry_after_s`` hint overrides it upward).
+fleet_hedge_ms
+    Replicated mode: a primary silent this long gets a hedged
+    re-dispatch to the next worker in rendezvous order (``0`` = none).
+fleet_timeout_s / fleet_inflight_cap
+    The default deadline of a router request, and the router's global
+    admission cap (typed ``ServiceOverloadError`` at or above it).
 """
 
 from __future__ import annotations
@@ -72,7 +102,7 @@ import threading
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional, Tuple
 
-__all__ = ["configure", "override", "get", "knob_default", "get_int",
+__all__ = ["configure", "override", "get", "describe", "knob_default", "get_int",
            "get_float", "get_int_list", "get_float_list"]
 
 # knob -> (env alias, default)
@@ -103,6 +133,23 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "serve_slo_target_ms": ("RAFT_TPU_SERVE_SLO_TARGET_MS", "100"),
     "serve_slo_objective": ("RAFT_TPU_SERVE_SLO_OBJECTIVE", "0.99"),
     "serve_slo_windows_s": ("RAFT_TPU_SERVE_SLO_WINDOWS_S", "60,300"),
+    "ops_healthz_ttl_s": ("RAFT_TPU_OPS_HEALTHZ_TTL_S", "15"),
+    "ops_sentinel_interval_s": ("RAFT_TPU_OPS_SENTINEL_INTERVAL_S", "1"),
+    "ops_sentinel_latency_factor": ("RAFT_TPU_OPS_SENTINEL_LATENCY_FACTOR", "3"),
+    "ops_sentinel_min_samples": ("RAFT_TPU_OPS_SENTINEL_MIN_SAMPLES", "20"),
+    "ops_sentinel_queue_frac": ("RAFT_TPU_OPS_SENTINEL_QUEUE_FRAC", "0.8"),
+    "ops_sentinel_burn": ("RAFT_TPU_OPS_SENTINEL_BURN", "2"),
+    "ops_sentinel_wal_records": ("RAFT_TPU_OPS_SENTINEL_WAL_RECORDS", "100000"),
+    "ops_sentinel_stall_frac": ("RAFT_TPU_OPS_SENTINEL_STALL_FRAC", "0.5"),
+    "ops_sentinel_rejoin_ms_per_record": ("RAFT_TPU_OPS_SENTINEL_REJOIN_MS_PER_RECORD", "50"),
+    "ops_sentinel_rejoin_hold_s": ("RAFT_TPU_OPS_SENTINEL_REJOIN_HOLD_S", "10"),
+    "fleet_lease_interval_s": ("RAFT_TPU_FLEET_LEASE_INTERVAL_S", "0.5"),
+    "fleet_lease_misses": ("RAFT_TPU_FLEET_LEASE_MISSES", "3"),
+    "fleet_retry_max": ("RAFT_TPU_FLEET_RETRY_MAX", "3"),
+    "fleet_retry_backoff_s": ("RAFT_TPU_FLEET_RETRY_BACKOFF_S", "0.05"),
+    "fleet_hedge_ms": ("RAFT_TPU_FLEET_HEDGE_MS", "100"),
+    "fleet_timeout_s": ("RAFT_TPU_FLEET_TIMEOUT_S", "10"),
+    "fleet_inflight_cap": ("RAFT_TPU_FLEET_INFLIGHT_CAP", "256"),
 }
 
 # sentinel for "no layer claimed this knob" during resolution — distinct
@@ -125,9 +172,12 @@ def _check(name: str) -> None:
             f"(have: {', '.join(sorted(_KNOBS))})")
 
 
-def get(name: str) -> Optional[str]:
-    """Resolve a knob (module-doc order); the raw string."""
-    _check(name)
+def _attribute(name: str) -> Tuple[Optional[str], str]:
+    """``(value, rung)`` of a knob, walking the module-doc order: the
+    innermost override frame, then :func:`configure`, the environment and
+    the default.  A literal None in a frame is the scoped revert to
+    env/default (it skips :func:`configure` too).  The one copy of the
+    walk: :func:`get` and :func:`describe` share it."""
     env, default = _KNOBS[name]
     val = _UNSET
     for frame in reversed(_frames()):
@@ -135,10 +185,29 @@ def get(name: str) -> Optional[str]:
             val = frame[name]
             break
     if val is _UNSET and name in _values:
-        return _values[name]
+        return _values[name], "configure"
     if val is not _UNSET and val is not None:
-        return val
-    return os.environ.get(env, default)
+        return val, "override"
+    ev = os.environ.get(env)
+    if ev is not None:
+        return ev, "env"
+    return default, "default"
+
+
+def get(name: str) -> Optional[str]:
+    """Resolve a knob (module-doc order); the raw string."""
+    _check(name)
+    return _attribute(name)[0]
+
+
+def describe(layers: bool = False) -> Dict:
+    """The effective value of every knob; ``layers=True`` also names the
+    rung that answered: ``{knob: {"value": ..., "layer": "override" |
+    "configure" | "env" | "default"}}`` (no ``"table"`` rung until the
+    tuning table is ported, module doc)."""
+    if not layers:
+        return {name: _attribute(name)[0] for name in _KNOBS}
+    return {name: dict(zip(("value", "layer"), _attribute(name))) for name in _KNOBS}
 
 
 def knob_default(name: str) -> Optional[str]:

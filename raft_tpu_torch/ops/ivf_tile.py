@@ -59,10 +59,10 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import inventory, precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
-from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops import _build, cost
 from raft_tpu_torch.ops.knn_tile import DEPTH_UNIT, pad_depth
 from raft_tpu_torch.ops.select_tile import select_tile
 
@@ -210,10 +210,27 @@ def ivf_items(queries: torch.Tensor, store: torch.Tensor, norms: torch.Tensor,
                   int(bool(accum_bf16)), out_d.data_ptr(), out_i.data_ptr(), stream)
     _build.check(code, "ivf_items")
     ivf_items.launches += 1
+    inventory.count_launch(
+        "ivf_tile", (q.shape[0], n_out, x.shape[0], dp, cap, k, bool(accum_bf16)), lambda: (
+            *item_cost(ids, work, cap, queries.shape[0], queries.shape[1], k, n_out),
+            inventory.footprint((q, qn, x, *args), (out_d, out_i))))
     return out_d, out_i
 
 
 ivf_items.launches = 0
+
+
+def item_cost(ids: torch.Tensor, work: ScanWork, cap: int, nq: int, d: int, k: int,
+              n_entries: int) -> Tuple[float, float]:
+    """:func:`raft_tpu_torch.ops.cost.ivf_scan_cost` of a work list: each
+    item's entries scan the stored rows of its slot, and the distinct
+    slots' rows are read once.  Reads the item count from the device."""
+    items = work.items[:int(work.n_items)].long()
+    stored = (ids.view(-1, cap) >= 0).sum(dim=1)
+    slot = items[:, 2] // cap
+    rows_scanned = int((items[:, 1] * stored[slot]).sum())
+    rows_distinct = int(stored[torch.unique(slot)].sum())
+    return cost.ivf_scan_cost(nq, d, k, n_entries, rows_scanned, rows_distinct)
 
 
 def item_queries(d: int, device: torch.device) -> int:

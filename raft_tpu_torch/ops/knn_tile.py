@@ -49,10 +49,10 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import inventory, precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
-from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops import _build, cost
 from raft_tpu_torch.ops.select_tile import select_tile, select_tile_plain
 
 MAX_K = 128
@@ -178,6 +178,9 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
                   part_i.data_ptr(), stream)
     _build.check(code, "fused_knn_tile")
     fused_knn_tile.launches += 1
+    inventory.count_launch("knn_tile", (nq, n, dp, k), lambda: (
+        *cost.knn_cost(nq, n, d, k),
+        inventory.footprint((queries, index, qn, xn), (part_d, part_i), smem_bytes(dp, k))))
     if splits == 1:
         return part_d, part_i
     out_d, pos = select_tile(part_d, k)
@@ -281,6 +284,10 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor,
                   part_i.data_ptr(), stream)
     _build.check(code, "twophase_tiles")
     twophase_tiles.launches += 1
+    inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn), lambda: (
+        *cost.knn_cost(nq, n, d, width),
+        inventory.footprint((queries, index, qn, xn), (part_d, part_i),
+                            smem_bytes(index.shape[1], TWOPHASE_PAD))))
     return part_d, part_i
 
 

@@ -25,9 +25,9 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import inventory, precision
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops import _build, cost
 from raft_tpu_torch.ops.knn_tile import prepare_operands
 
 IDX_SENTINEL = 2**31 - 1
@@ -87,6 +87,8 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
                   out_v.data_ptr(), out_i.data_ptr(), stream)
     _build.check(code, "fused_nn_tile")
     fused_nn_tile.launches += 1
+    inventory.count_launch("nn_tile", (m, n, x.shape[1]), lambda: (
+        *cost.nn_cost(m, n, d), inventory.footprint((x, y, xn, yn), (out_v, out_i))))
     return out_v, out_i
 
 

@@ -25,9 +25,10 @@ import ctypes
 
 import torch
 
+from raft_tpu_torch.core import inventory
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.distance_type import DistanceType
-from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops import _build, cost
 
 D = DistanceType
 
@@ -127,6 +128,8 @@ def pairwise_tile(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
                   out.data_ptr(), stream)
     _build.check(code, "pairwise_tile")
     pairwise_tile.launches += 1
+    inventory.count_launch("pairwise_tile", (m, n, d, int(metric), bool(epilog)), lambda: (
+        *cost.pairwise_cost(m, n, d), inventory.footprint((x, y), (out,))))
     return out
 
 

@@ -32,8 +32,9 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core import inventory
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops import _build, cost
 
 MAX_K = 128
 # csrc/select_tile.cu: the widest row one block holds, the least keys a
@@ -114,6 +115,8 @@ def select_tile(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     _build.check(code, "select_tile")
     select_tile.launches += 1
     select_tile.shapes[(m, w, k)] += 1
+    inventory.count_launch("select_tile", (m, w, k), lambda: (
+        *cost.select_cost(m, w, k), inventory.footprint((keys,), (out_k, out_i), scratch.numel())))
     return out_k, out_i
 
 

@@ -60,7 +60,16 @@ def _dtype_tag(dtype: np.dtype) -> bytes:
     return tag.ljust(8, b"\0")
 
 
+# Chaos/test seam: when set, called (no args) immediately before every
+# fsync; the fleet's chaos hooks (raft_tpu_torch/fleet/worker.py) inject
+# fsync stalls here.  None in production.
+FSYNC_HOOK = None
+
+
 def _fsync(f) -> None:
+    hook = FSYNC_HOOK
+    if hook is not None:
+        hook()
     f.flush()
     os.fsync(f.fileno())
 

@@ -29,8 +29,11 @@ Every layer records into the flight recorder
 (:mod:`raft_tpu_torch.core.flight`): each admitted request carries a
 trace_id and ``ServeFuture.trace()`` returns its complete timeline.
 
-Not ported yet: the ops plane with its anomaly sentinel (queue 1 item
-7 of ``ROADMAP.md``).
+The embedded ops plane (:class:`OpsPlane`, a pull endpoint for
+scrapers: ``/metrics``, ``/healthz``, ``/statusz``, ``/debug/*``) lives in
+:mod:`~raft_tpu_torch.serve.opsplane`, and the anomaly sentinel that
+watches the services' vitals (:class:`AnomalySentinel`) in
+:mod:`~raft_tpu_torch.serve.sentinel`.
 """
 
 from raft_tpu_torch.serve.ann_service import ANNService  # noqa: F401
@@ -42,6 +45,7 @@ from raft_tpu_torch.serve.bucketing import (  # noqa: F401
     resolve_rungs,
     split_rows,
 )
+from raft_tpu_torch.serve.opsplane import OpsPlane  # noqa: F401
 from raft_tpu_torch.serve.replicas import (  # noqa: F401
     ReplicaFaultInjector,
     ReplicaSet,
@@ -56,6 +60,7 @@ from raft_tpu_torch.serve.resilience import (  # noqa: F401
     inject_worker,
 )
 from raft_tpu_torch.serve.scheduler import ServeWorker  # noqa: F401
+from raft_tpu_torch.serve.sentinel import AnomalySentinel  # noqa: F401
 from raft_tpu_torch.serve.service import (  # noqa: F401
     KNNService,
     PairwiseService,
@@ -68,4 +73,5 @@ __all__ = [
     "Service", "KNNService", "PairwiseService", "ANNService",
     "BreakerState", "CircuitBreaker", "ServeFaultInjector", "inject_worker",
     "RecoveryManager", "ReplicaSet", "split_mesh", "inject_replica", "ReplicaFaultInjector",
+    "OpsPlane", "AnomalySentinel",
 ]

@@ -106,7 +106,7 @@ is IVF-Flat only and resident only: PQ, SQ and ``ooc=True`` are refused,
 as the JAX service refuses them.
 
 Not ported yet: ``select_impl`` raises a :class:`RaftError` naming its
-queue item (``ROADMAP.md``, queue 1, item 7).  The JAX package's buffer
+queue item (``ROADMAP.md``, queue 1, item 7b).  The JAX package's buffer
 donation has no PyTorch counterpart (``serve/scheduler.py``).
 """
 
@@ -142,7 +142,7 @@ _CPU = torch.device("cpu")
 
 # arguments of the JAX ANNService that wait for a later item of queue 1
 _DEFERRED = {
-    "select_impl": "item 7 (core/tuning.py)",
+    "select_impl": "item 7b (core/tuning.py)",
 }
 
 

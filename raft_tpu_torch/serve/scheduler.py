@@ -50,9 +50,13 @@ recovery re-enqueue records a non-terminal ``requeued``).  The device
 call runs under :func:`raft_tpu_torch.core.flight.batch_scope`, and each
 resolution feeds the service's SLO tracker and slowest-K exemplars.
 The JAX package's per-executable device timer
-(``raft_tpu_serve_device_seconds{fn=}``) keys on ``profiled_jit`` names
-for the cost inventory, neither of which exists here, so it is not
-ported.
+(``raft_tpu_serve_device_seconds{fn=}``) keys on ``profiled_jit`` names,
+which do not exist here; the port's cost inventory
+(:mod:`raft_tpu_torch.core.inventory`) is keyed by kernel, and a
+per-kernel device timer on the serving path is not built yet
+(``ROADMAP.md``'s performance list), so the ops plane's roofline join
+leaves its measured columns null.  Between batch cycles the worker
+pokes the anomaly sentinel (:mod:`raft_tpu_torch.serve.sentinel`).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import torch
 from raft_tpu_torch.core import flight
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core.error import CommTimeoutError, expects
+from raft_tpu_torch.serve import sentinel as _sentinel
 from raft_tpu_torch.serve.batcher import MicroBatcher, _Request
 from raft_tpu_torch.serve.bucketing import BucketPolicy, coalesce, pad_rows
 
@@ -427,6 +432,11 @@ class ServeWorker:
         — a pipelined in-flight batch keeps it set) so ``drain``
         observes maintenance as work in progress: after ``drain()``
         returns, no compaction is mid-flight.  Never raises."""
+        # the anomaly sentinel rides the maintenance seam: a loaded
+        # serving process notices a breach within one batch cycle
+        # (rate-limited and exception-proof inside; a no-op when no ops
+        # plane registered a sentinel)
+        _sentinel.poke()
         fn = self._maintenance
         if fn is None:
             return

@@ -27,6 +27,12 @@ seam: ``faults.inject(session.comms, faults.Abort(rank=r))`` aborts the
 communicator on the rank's next verb and makes its probe fail while the
 others answer, which is what ``health_check`` reports and ``recover``
 (with no explicit survivors) acts on.
+
+Observability: :meth:`Comms.serve_ops` starts the embedded ops plane
+(:class:`~raft_tpu_torch.serve.opsplane.OpsPlane`) over the session's
+services, and :meth:`destroy` closes it before it drains them;
+:func:`metrics_snapshot` carries the kernel cost inventory
+(:mod:`raft_tpu_torch.core.inventory`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from raft_tpu_torch.comms import HostComms, default_mesh, selftest
 from raft_tpu_torch.comms.mesh import Mesh, Rank, as_mesh
 from raft_tpu_torch.comms.resilience import RetryPolicy
 from raft_tpu_torch.core import flight as _flight
+from raft_tpu_torch.core import inventory as _inventory
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core import profiler as _profiler
 from raft_tpu_torch.core import tracing
@@ -53,7 +60,6 @@ from raft_tpu_torch.core.handle import Handle
 _sessions: Dict[str, "Comms"] = {}
 
 _BOOTSTRAP_ITEM = "item 8 (the multi-process bootstrap over torch.distributed)"
-_OPS_ITEM = "item 7 (the ops plane)"
 
 
 def inject_comms_on_handle(handle: Handle, comms: HostComms) -> None:
@@ -112,6 +118,7 @@ class Comms:
         self.handle: Optional[Handle] = None
         self._handles: List[Handle] = []
         self._services: Dict[str, object] = {}
+        self._ops_plane = None
 
     # -- lifecycle (reference init/destroy, comms.py:171,228) ---------- #
     def init(self) -> "Comms":
@@ -140,15 +147,23 @@ class Comms:
     def destroy(self) -> None:
         """Tear down and deregister (reference destroy, comms.py:228).
 
-        Services registered through :meth:`serve` are drained and closed
-        first (bounded): an in-flight batch must finish before the
-        communicator it may use goes away.  Idempotent, and the registry
+        The ops plane goes first (scrapers stop reading service state
+        before the services it reports on are drained), then services
+        registered through :meth:`serve` are drained and closed (bounded):
+        an in-flight batch must finish before the communicator it may use
+        goes away.  Idempotent, and the registry
         entry is removed in a ``finally``, so a teardown failure never
         leaves a dead session shadowing a later one."""
         if not self.initialized:
             _sessions.pop(self.sessionId, None)
             return
         try:
+            plane, self._ops_plane = self._ops_plane, None
+            if plane is not None:
+                try:
+                    plane.close()
+                except Exception:
+                    pass
             for svc in list(self._services.values()):
                 try:
                     svc.close(drain=True, timeout=10.0)
@@ -335,14 +350,32 @@ class Comms:
         return dict(self._services)
 
     def serve_ops(self, port: int = 0, **kwargs):
-        """The embedded ops plane: item 7 of ``ROADMAP.md``; raises."""
-        raise RaftError("Comms.serve_ops: the ops plane is not ported yet; it waits for "
-                        "queue 1 %s" % _OPS_ITEM, collect_stack=False)
+        """Start the embedded ops plane over this session: an HTTP
+        endpoint on a daemon thread serving ``/metrics``, ``/healthz``
+        (``?full=1`` runs :meth:`health_check` behind a TTL cache),
+        ``/statusz``, ``/debug/traces``, ``/debug/config``,
+        ``/debug/inventory``, ``/debug/snapshot`` and ``POST
+        /debug/blackbox`` (:mod:`raft_tpu_torch.serve.opsplane`).
+
+        ``port=0`` binds an ephemeral port (read ``plane.port``);
+        ``kwargs`` go to :class:`~raft_tpu_torch.serve.opsplane.OpsPlane`
+        (``host=``, ``sentinel=``, ``healthz_ttl_s=``, ...).  One live
+        plane a session; :meth:`destroy` closes it before draining the
+        services."""
+        expects(self.initialized, "serve_ops: session not initialized")
+        # a manually closed plane must not brick the session: only a
+        # live plane blocks a second one
+        expects(self._ops_plane is None or self._ops_plane.closed,
+                "serve_ops: this session already has a live ops plane (close it first)")
+        from raft_tpu_torch.serve.opsplane import OpsPlane
+
+        self._ops_plane = OpsPlane(session=self, port=port, **kwargs)
+        return self._ops_plane
 
     @property
     def ops_plane(self):
-        """The session's ops plane: item 7 of ``ROADMAP.md``; always None."""
-        return None
+        """The session's live ops plane, or None."""
+        return self._ops_plane
 
     # -- observability ------------------------------------------------- #
     def metrics_snapshot(self) -> Dict:
@@ -396,16 +429,21 @@ Session = Comms
 def metrics_snapshot() -> Dict:
     """Process-global observability snapshot: the flight recorder's state
     (taken first: it publishes the SLO gauges), the metrics registry, the
-    profiler's span tree and report, and the resilience event counters.
-    The JAX package's program inventory and compile-cache sections wait
-    for item 7 of ``ROADMAP.md`` (there is no compile cache to report)."""
+    profiler's span tree and report, the resilience event counters, and
+    the kernel cost inventory (summary plus ``detail``).  The JAX
+    package's compile-cache section has no counterpart: there is no
+    compile cache to report (the kernels' build counts are
+    :func:`raft_tpu_torch.ops._build.stats`)."""
     fl = _flight.flight_snapshot()
+    inv = _inventory.summary()
+    inv["detail"] = _inventory.snapshot()
     return {
         "metrics": _metrics.default_registry().snapshot(),
         "profiler_tree": _profiler.default_profiler().tree(),
         "profiler_report": _profiler.default_profiler().report(),
         "event_counters": tracing.counters(),
         "flight": fl,
+        "inventory": inv,
     }
 
 

@@ -54,7 +54,7 @@ The communicator resolves from (in order) an explicit ``comms``, the
 ``handle``'s injected comms, an explicit ``mesh``/``axis`` pair, the
 handle's mesh, or the default mesh of ``device`` (one rank a visible
 card).  Results land on the first rank's device.  ``select_impl`` (the
-approximate selects) waits for item 7 of ``ROADMAP.md``; the JAX
+approximate selects) waits for item 7b of ``ROADMAP.md``; the JAX
 donating twins and ``profiled_jit`` have no counterpart.
 """
 
@@ -118,7 +118,7 @@ def resolve_merge(merge: Optional[str], *, devices: Optional[int] = None,
     """The merge topology: the explicit argument, else the ``mnmg_merge``
     knob (override, configure, env ``RAFT_TPU_MNMG_MERGE``, default).
     The JAX package also consults its tuning table on the (devices, n,
-    k) shape class; that table is item 7 of ``ROADMAP.md``."""
+    k) shape class; that table is item 7b of ``ROADMAP.md``."""
     del devices, n, k
     name = merge if merge is not None else config.get("mnmg_merge")
     expects(name in MERGE_TOPOLOGIES, "mnmg_merge: %r is not one of %s", name,
@@ -492,7 +492,7 @@ def mnmg_ivf_flat_search(sharded: ShardedIVFFlat, queries, k: int,
 
     if select_impl is not None:
         raise RaftError("mnmg_ivf_flat_search: select_impl=%r is not ported yet; it waits "
-                        "for queue 1 item 7 (core/tuning.py)" % (select_impl,),
+                        "for queue 1 item 7b (core/tuning.py)" % (select_impl,),
                         collect_stack=False)
     _check_metric("mnmg_ivf_flat_search", sharded.metric)
     mesh = sharded.mesh

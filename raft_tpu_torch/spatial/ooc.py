@@ -60,7 +60,7 @@ that no query probes is skipped.
 Unlike the JAX package, nothing here is compiled per shape, so
 ``force_rounds`` (warmup) streams empty tiles through the pool without
 scanning them.  ``select_impl`` (approximate selects) waits for queue 1
-item 7 and raises.
+item 7b and raises.
 """
 
 from __future__ import annotations
@@ -257,7 +257,7 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
     """
     if select_impl is not None:
         raise RaftError("ooc_ivf_flat_search: select_impl= is not ported yet; it waits for "
-                        "queue 1 item 7 (core/tuning.py)", collect_stack=False)
+                        "queue 1 item 7b (core/tuning.py)", collect_stack=False)
     expects(scan_impl in SCAN_IMPLS + (None,),
             "ooc_ivf_flat_search: scan_impl must be one of %s, got %r", SCAN_IMPLS, scan_impl)
     dev = resolve_device(device)

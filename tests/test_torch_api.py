@@ -40,11 +40,13 @@ NO_COUNTERPART = {
     # comms/host_comms.py: the shard_map shim the JAX verbs compile through
     # (the port's verbs are eager torch ops over per-rank tensors)
     "shard_map",
+    # core/inventory.py: the compile seam (the port's inventory is fed at the
+    # kernel wrappers' launch seam, note_launch)
+    "note_compiled",
 }
-# owed by queue 1: item 7 (the ops plane, the tuning table)
+# owed by queue 1: item 7b (the tuning table)
 OWED = {
-    "OpsPlane", "AnomalySentinel",
-    "clear_tuning_table", "describe", "discover_tuning_table", "install_tuning_table",
+    "clear_tuning_table", "discover_tuning_table", "install_tuning_table",
     "load_tuning_table", "suspend_tuning", "tuned", "tuning_table_info",
 }
 

@@ -7,6 +7,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 from pathlib import Path
 
@@ -33,6 +34,7 @@ from raft_tpu_torch.sparse.spectral import fit_embedding
 from raft_tpu_torch import spectral
 from raft_tpu_torch.spectral.spectral_util import transform_eigen_matrix
 from raft_tpu_torch.serve import BucketPolicy, MicroBatcher, ServeWorker
+from raft_tpu_torch.fleet import Fleet
 from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build
@@ -79,7 +81,15 @@ def test_import_pulls_in_no_jax():
                                     "raft_tpu_torch.persist.wal",
                                     "raft_tpu_torch.persist.snapshot",
                                     "raft_tpu_torch.persist.manager",
-                                    "raft_tpu_torch.spatial.ball_cover"])
+                                    "raft_tpu_torch.spatial.ball_cover",
+                                    "raft_tpu_torch.core.inventory", "raft_tpu_torch.ops.cost",
+                                    "raft_tpu_torch.serve.sentinel",
+                                    "raft_tpu_torch.serve.opsplane", "raft_tpu_torch.fleet",
+                                    "raft_tpu_torch.fleet.protocol",
+                                    "raft_tpu_torch.fleet.tracing",
+                                    "raft_tpu_torch.fleet.chaos", "raft_tpu_torch.fleet.router",
+                                    "raft_tpu_torch.fleet.worker",
+                                    "raft_tpu_torch.fleet.supervisor"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
@@ -195,6 +205,8 @@ ENTRY_POINTS = {
     "spectral.analyze_modularity": lambda x, q: spectral.analyze_modularity(
         _cpu_graph(x), 2, np.zeros(20, np.int32)),
     "spectral.transform_eigen_matrix": lambda x, q: transform_eigen_matrix(x),
+    "fleet.Fleet": lambda x, q: Fleet(1, root=os.path.join(tempfile.gettempdir(), "no-fleet"),
+                                      index_rows=20, dim=4, k=3),
 }
 
 

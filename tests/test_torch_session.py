@@ -155,10 +155,13 @@ def test_multiprocess_bootstrap_names_its_item(arg, value):
 
 
 def test_ops_plane_names_item_7():
+    """Item 7 ported the ops plane: ``serve_ops`` starts one over the
+    session, and ``destroy`` closes it."""
     with Comms(mesh=_mesh(2)) as s:
-        with pytest.raises(RaftError, match="item 7"):
-            s.serve_ops()
         assert s.ops_plane is None
+        plane = s.serve_ops(port=0)
+        assert s.ops_plane is plane and not plane.closed and plane.port > 0
+    assert plane.closed and s.ops_plane is None
 
 
 def test_metrics_snapshot_and_dump(tmp_path):
@@ -166,7 +169,8 @@ def test_metrics_snapshot_and_dump(tmp_path):
         s.comms.allreduce(np.ones((2, 1), np.float32))
         snap = s.metrics_snapshot()
         assert set(snap) == {"metrics", "profiler_tree", "profiler_report", "event_counters",
-                             "flight"}
+                             "flight", "inventory"}
+        assert {"programs", "total_hbm_bytes", "per_fn", "detail"} <= set(snap["inventory"])
         assert "raft_tpu_comms_verb_seconds" in snap["metrics"]
         written = s.dump_metrics(str(tmp_path / "m.json"))
         assert json.loads((tmp_path / "m.json").read_text())["event_counters"] \
