@@ -107,7 +107,8 @@ paths through the public entry points with ``device="cuda"``:
   resident slot vectors freed first) and out-of-core synchronous
   (``ooc_overlap=False``, 4 s), each under a device budget of a quarter
   of the slot store.  The JAX rung selects approximately
-  (``select_impl="approx"``, queue 1 item 7); every arm here selects
+  (``select_impl="approx"``, which the port has no counterpart for: its
+  selects, K2 and the stable sort, are exact); every arm here selects
   exactly.  Per arm rows/s and p50/p99; per out-of-core arm the tile hit
   rate, H2D MB, the hidden share of the transfer (1 - stall / h2d), the
   staged-bytes high water beside the pool's budget, the hot set, the
@@ -178,6 +179,25 @@ paths through the public entry points with ``device="cuda"``:
   hung through ``/chaos`` for 1 s: every request answered, hedges and
   wins counted).  The kernels' launches on these paths are read from
   the workers' inventories.  No worker outlives its fleet.
+- the tuning half (queue 1 item 7b, ``tuning``): the checked-in table of
+  this card's fingerprint (``raft_tpu_torch/tuning/``, written by
+  ``tools/torch_autotune.py``; where none matches, a line says so and
+  ``torch_autotune --smoke`` sweeps this card in this process), installed
+  for this path only and cleared before the next, so every other path
+  runs the untuned dispatch.  At the main path's cell of each tuned knob
+  (``select_k`` of 1024 x 100,000 keys at k 100, ``brute_force_knn`` at
+  1M x 128, ``fused_knn_twophase`` there with ``block_n`` unset,
+  ``ivf_flat_search`` of the 1M index): the resolved impl and
+  its rung, the tuned answer against the untuned one (bitwise where the
+  routes are the same or both select exactly, else within the tolerance
+  with id sets equal but for ties), ``tuned_vs_default`` with
+  ``_build.stats()`` unchanged through its timed loops, the table's hit,
+  miss and discarded lookups.  The script's first step is
+  ``specializations.warmup()`` on the build directory (``nvcc`` for the
+  six at once, each library loaded, the hot configurations run); this
+  path warms a fresh process from the same directory (no build: the
+  libraries are the persistent cache), its load seconds beside the
+  first step's build seconds.
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
@@ -1180,8 +1200,8 @@ def ooc_path(X, mixture, dev, reset, counts, m):
     resident, out-of-core double-buffered and out-of-core synchronous,
     each under a closed loop of 8 threads, then the fixed queries held
     across the arms and K3 held at a staged tile's geometry.  The JAX
-    rung's approximate select (``select_impl="approx"``) waits for queue 1
-    item 7: every arm here selects exactly."""
+    rung's approximate select (``select_impl="approx"``) has no
+    counterpart in the port: every arm here selects exactly."""
     D = m.D
     out = {}
     reset()
@@ -2460,6 +2480,185 @@ def replicated_path(m, root, wrappers):
     return res
 
 
+# the tuning path: the main path's cell of each tuned knob
+TUNING_CELLS = ("select_1M", "bfknn_1M", "twophase_1M", "ivf_search_1M")
+
+
+def lookups_by_outcome(registry):
+    """``{(outcome, knob): count}`` of the table's lookups so far."""
+    fam = registry.get("raft_tpu_tuning_table_lookups_total")
+    if fam is None:
+        return {}
+    return {(labels["outcome"], labels["knob"]): s.value for labels, s in fam.series()}
+
+
+def tuning_path(ctx, m):
+    """The tuning half (queue 1 item 7b): the checked-in table of this
+    card (or, where no table's fingerprint matches, ``torch_autotune
+    --smoke`` swept here, said on a line of its own), installed for this
+    path only and cleared after, so every other path measures the
+    untuned dispatch.  For the main path's cell of each tuned knob: the
+    resolved impl and its rung, the tuned answer against the untuned one
+    (bitwise where both routes select exactly or are the same, else
+    within the tolerance with id sets equal but for ties),
+    ``tuned_vs_default`` and the kernel builds and loads around its timed
+    loops; the table's hits, misses and discarded lookups.  Then
+    ``specializations.warmup()`` in a fresh process on the build directory
+    that the script's first step warmed: no build, its load seconds
+    beside the first step's build seconds (``ctx.warmup``)."""
+    import importlib.util
+
+    dev, config, tuning = ctx.dev, m.config, m.tuning
+    t_path = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("torch_autotune",
+                                                  ROOT / "tools" / "torch_autotune.py")
+    autotune = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(autotune)
+    fp = tuning.backend_fingerprint()
+    found = config.discover_tuning_table()
+    if found is None:
+        print("tuning: no checked-in table matches this card's fingerprint %s; sweeping "
+              "tools/torch_autotune.py --smoke on it" % json.dumps(fp), flush=True)
+        table = autotune.run_sweep(smoke=True, device=dev, log=lambda *a: None)
+        source = "torch_autotune --smoke, swept in this run"
+    else:
+        with open(found) as f:
+            table = json.load(f)
+        source = str(Path(found).relative_to(ROOT))
+
+    keys = ctx.randn(N_QUERIES, 100_000)
+    D = m.D
+    calls = {
+        "select_1M": ("select_impl", "select_k", {"n": 100_000, "k": K}, "exact",
+                      lambda: m.select_k(keys, K, device=dev)),
+        "bfknn_1M": ("fused_knn_impl", "fused_l2_knn", {"n": N_INDEX, "k": K}, "tolerance",
+                     lambda: m.brute_force_knn(ctx.index, ctx.queries, K, D.L2SqrtExpanded,
+                                               device=dev)),
+        "twophase_1M": ("knn_block_n", "fused_knn_twophase", {"n": N_INDEX, "k": K, "d": DIM},
+                        "tolerance", lambda: m.fused_knn_twophase(ctx.index, ctx.queries, K)),
+        "ivf_search_1M": ("ivf_scan_impl", "ivf_flat_search",
+                          {"n": int(ctx.ivf.slot_ids.numel()), "k": K, "d": DIM}, "tolerance",
+                          lambda: m.ivf_flat_search(ctx.ivf, ctx.ivf_q, K, device=dev)),
+    }
+    atols = {"bfknn_1M": ctx.l2_atol(ctx.queries, ctx.index),
+             "twophase_1M": ctx.l2_atol(ctx.queries, ctx.index),
+             "ivf_search_1M": ctx.l2_atol(ctx.ivf_q, ctx.X)}
+    # the cells whose answers are square-rooted (the L2Sqrt metrics)
+    rooted = ("bfknn_1M", "ivf_search_1M")
+    untuned = {name: c[4]() for name, c in calls.items()}
+    torch.cuda.synchronize()
+    registry = m.default_registry()
+    before = lookups_by_outcome(registry)
+    ctx.reset()
+    out = {"table": source, "fingerprint": fp, "cells": {}}
+    assert config.install_tuning_table(table, source=source), "the table did not install"
+    try:
+        info = config.tuning_table_info()
+        out["table_cells"], out["table_knobs"] = info["cells"], info["knobs"]
+        for name, (knob, op, dims, rule, call) in calls.items():
+            value, rung = config.tuned(knob, op=op, dtype="float32", dims=dims)
+            got = call()
+            torch.cuda.synchronize()
+            ref = untuned[name]
+            if rule == "exact" or value is None or rung != "table":
+                ctx.check_exact("tuning %s values" % name, got[0], ref[0])
+                ctx.check_exact("tuning %s ids" % name, got[1], ref[1])
+                held = "bitwise"
+            else:
+                p = 2 if name in rooted else 1
+                err = ctx.check_knn("tuning %s" % name, got[0] ** p, got[1], ref[0] ** p,
+                                    ref[1], atols[name])
+                held = "within %.3g (max err %.3g), id sets" % (atols[name], err)
+            out["cells"][name] = {"knob": knob, "resolved": value, "rung": rung,
+                                  "class": tuning.shape_class(dims), "tuned_vs_untuned": held}
+            print("tuning %s: %s resolves to %r from the %s rung (class %s); tuned answer "
+                  "equal to the untuned one, %s" % (name, knob, value, rung,
+                                                    tuning.shape_class(dims), held), flush=True)
+        launches = ctx.counts("tuning")
+        s0 = m.build_stats()
+        # the checked-in table's main-path cells, or every cell swept here
+        ab = autotune.tuned_vs_default(table, iters=5, device=dev,
+                                       cells=TUNING_CELLS if found else None,
+                                       log=lambda *a: None)
+        s1 = m.build_stats()
+        assert s0 == s1 and ab["post_warmup_compiles"] == 0, (s0, s1, ab)
+        out["tuned_vs_default"] = ab
+        out["build_stats_through_timed_loops"] = {"before": s0, "after": s1}
+        for c in ab["cells"]:
+            print("tuning %s: winner %s, default %s, default/tuned %.3fx%s"
+                  % (c["cell"], c["winner"], c["default"], c["ratio"],
+                     " (%s)" % c["note"] if "note" in c else ""), flush=True)
+    finally:
+        config.clear_tuning_table()
+    assert config.tuning_table_info() is None
+
+    # ANNService pinned to each select route: the same served answers, bit
+    # for bit (K2 and the stable sort both keep the smaller column on ties)
+    now = [0.0]
+    served = {}
+    for impl in ("kernel", "sort"):
+        svc = m.ANNService(ctx.ivf, K, start=False, clock=lambda: now[0], max_wait_ms=1.0,
+                           select_impl=impl, device=dev)
+        try:
+            futs = [svc.submit(ctx.ivf_q[r:r + 16]) for r in (0, 16)]
+            now[0] += 1.0
+            assert svc.worker.run_once()
+            served[impl] = [f.result(timeout=0) for f in futs]
+        finally:
+            svc.close(drain=False)
+    for (dk, ik), (ds, is_) in zip(served["kernel"], served["sort"]):
+        ctx.check_exact("ANNService select_impl kernel/sort distances", dk, ds)
+        ctx.check_exact("ANNService select_impl kernel/sort ids", ik, is_)
+    out["ann_service_select_impl"] = "kernel and sort served bitwise equal (2 requests of 16)"
+    print("tuning: ANNService(select_impl='kernel') and 'sort' serve 2 requests of 16 rows "
+          "bitwise alike", flush=True)
+    after = lookups_by_outcome(registry)
+    out["lookups"] = {"%s/%s" % key: after[key] - before.get(key, 0.0) for key in after
+                      if after[key] != before.get(key, 0.0)}
+    print("tuning: table lookups %s; _build.stats() %s before and after the timed loops"
+          % (json.dumps(out["lookups"]), json.dumps(s0)), flush=True)
+
+    # the persistent cache: the script's first step ran
+    # specializations.warmup() on the build directory (nvcc, then load); a
+    # fresh process warming up from the same directory builds nothing
+    code = ("import json, sys; sys.path.insert(0, %r); "
+            "from raft_tpu_torch.core import specializations as s; r = {}; "
+            "s.warmup(report=r); print(json.dumps(r))" % str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rep["builds"] == 0 and rep["loads"] == len(rep["load_s"]), rep
+    first = ctx.warmup
+    out["warmup"] = {
+        "first": {"build_s": first["build_s"], "build_wall_s": max(first["build_s"].values()),
+                  "load_s": first["load_s"], "load_total_s": sum(first["load_s"].values()),
+                  "run_s": first["run_s"], "builds": first["builds"]},
+        "cached_process": {"process_s": wall, "build_s": rep["build_s"], "load_s": rep["load_s"],
+                           "load_total_s": sum(rep["load_s"].values()), "run_s": rep["run_s"],
+                           "builds": rep["builds"]}}
+    print("tuning: specializations.warmup(): first (this script, %d libraries built) nvcc %.1f s "
+          "wall, load %.3f s in all; a fresh process on the same build directory: %d built, "
+          "load %.3f s in all (%s), specializations run %s, the process %.1f s"
+          % (first["builds"], out["warmup"]["first"]["build_wall_s"],
+             out["warmup"]["first"]["load_total_s"], rep["builds"],
+             out["warmup"]["cached_process"]["load_total_s"],
+             {k: round(v, 4) for k, v in rep["load_s"].items()},
+             {k: round(v, 3) for k, v in rep["run_s"].items()}, wall), flush=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_path
+    # each cell's kernel ran where its knob resolved to it (None: the
+    # untuned dispatch, the kernel on the card at these shapes)
+    assert launches["select_tile"] > 0, launches
+    assert launches["knn_twophase"] > 0, launches
+    for name, kernel in (("bfknn_1M", "knn_tile"), ("ivf_search_1M", "ivf_tile")):
+        if out["cells"][name]["resolved"] in (None, "kernel"):
+            assert launches[kernel] > 0, (name, launches)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2536,11 +2735,20 @@ def main():
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
-    # 1. build every kernel, one nvcc each, all at once
+    # 1. build every kernel, one nvcc each, all at once, load each and run
+    # the hot configurations: specializations.warmup() on the checkout's
+    # build directory (empty in a fresh checkout)
+    from raft_tpu_torch.core import specializations
+
     t0 = time.perf_counter()
-    secs = _build.build()
-    print("build: %.1f s wall, per kernel %s" % (
-        time.perf_counter() - t0, {k: round(v, 1) for k, v in secs.items()}), flush=True)
+    warm = {}
+    specializations.warmup(report=warm)
+    warm["wall_s"] = time.perf_counter() - t0
+    print("build: %.1f s wall (specializations.warmup), per kernel %s; load %s s; "
+          "specializations run %s s" % (
+              warm["wall_s"], {k: round(v, 1) for k, v in warm["build_s"].items()},
+              {k: round(v, 4) for k, v in warm["load_s"].items()},
+              {k: round(v, 3) for k, v in warm["run_s"].items()}), flush=True)
 
     errs = {name: 0.0 for name in wrappers}
 
@@ -3676,6 +3884,23 @@ def main():
     paths["sparse_l1_newsgroups"] = news_out
     print("sparse_l1_newsgroups: %s" % json.dumps(news_out), flush=True)
     del news
+
+    # 5l. the tuning half (queue 1 item 7b): the table installed for this
+    # path only, each main-path cell tuned against untuned, the warmup
+    from raft_tpu_torch.core import tuning
+    from raft_tpu_torch.spatial.select_k import select_k
+
+    tctx = types.SimpleNamespace(dev=dev, reset=reset, counts=counts, randn=randn, index=index,
+                                 warmup=warm,
+                                 queries=queries, ivf=ivf, ivf_q=ivf_q, X=X, l2_atol=l2_atol,
+                                 check_knn=check_knn, check_exact=check_exact)
+    tmods = types.SimpleNamespace(config=config, tuning=tuning, D=D, select_k=select_k,
+                                  brute_force_knn=brute_force_knn,
+                                  fused_knn_twophase=fused_knn_twophase, ANNService=ANNService,
+                                  ivf_flat_search=ivf_flat_search,
+                                  default_registry=default_registry, build_stats=_build.stats)
+    paths["tuning"] = tuning_path(tctx, tmods)
+    print("tuning: %s" % json.dumps(paths["tuning"]), flush=True)
 
     # 6. kernels at the main paths' shapes: kernel, plain version, yardstick
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)

@@ -20,7 +20,10 @@ Two implementations with one contract, named as in
   masks and float64.  Plain torch, as it is plain XLA in JAX.
 
 ``impl=None`` takes the kernel on CUDA wherever it is legal, and the
-scan otherwise, which includes every CPU call.
+scan otherwise, which includes every CPU call.  ``fused_nn_impl`` is a
+registry-only knob, as in the JAX package: an explicit value is checked
+by :func:`raft_tpu_torch.core.tuning.check`, and no config, environment
+or table rung reaches it.
 """
 
 from __future__ import annotations
@@ -29,12 +32,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.pairwise import matmul
 from raft_tpu_torch.ops.nn_tile import IDX_SENTINEL, fused_nn_tile
 
-IMPLS = ("kernel", "scan")
+IMPLS = tuning.candidates("fused_nn_impl")
 
 __all__ = ["IDX_SENTINEL", "fused_l2_nn", "fused_l2_nn_min_reduce"]
 
@@ -133,16 +137,14 @@ def fused_l2_nn(
     or None (module doc).  Inputs (numpy arrays or tensors) are moved to
     ``device``.
     """
-    expects(impl in IMPLS + (None,), "fused_l2_nn: impl must be one of %s, got %r",
-            IMPLS, impl)
     dev = resolve_device(device)
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
-    legal = (mask is None and precision == "highest"
-             and _value_dtype(x) == torch.float32 and _value_dtype(y) == torch.float32)
-    expects(impl != "kernel" or legal,
-            "fused_l2_nn: impl='kernel' serves the plain float32 min-reduce only "
-            "(no mask, no float64, precision='highest'); use impl='scan'")
+    vdt = torch.promote_types(_value_dtype(x), _value_dtype(y))
+    legal = mask is None and precision == "highest" and vdt == torch.float32
+    impl = tuning.resolve("fused_nn_impl", impl, site="fused_l2_nn", dtype=vdt,
+                          n=y.shape[0], k=1, masked=mask is not None, precision=precision,
+                          device=dev.type)
     if impl is None:
         impl = "kernel" if legal and dev.type == "cuda" else "scan"
     if impl == "kernel":

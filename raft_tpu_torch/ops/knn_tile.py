@@ -33,10 +33,13 @@ result in two phases with no state across index tiles: per tile of
 ``bn`` rows the kernel keeps the tile's 128 smallest with global ids
 (:func:`twophase_tiles`), then one exact select of k over the
 (nq, n_tiles * 128) candidates merges them (K2 plus a gather of the
-ids).  ``block_n`` keeps the JAX default (1024), ladder (256 to 4096)
-and rounding (:func:`twophase_geometry`); ``block_q`` and ``interpret``
-are TPU arguments with no counterpart.  The merge is pinned exact, as
-the JAX registry pins ``merge_select_impl="topk"``.  Ties resolve to the
+ids).  ``block_n`` is the registry's ``knn_block_n`` knob
+(:mod:`raft_tpu_torch.core.tuning`: the JAX default 1024, ladder 256 to
+4096 and rounding, :func:`twophase_geometry`; None resolves it through
+override, configure, env and the tuning table at each call);
+``block_q`` and ``interpret`` are TPU arguments with no counterpart.
+The merge is pinned exact, as the JAX registry pins
+``merge_select_impl="topk"``.  Ties resolve to the
 smaller id: each tile's candidates are sorted by (distance, id) and the
 tiles are laid out in id order, so the select's first-column rule keeps
 the smaller id.
@@ -45,11 +48,11 @@ the smaller id.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory, precision
+from raft_tpu_torch.core import inventory, precision, tuning
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build, cost
@@ -216,7 +219,7 @@ def smem_bytes(d: int, k: int) -> int:
 # K6: the two-phase fused kNN
 # --------------------------------------------------------------------- #
 TWOPHASE_PAD = 128                       # the JAX kpad: candidates per tile
-BLOCK_N_LADDER = (256, 512, 1024, 2048, 4096)
+BLOCK_N_LADDER = tuple(int(b) for b in tuning.candidates("knn_block_n"))
 
 
 def twophase_geometry(n: int, block_n: int = 1024) -> Tuple[int, int]:
@@ -332,17 +335,22 @@ def knn_twophase_plain(index: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
-                       block_n: int = 1024, precision: str = "highest",
+                       block_n: Optional[int] = None, precision: str = "highest",
                        merge_select_impl: str = "topk"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest index rows per query under squared L2, in two phases.
 
     index (n, d) and queries (nq, d) float32, k <= 128; returns (nq, k)
-    float32 ascending and (nq, k) int32.  CUDA tensors launch K6 for
-    phase 1 and K2 for the merge; CPU tensors take the plain versions.
+    float32 ascending and (nq, k) int32.  ``block_n`` resolves through
+    the registry (module doc).
+    CUDA tensors launch K6 for phase 1 and K2 for the merge; CPU tensors
+    take the plain versions.
     """
     _check_twophase(index, queries, k, precision, merge_select_impl)
     n = index.shape[0]
+    block_n = int(tuning.resolve("knn_block_n", None if block_n is None else str(block_n),
+                                 site="fused_knn_twophase", dtype=index.dtype, n=n, k=k,
+                                 d=index.shape[1]))
     bn, _ = twophase_geometry(n, block_n)
     part_d, part_i = twophase_tiles(index, queries, bn)
     return _twophase_merge(part_d, part_i, k, n)

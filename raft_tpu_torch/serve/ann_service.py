@@ -105,9 +105,13 @@ index over the current mesh, the delta carried along.  Sharded serving
 is IVF-Flat only and resident only: PQ, SQ and ``ooc=True`` are refused,
 as the JAX service refuses them.
 
-Not ported yet: ``select_impl`` raises a :class:`RaftError` naming its
-queue item (``ROADMAP.md``, queue 1, item 7b).  The JAX package's buffer
-donation has no PyTorch counterpart (``serve/scheduler.py``).
+``select_impl`` pins the route of every selection of a served search
+(``"kernel"``, K2, or ``"sort"``; the registry's ``select_impl``
+candidates), checked at construction with the registry's legality for
+the service's k and dtype, as the JAX service checks it; None resolves
+the knob at each selection.  Both routes are exact, so a service pinned
+to either serves the same answers.  The JAX package's buffer donation
+has no PyTorch counterpart (``serve/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -120,10 +124,10 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import config
-from raft_tpu_torch.core import flight
+from raft_tpu_torch.core import flight, tuning
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core.device import as_tensor
-from raft_tpu_torch.core.error import RaftError, ServiceOverloadError, expects, fail
+from raft_tpu_torch.core.error import ServiceOverloadError, expects, fail
 from raft_tpu_torch.mr.tile_pool import TilePool
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.persist import PersistManager
@@ -139,12 +143,6 @@ from raft_tpu_torch.spatial.mnmg_knn import mnmg_ivf_flat_search, shard_ivf_flat
 __all__ = ["ANNService"]
 
 _CPU = torch.device("cpu")
-
-# arguments of the JAX ANNService that wait for a later item of queue 1
-_DEFERRED = {
-    "select_impl": "item 7b (core/tuning.py)",
-}
-
 
 class _AnnState(NamedTuple):
     """One immutable serving snapshot: a batch reads exactly one, so an
@@ -255,6 +253,10 @@ class ANNService(Service):
         of ``mesh`` (``axis`` alone takes the default mesh of ``device``;
         a session's ``serve`` passes its own), the merge topology (None:
         the ``mnmg_merge`` knob) and the hierarchical group size.
+    select_impl:
+        The route of every selection of a served search: ``"kernel"``
+        (K2), ``"sort"`` or None (the ``select_impl`` knob at each
+        selection); checked here (module doc).
     persist_dir / persist_fsync / snapshot_interval_s / persist_mmap / scrub_chunks:
         Durable state (module doc): the directory, the WAL's fsync
         policy, the least seconds between interval snapshots, a restored
@@ -269,8 +271,7 @@ class ANNService(Service):
         The shared :class:`~raft_tpu_torch.serve.service.Service`
         options (``max_batch_rows``, ``bucket_rungs``, ``max_wait_ms``,
         ``queue_cap``, ``retry_policy``, ``breaker``, ``start``,
-        ``clock``, ...).  The JAX arguments that wait for a later item
-        raise (module doc).
+        ``clock``, ...).
     """
 
     def __init__(self, index, k: int, *,
@@ -294,12 +295,15 @@ class ANNService(Service):
                  mesh=None, axis: Optional[str] = None,
                  merge: Optional[str] = None,
                  group_size: Optional[int] = None,
+                 select_impl: Optional[str] = None,
                  name: Optional[str] = None,
                  device=None, **opts):
-        for arg, item in _DEFERRED.items():
-            if opts.pop(arg, None) not in (None, False):
-                raise RaftError("ANNService: %s= is not ported yet; it waits for queue 1 %s"
-                                % (arg, item), collect_stack=False)
+        if select_impl is not None:
+            # a misspelled or JAX-only pin fails here, not mid-dispatch
+            cents = getattr(index, "centroids", None)
+            tuning.check("select_impl", select_impl, site="ANNService", explicit=True,
+                         k=int(k), dtype=None if cents is None else cents.dtype)
+        self._select_impl = select_impl
         if mesh is not None:
             mesh = as_mesh(mesh)
         dev = _service_device(device, mesh)
@@ -468,15 +472,16 @@ class ANNService(Service):
         pool, the quantizer's search otherwise."""
         if st.sharded is not None:
             return mnmg_ivf_flat_search(st.sharded, q, self.k, nprobe=nprobe, merge=self.merge,
-                                        group_size=self._group_size, delta=delta)
+                                        group_size=self._group_size, delta=delta,
+                                        select_impl=self._select_impl)
         if self._ooc_pool is not None:
             return _ooc.ooc_ivf_flat_search(
                 st.index, q, self.k, nprobe=nprobe, pool=self._ooc_pool, hot=st.ooc_hot,
                 delta=delta, overlap=self._ooc_overlap, probe_hook=self._ooc_note_probes,
-                force_rounds=force_rounds, device=self.device)
+                force_rounds=force_rounds, select_impl=self._select_impl, device=self.device)
         return _ann.approx_knn_search(st.index, q, self.k, nprobe=nprobe,
                                       refine_ratio=self._refine_ratio, delta=delta,
-                                      device=self.device)
+                                      select_impl=self._select_impl, device=self.device)
 
     def _publish_state_locked(self) -> None:
         """Rebuild the immutable snapshot from the host mirror (callers

@@ -20,13 +20,14 @@ Endpoints
 ``GET /statusz``
     One JSON screen: per-service ``stats()``, the sentinel's status, the
     inventory summary, the flight recorder's occupancy and black boxes,
-    and ``tuning_table``, which reads None until the tuning table is
-    ported (``ROADMAP.md`` item 7b).
+    and ``tuning_table``: :func:`raft_tpu_torch.config.tuning_table_info`,
+    None when no tuning table is installed.
 ``GET /debug/traces?k=N``
     The slowest-K requests with their event timelines.
 ``GET /debug/config``
     ``config.describe(layers=True)``: every knob with the rung that
-    answered (override, configure, env or default).
+    answered (override, configure, env, table or default), and
+    ``tuning_table`` as in ``/statusz``.
 ``GET /debug/inventory``
     The per-(kernel, shape) cost inventory
     (:mod:`raft_tpu_torch.core.inventory`).
@@ -459,7 +460,7 @@ class OpsPlane:
                          if self.sentinel is not None else None),
             "inventory": self._inventory_with_roofline(),
             "flight": flight.flight_snapshot(),
-            "tuning_table": None,
+            "tuning_table": config.tuning_table_info(),
         }
         return self._json(out)
 
@@ -510,7 +511,7 @@ class OpsPlane:
     def _ep_config(self, qs):
         return self._json({
             "knobs": config.describe(layers=True),
-            "tuning_table": None,
+            "tuning_table": config.tuning_table_info(),
         })
 
     def _ep_inventory(self, qs):

@@ -26,22 +26,24 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from raft_tpu_torch.core import tuning
 from raft_tpu_torch.core.device import as_tensor
-from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import takes_handle
 from raft_tpu_torch.sparse.convert import coo_to_csr, csr_to_coo
 from raft_tpu_torch.sparse.formats import COO, CSR
 from raft_tpu_torch.sparse.op import _dedup, _sorted
 
-# the SpMV routes (csr_spmv's doc); "segment" is the default
-SPMV_IMPLS = ("segment", "cumsum", "sortscan")
+# the SpMV routes (csr_spmv's doc), the registry's spmv_impl candidates
+SPMV_IMPLS = tuning.candidates("spmv_impl")
 _INT32_MAX = 2**31 - 1
 
 
-def check_spmv_impl(impl: str, site: str = "csr_spmv") -> str:
-    """``impl`` if it names an SpMV route, else :class:`LogicError`."""
-    expects(impl in SPMV_IMPLS, "%s: spmv_impl=%r is not one of %s", site, impl, SPMV_IMPLS)
-    return impl
+def resolve_spmv_impl(impl: Optional[str], csr: CSR, site: str = "csr_spmv") -> str:
+    """The SpMV route of ``csr``: ``impl``, else the ``spmv_impl`` knob
+    (override, configure, ``RAFT_TPU_SPMV_IMPL``, the tuning table on the
+    (rows, nnz) shape class, default ``"segment"``)."""
+    return tuning.resolve("spmv_impl", impl, site=site, rows=csr.n_rows, nnz=csr.capacity,
+                          dtype=csr.data.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -225,7 +227,7 @@ def csr_spmv(csr: CSR, x: torch.Tensor, impl: Optional[str] = None) -> torch.Ten
     """y = A @ x (replaces cusparseSpMV; reference
     spectral/matrix_wrappers.hpp:180).
 
-    ``impl`` (default ``"segment"``):
+    ``impl`` (None: :func:`resolve_spmv_impl`, at each call):
 
     - ``"segment"``: a gather of ``x`` at the column ids, a multiply, and
       each row's sum in row order (``torch.segment_reduce`` over
@@ -241,8 +243,7 @@ def csr_spmv(csr: CSR, x: torch.Tensor, impl: Optional[str] = None) -> torch.Ten
       on a TPU; its ``x[idx]`` is bitwise a gather, and on the card a
       gather is what it is.
     """
-    impl = check_spmv_impl("segment" if impl is None else impl)
-    return spmv(spmv_plan(csr), as_tensor(x, csr.device), impl)
+    return spmv(spmv_plan(csr), as_tensor(x, csr.device), resolve_spmv_impl(impl, csr))
 
 
 @takes_handle

@@ -49,10 +49,21 @@ contract:
   query, expanded distances by a batched product, and ``select_k`` of the
   running top-k followed by the step.
 
-``scan_impl=None`` takes the kernel on CUDA wherever it is legal, and the
-scan otherwise, which includes every CPU call.  The JAX package's own auto
-default is its ``"xla"`` scan (``core/tuning.py``, ``ivf_scan_impl``);
-the port defaults to the kernel, as ``fused_l2_knn`` does.
+``scan_impl=None`` resolves the ``ivf_scan_impl`` knob
+(:func:`raft_tpu_torch.core.tuning.resolve`: override, configure,
+``RAFT_TPU_IVF_SCAN_IMPL``, the tuning table on the (n, k, d) shape
+class), at each call; unset, it takes the kernel on CUDA wherever it is
+legal, and the scan otherwise, which includes every CPU call.  The JAX
+package's own auto default is its ``"xla"`` scan; the port defaults to
+the kernel, as ``fused_l2_knn`` does.
+
+``select_impl=`` pins the route of every selection of a search (the
+probe, the step merges, the refine and the delta merge), as the JAX
+searches thread it: ``"kernel"`` (K2) or ``"sort"``
+(:func:`~raft_tpu_torch.spatial.select_k.select_k`); None resolves the
+``select_impl`` knob at each selection.  Both routes are exact and break
+ties to the smaller column, so they give the same answers.  K3's own
+merge is part of its route and stays on K2.
 
 IVF-PQ and IVF-SQ always take the step scan, as the JAX package scans
 them with its XLA loop (no Pallas kernel): per step the running top-k
@@ -70,8 +81,8 @@ L2Sqrt metrics, with (+inf, -1) where fewer than k rows were scanned.
 force, into the result; the base results come first, so ties keep the
 base copy.
 
-The JAX ``handle=``, ``donate_queries=`` and ``select_impl=`` (approximate
-selects) and its compile-cache plumbing have no counterpart here.
+The JAX ``handle=`` and ``donate_queries=``, its approximate selects and
+its compile-cache plumbing have no counterpart here.
 """
 
 from __future__ import annotations
@@ -84,7 +95,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from raft_tpu_torch.core import native, precision
+from raft_tpu_torch.core import native, precision, tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import StageTimer, round_up_safe
@@ -96,7 +107,7 @@ from raft_tpu_torch.spectral.kmeans import kmeans
 
 D = DistanceType
 
-SCAN_IMPLS = ("kernel", "kernel_bf16", "scan")
+SCAN_IMPLS = tuning.candidates("ivf_scan_impl")
 SQ_QTYPES = ("QT_8bit", "QT_8bit_uniform")
 
 
@@ -316,7 +327,8 @@ def _validate_nprobe(name: str, nprobe, nlist: int) -> int:
 # --------------------------------------------------------------------- #
 # probe and scan
 # --------------------------------------------------------------------- #
-def _probe_compact(q, centroids, cent_slots, nprobe, probes=None, ranks=False):
+def _probe_compact(q, centroids, cent_slots, nprobe, probes=None, ranks=False,
+                   select_impl=None):
     """Probe selection + valid-first compaction of the scan lists, shared
     by every scan so that probe ties resolve alike.
 
@@ -326,13 +338,13 @@ def _probe_compact(q, centroids, cent_slots, nprobe, probes=None, ranks=False):
     each slot belongs to, moved by the same stable sort.  A caller that
     selected its probes already (to build per-probe tables from them)
     passes the (nq, nprobe) ``probes``, so that the ranks and its tables
-    agree.
+    agree.  ``select_impl`` is the probe select's route.
     """
     nq = q.shape[0]
     nlist, max_slots = cent_slots.shape
     if probes is None:
         _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, nlist),
-                             select_min=True, device=q.device)
+                             select_min=True, impl=select_impl, device=q.device)
     slots = cent_slots[probes.long()].reshape(nq, -1)
     _, order = torch.sort((slots < 0).to(torch.int32), dim=1, stable=True)
     slots = torch.gather(slots, 1, order)
@@ -343,7 +355,8 @@ def _probe_compact(q, centroids, cent_slots, nprobe, probes=None, ranks=False):
     return slots, torch.div(order, max_slots, rounding_mode="floor").to(torch.int32), n_live
 
 
-def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, probes=None):
+def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, probes=None,
+                       select_impl=None):
     """Probe, then scan the probed slots one step at a time with a running
     top-k.  ``step_dist(slx, pjx) -> (dist (nq, cap), ids (nq, cap))``
     computes one step given each query's slot ``slx`` and the probe rank
@@ -351,7 +364,8 @@ def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, p
     rebuilt); ``probes`` as in :func:`_probe_compact`.  The loop runs as
     many steps as the query with the most valid slots has."""
     nq = q.shape[0]
-    slots, prank, n_live = _probe_compact(q, centroids, cent_slots, nprobe, probes, ranks=True)
+    slots, prank, n_live = _probe_compact(q, centroids, cent_slots, nprobe, probes, ranks=True,
+                                          select_impl=select_impl)
     dt = torch.promote_types(q.dtype, torch.float32)
     run_d = torch.full((nq, k), float("inf"), dtype=dt, device=q.device)
     run_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
@@ -362,7 +376,8 @@ def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, p
         ids = torch.where(valid[:, None], ids, -1)
         dist = torch.where(ids >= 0, torch.clamp(dist, min=0.0), float("inf")).to(dt)
         run_d, run_i = select_k(torch.cat([run_d, dist], dim=1), k, select_min=True,
-                                values=torch.cat([run_i, ids], dim=1), device=q.device)
+                                values=torch.cat([run_i, ids], dim=1), impl=select_impl,
+                                device=q.device)
     if metric in _SQRT_METRICS:
         run_d = torch.sqrt(run_d)
     return run_d, run_i
@@ -371,7 +386,7 @@ def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, p
 # --------------------------------------------------------------------- #
 # delta segment
 # --------------------------------------------------------------------- #
-def _delta_merge_impl(delta_vecs, delta_ids, base_d, base_i, q, k, sqrt):
+def _delta_merge_impl(delta_vecs, delta_ids, base_d, base_i, q, k, sqrt, select_impl=None):
     """Brute-force scan of an append-only delta segment merged into a base
     result.  ``delta_ids < 0`` marks unfilled rows (+inf, never chosen).
     Base entries come first in the concatenation, so on exact ties the
@@ -386,10 +401,11 @@ def _delta_merge_impl(delta_vecs, delta_ids, base_d, base_i, q, k, sqrt):
         dist = torch.sqrt(dist)
     ids = torch.where(valid, delta_ids, -1).to(torch.int32)[None, :].expand(dist.shape)
     return select_k(torch.cat([base_d, dist], dim=1), k, select_min=True,
-                    values=torch.cat([base_i.to(torch.int32), ids], dim=1), device=q.device)
+                    values=torch.cat([base_i.to(torch.int32), ids], dim=1), impl=select_impl,
+                    device=q.device)
 
 
-def _merge_delta(out, delta, q, k, metric):
+def _merge_delta(out, delta, q, k, metric, select_impl=None):
     """Merge the delta segment ``delta = (vectors, ids)`` into a search
     result."""
     delta_vecs = as_tensor(delta[0], q.device)
@@ -401,7 +417,7 @@ def _merge_delta(out, delta, q, k, metric):
             "ann delta segment: ids shape %r does not match %d rows",
             tuple(delta_ids.shape), delta_vecs.shape[0])
     return _delta_merge_impl(delta_vecs, delta_ids, out[0], out[1], q, k,
-                             metric in _SQRT_METRICS)
+                             metric in _SQRT_METRICS, select_impl)
 
 
 # --------------------------------------------------------------------- #
@@ -432,20 +448,37 @@ def ivf_flat_build(X, params: IVFFlatParams, metric: DistanceType = D.L2Expanded
                             params.nprobe, slot_norms=slot_norms)
 
 
+def _resolve_scan_impl(scan_impl, *, site, q, store_dtype, n, k, metric) -> str:
+    """The scan route of one search: ``scan_impl``, else the
+    ``ivf_scan_impl`` knob (module doc), else K3 on CUDA where it is
+    legal (float32 queries and store, k <= its ``MAX_K``, an L2 metric)
+    and the step scan otherwise.  Shared with the out-of-core search."""
+    # the legality check sees a dtype other than float32 wherever one is
+    dt = q.dtype if q.dtype != torch.float32 else store_dtype
+    impl = tuning.resolve("ivf_scan_impl", scan_impl, site=site, dtype=dt, n=n, k=k,
+                          d=q.shape[1], metric=_metric_family(metric), device=q.device.type)
+    if impl is None:
+        legal = (q.dtype == torch.float32 and store_dtype == torch.float32 and k <= MAX_K
+                 and metric in _L2_METRICS)
+        impl = "kernel" if legal and q.device.type == "cuda" else "scan"
+    return impl
+
+
+def _metric_family(metric) -> str:
+    """The registry's metric string of an IVF metric (the quantizers are
+    L2-only, so this is a two-way split)."""
+    return "l2sqrt" if metric in _SQRT_METRICS else "l2"
+
+
 def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots, q, k,
-                          nprobe, metric, scan_impl=None):
-    expects(scan_impl in SCAN_IMPLS + (None,),
-            "ivf_flat_search: scan_impl must be one of %s, got %r", SCAN_IMPLS, scan_impl)
-    legal = (q.dtype == torch.float32 and slot_vecs.dtype == torch.float32 and k <= MAX_K
-             and metric in _L2_METRICS)
-    if scan_impl is None:
-        scan_impl = "kernel" if legal and q.device.type == "cuda" else "scan"
+                          nprobe, metric, scan_impl=None, select_impl=None):
+    scan_impl = _resolve_scan_impl(scan_impl, site="ivf_flat_search", q=q,
+                                  store_dtype=slot_vecs.dtype,
+                                  n=slot_vecs.shape[0] * slot_vecs.shape[1], k=k, metric=metric)
     if scan_impl != "scan":
-        expects(legal, "ivf_flat_search: scan_impl=%r needs float32 queries and store, "
-                "k <= %d and an L2 metric (got %s, %s, k=%d)", scan_impl, MAX_K,
-                q.dtype, slot_vecs.dtype, k)
         with record_function("ivf_flat_search.probe"):
-            slots, _ = _probe_compact(q, centroids, cent_slots, nprobe)
+            slots, _ = _probe_compact(q, centroids, cent_slots, nprobe,
+                                      select_impl=select_impl)
         dist, ids = fused_ivf_scan(q, slot_vecs, slot_norms.to(torch.float32), slot_ids,
                                    slots, k, accum_bf16=scan_impl == "kernel_bf16")
         if metric in _SQRT_METRICS:
@@ -459,7 +492,8 @@ def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots
         dot = precision.bmm(vecs, q[:, :, None].to(vecs.dtype))[:, :, 0]
         return qn[:, None] + slot_norms[slx] - 2.0 * dot, slot_ids[slx]
 
-    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric)
+    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric,
+                              select_impl=select_impl)
 
 
 def _on_device(index: IVFFlatIndex, dev: torch.device):
@@ -473,13 +507,14 @@ def _on_device(index: IVFFlatIndex, dev: torch.device):
 
 def ivf_flat_search(index: IVFFlatIndex, queries, k: int, nprobe: Optional[int] = None, *,
                     delta=None, scan_impl: Optional[str] = None,
+                    select_impl: Optional[str] = None,
                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Search an IVF-Flat index (reference approx_knn_search, ann.hpp:71).
 
     ``nprobe`` defaults to the build params' value and is clamped to
     nlist; ``delta=(vectors, ids)`` merges an append-only segment;
     ``scan_impl`` is ``"kernel"``, ``"kernel_bf16"``, ``"scan"`` or None
-    (module doc).  Queries and the index are moved to ``device``.
+    and ``select_impl`` ``"kernel"``, ``"sort"`` or None (module doc).  Queries and the index are moved to ``device``.
     Returns (n_queries, k) distances and int32 ids, best-first.
     """
     dev = resolve_device(device)
@@ -491,9 +526,9 @@ def ivf_flat_search(index: IVFFlatIndex, queries, k: int, nprobe: Optional[int] 
                               int(index.centroids.shape[0]))
     metric = DistanceType(int(index.metric))
     out = _ivf_flat_search_impl(*_on_device(index, dev), q, k, nprobe, metric,
-                                scan_impl=scan_impl)
+                                scan_impl=scan_impl, select_impl=select_impl)
     if delta is not None:
-        out = _merge_delta(out, delta, q, k, metric)
+        out = _merge_delta(out, delta, q, k, metric, select_impl)
     return out
 
 
@@ -626,11 +661,11 @@ def _pq_tables(q, centroids, codebooks, probes):
 
 
 def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, q, k, nprobe,
-                        metric):
+                        metric, select_impl=None):
     nq = q.shape[0]
     with record_function("ivf_pq_search.tables"):
         _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, centroids.shape[0]),
-                             select_min=True, device=q.device)
+                             select_min=True, impl=select_impl, device=q.device)
         lut_all = _pq_tables(q, centroids, codebooks, probes)
     rows = torch.arange(nq, device=q.device)
 
@@ -641,27 +676,29 @@ def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, 
         return dist, slot_ids[slx]
 
     return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric,
-                              probes=probes)
+                              probes=probes, select_impl=select_impl)
 
 
-def _refine_impl(vectors, q, cand_ids, k, sqrt):
+def _refine_impl(vectors, q, cand_ids, k, sqrt, select_impl=None):
     """Exact re-rank of the ADC candidates against the stored vectors (the
     quality half of FAISS's IndexRefineFlat)."""
     valid = cand_ids >= 0
     vecs = vectors[torch.where(valid, cand_ids, 0).long()]     # (nq, k2, d)
     diff = vecs - q[:, None, :]
     dist = torch.where(valid, (diff * diff).sum(dim=-1), float("inf"))
-    out_d, out_i = select_k(dist, k, select_min=True, values=cand_ids, device=q.device)
+    out_d, out_i = select_k(dist, k, select_min=True, values=cand_ids, impl=select_impl,
+                            device=q.device)
     return (torch.sqrt(out_d) if sqrt else out_d), out_i
 
 
 def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = None,
                   refine_ratio: Optional[int] = None, *, delta=None,
+                  select_impl: Optional[str] = None,
                   device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """ADC search of an IVF-PQ index; where the index holds its vectors and
     ``refine_ratio`` (default: the build's) is > 1, the top ``k *
     refine_ratio`` ADC candidates are re-ranked exactly; ``nprobe``,
-    ``delta`` and ``device`` as in :func:`ivf_flat_search`."""
+    ``delta``, ``select_impl`` and ``device`` as in :func:`ivf_flat_search`."""
     dev = resolve_device(device)
     q = as_tensor(queries, dev)
     expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
@@ -674,13 +711,14 @@ def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = No
     metric = DistanceType(int(index.metric))
     arrays = [as_tensor(a, dev) for a in (index.centroids, index.codebooks, index.slot_codes,
                                           index.slot_ids, index.cent_slots)]
-    out = _ivf_pq_search_impl(*arrays, q, k * ratio if refine else k, nprobe, metric)
+    out = _ivf_pq_search_impl(*arrays, q, k * ratio if refine else k, nprobe, metric,
+                              select_impl)
     if refine:
         with record_function("ivf_pq_search.refine"):
             out = _refine_impl(as_tensor(index.vectors, dev), q, out[1], k,
-                               metric in _SQRT_METRICS)
+                               metric in _SQRT_METRICS, select_impl)
     if delta is not None:
-        out = _merge_delta(out, delta, q, k, metric)
+        out = _merge_delta(out, delta, q, k, metric, select_impl)
     return out
 
 
@@ -721,7 +759,7 @@ def ivf_sq_build(X, params: IVFSQParams, metric: DistanceType = D.L2Expanded,
 
 
 def _ivf_sq_search_impl(centroids, slot_q, scale, offset, slot_ids, slot_centroid, cent_slots,
-                        q, k, nprobe, encode_residual, metric):
+                        q, k, nprobe, encode_residual, metric, select_impl=None):
     qn = (q * q).sum(dim=1)
 
     def step_dist(slx, _pjx):
@@ -732,13 +770,16 @@ def _ivf_sq_search_impl(centroids, slot_q, scale, offset, slot_ids, slot_centroi
         dot = precision.bmm(deq, q[:, :, None].to(deq.dtype))[:, :, 0]
         return qn[:, None] + (deq * deq).sum(dim=-1) - 2.0 * dot, slot_ids[slx]
 
-    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric)
+    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric,
+                              select_impl=select_impl)
 
 
 def ivf_sq_search(index: IVFSQIndex, queries, k: int, nprobe: Optional[int] = None, *,
-                  delta=None, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                  delta=None, select_impl: Optional[str] = None,
+                  device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Search an IVF-SQ index, honouring the build's ``encode_residual``;
-    ``nprobe``, ``delta`` and ``device`` as in :func:`ivf_flat_search`."""
+    ``nprobe``, ``delta``, ``select_impl`` and ``device`` as in
+    :func:`ivf_flat_search`."""
     dev = resolve_device(device)
     q = as_tensor(queries, dev)
     expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
@@ -750,9 +791,10 @@ def ivf_sq_search(index: IVFSQIndex, queries, k: int, nprobe: Optional[int] = No
     arrays = [as_tensor(a, dev) for a in (index.centroids, index.slot_q, index.scale,
                                           index.offset, index.slot_ids, index.slot_centroid,
                                           index.cent_slots)]
-    out = _ivf_sq_search_impl(*arrays, q, k, nprobe, bool(index.encode_residual), metric)
+    out = _ivf_sq_search_impl(*arrays, q, k, nprobe, bool(index.encode_residual), metric,
+                              select_impl)
     if delta is not None:
-        out = _merge_delta(out, delta, q, k, metric)
+        out = _merge_delta(out, delta, q, k, metric, select_impl)
     return out
 
 
@@ -773,15 +815,19 @@ def approx_knn_build_index(X, params, metric: DistanceType = D.L2Expanded, seed:
 
 def approx_knn_search(index, queries, k: int, nprobe: Optional[int] = None,
                       refine_ratio: Optional[int] = None, *, delta=None,
-                      scan_impl: Optional[str] = None, device="cuda"):
-    """Search an index by its type: ``refine_ratio`` reaches IVF-PQ only (IVF-Flat and IVF-SQ ignore them), ``scan_impl`` IVF-Flat
-    only (see :func:`ivf_flat_search` and :func:`ivf_pq_search`)."""
+                      scan_impl: Optional[str] = None, select_impl: Optional[str] = None,
+                      device="cuda"):
+    """Search an index by its type: ``refine_ratio`` reaches IVF-PQ only
+    (IVF-Flat and IVF-SQ ignore it), ``scan_impl`` IVF-Flat only, and
+    ``select_impl`` every kind (see :func:`ivf_flat_search` and
+    :func:`ivf_pq_search`)."""
     if isinstance(index, IVFPQIndex):
         return ivf_pq_search(index, queries, k, nprobe, refine_ratio, delta=delta,
-                             device=device)
+                             select_impl=select_impl, device=device)
     if isinstance(index, IVFSQIndex):
-        return ivf_sq_search(index, queries, k, nprobe, delta=delta, device=device)
+        return ivf_sq_search(index, queries, k, nprobe, delta=delta, select_impl=select_impl,
+                             device=device)
     if isinstance(index, IVFFlatIndex):
         return ivf_flat_search(index, queries, k, nprobe, delta=delta, scan_impl=scan_impl,
-                               device=device)
+                               select_impl=select_impl, device=device)
     raise TypeError(f"unknown ANN index {type(index)}")

@@ -11,8 +11,11 @@ fused_l2_knn.cuh:196).  Two implementations with one contract:
 - ``impl="scan"``: the tile scan (:mod:`raft_tpu_torch.spatial.tiled_knn`)
   with an expanded-form matmul distance tile.
 
-``impl=None`` takes the kernel on CUDA wherever it is legal, and the
-scan otherwise, which includes every CPU call.  Distances are *squared*
+``impl=None`` resolves the ``fused_knn_impl`` knob
+(:func:`raft_tpu_torch.core.tuning.resolve`: override, configure,
+``RAFT_TPU_FUSED_KNN_IMPL``, the tuning table on the (n, k) shape class),
+at each call; unset, it takes the kernel on CUDA wherever it is legal,
+and the scan otherwise, which includes every CPU call.  Distances are *squared*
 L2; the sqrt for L2Sqrt metrics is the caller's post-processing.
 """
 
@@ -22,13 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.pairwise import expanded_sq_dists
 from raft_tpu_torch.ops.knn_tile import MAX_K, fused_knn_tile
 from raft_tpu_torch.spatial.tiled_knn import tiled_knn
 
-IMPLS = ("kernel", "scan")
+IMPLS = tuning.candidates("fused_knn_impl")
 
 
 def fused_l2_knn(
@@ -67,16 +71,15 @@ def fused_l2_knn(
     expects(index.ndim == 2 and queries.ndim == 2
             and index.shape[1] == queries.shape[1],
             "fused_l2_knn: shape mismatch")
-    expects(impl in IMPLS + (None,), "fused_l2_knn: impl must be one of %s, got %r",
-            IMPLS, impl)
-    legal = (index.dtype == torch.float32 and queries.dtype == torch.float32
-             and precision == "highest" and k <= MAX_K)
+    impl = tuning.resolve("fused_knn_impl", impl, site="fused_l2_knn", dtype=index.dtype,
+                          n=index.shape[0], k=k, precision=precision, device=dev.type)
     if impl is None:
+        legal = (index.dtype == torch.float32 and queries.dtype == torch.float32
+                 and precision == "highest" and k <= MAX_K)
         impl = "kernel" if legal and dev.type == "cuda" else "scan"
     if impl == "kernel":
-        expects(legal, "fused_l2_knn: impl='kernel' needs float32 inputs, "
-                "precision='highest' and k <= %d (got %s, %r, k=%d)",
-                MAX_K, index.dtype, precision, k)
+        expects(queries.dtype == torch.float32,
+                "fused_l2_knn: impl='kernel' needs float32 queries (got %s)", queries.dtype)
         return fused_knn_tile(index, queries, k)
     index = index.to(torch.float32)
     queries = queries.to(torch.float32)

@@ -53,9 +53,14 @@ L2-only, as in :mod:`raft_tpu_torch.spatial.ann`.
 The communicator resolves from (in order) an explicit ``comms``, the
 ``handle``'s injected comms, an explicit ``mesh``/``axis`` pair, the
 handle's mesh, or the default mesh of ``device`` (one rank a visible
-card).  Results land on the first rank's device.  ``select_impl`` (the
-approximate selects) waits for item 7b of ``ROADMAP.md``; the JAX
-donating twins and ``profiled_jit`` have no counterpart.
+card).  Results land on the first rank's device.  The merge topology
+resolves through the candidate registry (``mnmg_merge``:
+:func:`raft_tpu_torch.core.tuning.resolve`, the tuning table on the
+(devices, n, k) shape class included); ``mnmg_ivf_flat_search``'s
+``select_impl`` pins the route of every probe and merge select
+(``"kernel"`` or ``"sort"``, both exact, so the topologies stay bitwise
+equal).  The JAX donating twins and ``profiled_jit`` have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -66,12 +71,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raft_tpu_torch import config
 from raft_tpu_torch.comms.host_comms import axis_host_group_size
 from raft_tpu_torch.comms.mesh import Mesh, as_mesh, default_mesh
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import precision, tuning
 from raft_tpu_torch.core.device import as_tensor
-from raft_tpu_torch.core.error import RaftError, expects
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops.ivf_tile import MAX_K as K3_MAX_K
@@ -85,7 +89,7 @@ __all__ = ["MERGE_TOPOLOGIES", "ShardedIVFFlat", "ShardedRows", "mnmg_ivf_flat_s
            "mnmg_knn", "resolve_group_size", "resolve_merge", "shard_ivf_flat_index",
            "shard_knn_index"]
 
-MERGE_TOPOLOGIES = ("allgather", "ring", "hierarchical")
+MERGE_TOPOLOGIES = tuning.candidates("mnmg_merge")
 _SQRT = (D.L2SqrtExpanded, D.L2SqrtUnexpanded)
 
 
@@ -116,14 +120,9 @@ def _resolve_comms(handle, comms, mesh, axis, device) -> Tuple[Mesh, str]:
 def resolve_merge(merge: Optional[str], *, devices: Optional[int] = None,
                   n: Optional[int] = None, k: Optional[int] = None) -> str:
     """The merge topology: the explicit argument, else the ``mnmg_merge``
-    knob (override, configure, env ``RAFT_TPU_MNMG_MERGE``, default).
-    The JAX package also consults its tuning table on the (devices, n,
-    k) shape class; that table is item 7b of ``ROADMAP.md``."""
-    del devices, n, k
-    name = merge if merge is not None else config.get("mnmg_merge")
-    expects(name in MERGE_TOPOLOGIES, "mnmg_merge: %r is not one of %s", name,
-            MERGE_TOPOLOGIES)
-    return name
+    knob (override, configure, env ``RAFT_TPU_MNMG_MERGE``, the tuning
+    table on the (devices, n, k) shape class, default)."""
+    return tuning.resolve("mnmg_merge", merge, site="mnmg_knn", devices=devices, n=n, k=k)
 
 
 def resolve_group_size(mesh: Mesh, axis: str, group_size: Optional[int] = None) -> int:
@@ -133,10 +132,8 @@ def resolve_group_size(mesh: Mesh, axis: str, group_size: Optional[int] = None) 
     axis size nearest its square root (equal fan-in at both levels)."""
     size = int(mesh.shape[axis])
     if group_size is not None:
-        g = int(group_size)
-        expects(g >= 1 and size % g == 0,
-                "mnmg_group_size: %d must divide the merge axis size %d", g, size)
-        return g
+        return int(tuning.check("mnmg_group_size", group_size, site="mnmg_knn",
+                                explicit=True, axis_size=size))
     g = axis_host_group_size(mesh, axis)
     if g is not None and size % g == 0:
         return g
@@ -148,13 +145,14 @@ def resolve_group_size(mesh: Mesh, axis: str, group_size: Optional[int] = None) 
 # --------------------------------------------------------------------- #
 # the cross-shard top-k merge (shared by the brute-force and IVF paths)
 # --------------------------------------------------------------------- #
-def _select_ordered(d: torch.Tensor, i: torch.Tensor, k: int, select_min: bool):
+def _select_ordered(d: torch.Tensor, i: torch.Tensor, k: int, select_min: bool,
+                    select_impl=None):
     """The k best candidates of each row, ties to the smaller global id:
-    the columns put in id order first (a stable sort), then K2, which
-    keeps the smaller column on ties."""
+    the columns put in id order first (a stable sort), then the select
+    (K2 or the stable sort), which keeps the smaller column on ties."""
     i, order = torch.sort(i, dim=1, stable=True)
     d = torch.gather(d, 1, order)
-    return select_k(d, k, select_min=select_min, values=i, device=d.device)
+    return select_k(d, k, select_min=select_min, values=i, impl=select_impl, device=d.device)
 
 
 def _pad_to_k(d, i, k, worst):
@@ -165,9 +163,9 @@ def _pad_to_k(d, i, k, worst):
     return F.pad(d, (0, pad), value=worst), F.pad(i, (0, pad), value=-1)
 
 
-def _narrow(d, i, k, select_min):
+def _narrow(d, i, k, select_min, select_impl=None):
     kk = min(k, d.shape[1])
-    return (d, i) if kk == 0 else _select_ordered(d, i, kk, select_min)
+    return (d, i) if kk == 0 else _select_ordered(d, i, kk, select_min, select_impl)
 
 
 def _cat_at(blocks, dev):
@@ -176,50 +174,53 @@ def _cat_at(blocks, dev):
             torch.cat([i.to(dev) for _, i in blocks], dim=1))
 
 
-def _stream(blocks, k, select_min, worst):
+def _stream(blocks, k, select_min, worst, select_impl=None):
     """The running top-k over candidate blocks in the order they reach
     the first block's rank: one selection a block after the first (the
     reference's streaming heap merge), (nq, 2k) at a time."""
     d, i = blocks[0]
     for blk in blocks[1:]:
-        d, i = _narrow(*_cat_at([(d, i), blk], d.device), k, select_min)
+        d, i = _narrow(*_cat_at([(d, i), blk], d.device), k, select_min, select_impl)
     if len(blocks) == 1:
-        d, i = _narrow(d, i, k, select_min)
+        d, i = _narrow(d, i, k, select_min, select_impl)
     return _pad_to_k(d, i, k, worst)
 
 
 def _merge_topk(ds: List[torch.Tensor], ids: List[torch.Tensor], k: int, select_min: bool,
-                worst: float, merge: str, group_size: int):
+                worst: float, merge: str, group_size: int, select_impl=None):
     """Merge one line's local candidates ``(ds[r], ids[r])`` (global ids,
     -1 and ``worst`` for none) into the global top-k by the topology
     (module doc).  In the SPMD program every rank of the line ends with
     this result; the one controller computes it once, for the line's
     first rank, from the blocks that rank receives, in the order it
-    receives them, on its device."""
+    receives them, on its device.  ``select_impl`` is every select's
+    route."""
     blocks = list(zip(ds, ids))
     if merge == "allgather":
-        return _pad_to_k(*_narrow(*_cat_at(blocks, ds[0].device), k, select_min), k, worst)
+        return _pad_to_k(*_narrow(*_cat_at(blocks, ds[0].device), k, select_min, select_impl),
+                         k, worst)
     if merge == "ring":
         # rank 0 receives rank size-1's block at the first hop, then
         # rank size-2's (forwarded once), and so on
-        return _stream([blocks[0]] + blocks[:0:-1], k, select_min, worst)
+        return _stream([blocks[0]] + blocks[:0:-1], k, select_min, worst, select_impl)
     # hierarchical: an allgather within each group of group_size ranks
     # (at the group's first rank), then a ring across the groups
     g = group_size
     if g > 1:
-        blocks = [_narrow(*_cat_at(blocks[b:b + g], blocks[b][0].device), k, select_min)
-                  for b in range(0, len(blocks), g)]
+        blocks = [_narrow(*_cat_at(blocks[b:b + g], blocks[b][0].device), k, select_min,
+                          select_impl) for b in range(0, len(blocks), g)]
         if len(blocks) == 1:
             return _pad_to_k(*blocks[0], k, worst)
-    return _stream([blocks[0]] + blocks[:0:-1], k, select_min, worst)
+    return _stream([blocks[0]] + blocks[:0:-1], k, select_min, worst, select_impl)
 
 
-def _merge_line(mesh: Mesh, axis: str, coord, local, k, select_min, worst, merge, group_size):
+def _merge_line(mesh: Mesh, axis: str, coord, local, k, select_min, worst, merge, group_size,
+                select_impl=None):
     """The merge along the line of ``axis`` through ``coord``; ``local``
     maps a rank id to its rank's (d, ids)."""
     line = mesh.line(axis, coord)
     return _merge_topk([local[r.id][0] for r in line], [local[r.id][1] for r in line], k,
-                       select_min, worst, merge, group_size)
+                       select_min, worst, merge, group_size, select_impl)
 
 
 # --------------------------------------------------------------------- #
@@ -448,7 +449,7 @@ def shard_ivf_flat_index(index, mesh: Mesh, axis: str) -> ShardedIVFFlat:
                           **{name: tuple(v) for name, v in fields.items()})
 
 
-def _shard_scan(q, cent, sv, sn, si, cs, k, nprobe):
+def _shard_scan(q, cent, sv, sn, si, cs, k, nprobe, select_impl=None):
     """One rank's probe and scan of the slots it owns: (nq, k) squared
     distances ascending and global ids, (+inf, -1) where fewer.  K3 where
     its limits allow (float32 queries and store, k <= its MAX_K), else the
@@ -465,8 +466,9 @@ def _shard_scan(q, cent, sv, sn, si, cs, k, nprobe):
             dot = precision.bmm(sv[slx], q[:, :, None].to(sv.dtype))[:, :, 0]
             return qn[:, None] + sn[slx] - 2.0 * dot, si[slx]
 
-        return _probe_scan_search(q, cent, cs, step_dist, k, nprobe, D.L2Expanded)
-    slots, _ = _probe_compact(q, cent, cs, nprobe)
+        return _probe_scan_search(q, cent, cs, step_dist, k, nprobe, D.L2Expanded,
+                                  select_impl=select_impl)
+    slots, _ = _probe_compact(q, cent, cs, nprobe, select_impl=select_impl)
     # a rank cannot own more live probed slots than it holds slots
     slots = slots[:, :min(slots.shape[1], sv.shape[0])].contiguous()
     if slots.shape[1] == 0:
@@ -487,13 +489,10 @@ def mnmg_ivf_flat_search(sharded: ShardedIVFFlat, queries, k: int,
     the same ``nprobe`` up to distance-tie order (ties here order by
     global id).  ``delta=(vectors, ids)`` merges the append-only segment
     into the result after the sharded search, as the single-device path
-    does."""
+    does.  ``select_impl`` (``"kernel"``, ``"sort"`` or None: the knob at
+    each select) is the route of every probe and merge select."""
     from raft_tpu_torch.spatial.ann import _check_metric, _merge_delta, _validate_nprobe
 
-    if select_impl is not None:
-        raise RaftError("mnmg_ivf_flat_search: select_impl=%r is not ported yet; it waits "
-                        "for queue 1 item 7b (core/tuning.py)" % (select_impl,),
-                        collect_stack=False)
     _check_metric("mnmg_ivf_flat_search", sharded.metric)
     mesh = sharded.mesh
     out_dev = mesh.ranks.flat[0].device
@@ -518,13 +517,13 @@ def mnmg_ivf_flat_search(sharded: ShardedIVFFlat, queries, k: int,
         local[rank.id] = _shard_scan(q.to(rank.device), sharded.centroids[flat],
                                      sharded.slot_vecs[flat], sharded.slot_norms[flat],
                                      sharded.slot_ids[flat], sharded.cent_slots_local[flat],
-                                     k, nprobe)
+                                     k, nprobe, select_impl)
     d, i = _merge_line(mesh, sharded.axis, tuple(line), local, k, True, float("inf"), merge,
-                       group_size)
+                       group_size, select_impl)
     d, i = d.to(out_dev), i.to(out_dev)
     if sharded.metric in _SQRT:
         d = torch.sqrt(d)
     out = (d, i)
     if delta is not None:
-        out = _merge_delta(out, delta, q, k, sharded.metric)
+        out = _merge_delta(out, delta, q, k, sharded.metric, select_impl)
     return out

@@ -59,8 +59,9 @@ that no query probes is skipped.
 
 Unlike the JAX package, nothing here is compiled per shape, so
 ``force_rounds`` (warmup) streams empty tiles through the pool without
-scanning them.  ``select_impl`` (approximate selects) waits for queue 1
-item 7b and raises.
+scanning them.  ``select_impl`` pins the route of the probe select and
+of every merge (``"kernel"``, K2, or ``"sort"``; None resolves the knob
+at each selection), as in the resident search.
 """
 
 from __future__ import annotations
@@ -72,14 +73,14 @@ import torch
 
 from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.device import as_tensor, resolve_device
-from raft_tpu_torch.core.error import RaftError, expects
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.profiler import default_profiler
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.mr.tile_pool import TilePool, _pool_counter
-from raft_tpu_torch.ops.ivf_tile import MAX_K, fused_ivf_scan
-from raft_tpu_torch.spatial.ann import (_L2_METRICS, _SQRT_METRICS, SCAN_IMPLS, IVFFlatIndex,
-                                        _assign_labels, _extend_slot_layout, _merge_delta,
-                                        _probe_compact, _validate_nprobe)
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan
+from raft_tpu_torch.spatial.ann import (_SQRT_METRICS, IVFFlatIndex, _assign_labels,
+                                        _extend_slot_layout, _merge_delta, _probe_compact,
+                                        _validate_nprobe, _resolve_scan_impl)
 from raft_tpu_torch.spatial.select_k import select_k
 
 __all__ = ["OocIVFFlat", "ivf_flat_to_ooc", "ooc_ivf_flat_search", "ooc_extend",
@@ -163,18 +164,20 @@ def _part_positions(slots, part_ids, n_slots, n_live):
     return sp, torch.where(sp >= 0, order.to(torch.int32), -1)
 
 
-def _merge(run, d, i, key, k):
+def _merge(run, d, i, key, k, select_impl=None):
     """Fold candidates (distances, ids, order keys) into the running top-k
     (distances, ids, keys).  The columns go in key order, so that K2's
     ties (to the smaller column) resolve by key."""
     cd, ci, ck = (torch.cat(pair, dim=1) for pair in zip(run, (d, i, key)))
     ck, order = torch.sort(ck, dim=1, stable=True)
-    out_d, pos = select_k(torch.gather(cd, 1, order), k, select_min=True, device=cd.device)
+    out_d, pos = select_k(torch.gather(cd, 1, order), k, select_min=True, impl=select_impl,
+                          device=cd.device)
     pos = pos.long()
     return out_d, torch.gather(torch.gather(ci, 1, order), 1, pos), torch.gather(ck, 1, pos)
 
 
-def _scan_part(q, qn, part_vecs, part_ids, ooc_dev, slots, n_live, run, k, route):
+def _scan_part(q, qn, part_vecs, part_ids, ooc_dev, slots, n_live, run, k, route,
+               select_impl=None):
     """Fold one device-resident part into the running top-k ``run``
     (distances, ids, order keys; module doc, "Identity").
 
@@ -204,7 +207,7 @@ def _scan_part(q, qn, part_vecs, part_ids, ooc_dev, slots, n_live, run, k, route
         step_of.scatter_(1, torch.where(sp >= 0, sp, S).long(), steps)
         key = torch.gather(step_of, 1, torch.div(locl, cap, rounding_mode="floor")) * cap + (
             locl % cap).to(torch.int32)
-        return _merge(run, d, ids, torch.where(valid, key, _NO_KEY), k)
+        return _merge(run, d, ids, torch.where(valid, key, _NO_KEY), k, select_impl)
     row = torch.arange(cap, dtype=torch.int32, device=q.device)
     for j in range(n_live):
         valid = sp[:, j] >= 0
@@ -218,7 +221,7 @@ def _scan_part(q, qn, part_vecs, part_ids, ooc_dev, slots, n_live, run, k, route
         ids = torch.where(valid[:, None], slot_ids[slx], -1)
         dist = torch.where(ids >= 0, torch.clamp(dist, min=0.0), float("inf")).to(run[0].dtype)
         key = torch.where(ids >= 0, steps[:, j:j + 1] * cap + row, _NO_KEY)
-        run = _merge(run, dist, ids, key, k)
+        run = _merge(run, dist, ids, key, k, select_impl)
     return run
 
 
@@ -255,11 +258,6 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
     ids)`` merges an append-only segment.  Returns (n_queries, k)
     distances and int32 ids, best-first.
     """
-    if select_impl is not None:
-        raise RaftError("ooc_ivf_flat_search: select_impl= is not ported yet; it waits for "
-                        "queue 1 item 7b (core/tuning.py)", collect_stack=False)
-    expects(scan_impl in SCAN_IMPLS + (None,),
-            "ooc_ivf_flat_search: scan_impl must be one of %s, got %r", SCAN_IMPLS, scan_impl)
     dev = resolve_device(device)
     q = as_tensor(queries, dev)
     centroids = as_tensor(ooc.centroids, dev)
@@ -269,16 +267,13 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
     nprobe = _validate_nprobe("ooc_ivf_flat_search", ooc.nprobe if nprobe is None else nprobe,
                               int(centroids.shape[0]))
     metric = DistanceType(int(ooc.metric))
-    legal = (q.dtype == torch.float32 and ooc.store.dtype == np.float32 and k <= MAX_K
-             and metric in _L2_METRICS)
-    route = scan_impl
-    if route is None:
-        route = "kernel" if legal and dev.type == "cuda" else "scan"
-    expects(route == "scan" or legal, "ooc_ivf_flat_search: scan_impl=%r needs float32 queries "
-            "and store, k <= %d and an L2 metric (got %s, %s, k=%d)", route, MAX_K, q.dtype,
-            ooc.store.dtype, k)
+    route = _resolve_scan_impl(scan_impl, site="ooc_ivf_flat_search", q=q,
+                              store_dtype=torch.from_numpy(np.empty(0, ooc.store.dtype)).dtype,
+                              n=ooc.slot_ids.shape[0] * ooc.slot_ids.shape[1], k=k,
+                              metric=metric)
     ooc_dev = (as_tensor(ooc.slot_ids, dev), as_tensor(ooc.slot_norms, dev))
-    slots, _ = _probe_compact(q, centroids, as_tensor(ooc.cent_slots, dev), nprobe)
+    slots, _ = _probe_compact(q, centroids, as_tensor(ooc.cent_slots, dev), nprobe,
+                              select_impl=select_impl)
     # the one device-to-host read: each query's probed slots
     slots_np = slots.cpu().numpy()
     distinct, dcounts = np.unique(slots_np[slots_np >= 0], return_counts=True)
@@ -318,7 +313,8 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
         if hot is not None:
             n_live = live(hot_mask[np.clip(slots_np, 0, None)] & (slots_np >= 0))
             if n_live:
-                run = _scan_part(q, qn, hot[0], hot[1], ooc_dev, slots, n_live, run, k, route)
+                run = _scan_part(q, qn, hot[0], hot[1], ooc_dev, slots, n_live, run, k, route,
+                                 select_impl)
         staged = None
         try:
             if overlap and chunks:
@@ -338,7 +334,8 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
                 staged = None
                 n_live = live(np.isin(slots_np, chunk))
                 if n_live:
-                    run = _scan_part(q, qn, vecs, ids_d, ooc_dev, slots, n_live, run, k, route)
+                    run = _scan_part(q, qn, vecs, ids_d, ooc_dev, slots, n_live, run, k, route,
+                                     select_impl)
                 del vecs, ids_d
                 if overlap and r + 1 < len(chunks):
                     # gathered on the host while the card runs that scan
@@ -355,7 +352,7 @@ def ooc_ivf_flat_search(ooc: OocIVFFlat, queries, k: int, nprobe: Optional[int] 
         dist = torch.sqrt(dist)
     out = (dist, ids)
     if delta is not None:
-        out = _merge_delta(out, delta, q, k, metric)
+        out = _merge_delta(out, delta, q, k, metric, select_impl)
     return out
 
 

@@ -12,6 +12,14 @@ knn.hpp:90).  Dispatch is by legality, never by failure:
 
 Either way ties resolve to the smaller column, and the result is sorted
 best-first.  On a CPU tensor K2's wrapper takes its plain version.
+
+``impl=`` names the route (``"kernel"`` or ``"sort"``, the registry's
+``select_impl`` candidates); None resolves the
+``select_impl`` knob through :func:`raft_tpu_torch.core.tuning.resolve`
+(override, configure, ``RAFT_TPU_SELECT_IMPL``, the tuning table on the
+(n, k) shape class, then the dispatch above), at each call.  An explicit
+``"kernel"`` outside K2's limits raises.  The JAX package's approximate
+and chunked selects have no counterpart, and their names are refused.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
@@ -29,20 +38,31 @@ from raft_tpu_torch.ops.select_tile import MAX_K, select_tile
 # key types K2 takes exactly (float64 keys would lose bits in float32)
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
+def _resolve_impl(impl: Optional[str], *, n: int, k: int, dtype) -> str:
+    """The select route of one call: ``impl``, else the ``select_impl``
+    knob (module doc), else K2 where it is legal (float keys, k <=
+    ``MAX_K``) and the stable sort otherwise."""
+    impl = tuning.resolve("select_impl", impl, site="select_k", dtype=dtype, n=n, k=k)
+    if impl is None:
+        impl = "kernel" if dtype in _KERNEL_DTYPES and k <= MAX_K else "sort"
+    return impl
 
-def _select_cols(keys: torch.Tensor, k: int,
-                 select_min: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+
+def _select_cols(keys: torch.Tensor, k: int, select_min: bool,
+                 impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(m, k) best keys and their int64 column ids."""
-    if keys.dtype in _KERNEL_DTYPES and k <= MAX_K:
+    if _resolve_impl(impl, n=keys.shape[1], k=k, dtype=keys.dtype) == "kernel":
         vals, idx = select_tile(keys if select_min else -keys, k)
         return (vals if select_min else -vals).to(keys.dtype), idx.long()
     vals, idx = torch.sort(keys, dim=1, descending=not select_min, stable=True)
     return vals[:, :k], idx[:, :k]
 
 
-def top_k_rows(sel: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row k largest, with int32 column ids."""
-    vals, idx = _select_cols(sel, k, select_min=False)
+def top_k_rows(sel: torch.Tensor, k: int,
+               impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row k largest, with int32 column ids; ``impl`` as in
+    :func:`select_k`."""
+    vals, idx = _select_cols(sel, k, select_min=False, impl=impl)
     return vals, idx.to(torch.int32)
 
 
@@ -51,6 +71,7 @@ def select_k(
     k: int,
     select_min: bool = True,
     values=None,
+    impl: Optional[str] = None,
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select the k smallest (or largest) keys per row.
@@ -66,6 +87,8 @@ def select_k(
     values:
         Optional (m, n) payload carried through the selection; defaults
         to the column index.
+    impl:
+        ``"kernel"`` (K2), ``"sort"`` or None (module doc).
 
     Returns
     -------
@@ -77,7 +100,7 @@ def select_k(
     expects(keys.ndim == 2, "select_k: 2-D keys required")
     n = keys.shape[1]
     expects(0 < k <= n, "select_k: k=%d out of range for n=%d", k, n)
-    out_keys, cols = _select_cols(keys, k, select_min)
+    out_keys, cols = _select_cols(keys, k, select_min, impl)
     if values is None:
         return out_keys, cols.to(torch.int32)
     values = as_tensor(values, dev)

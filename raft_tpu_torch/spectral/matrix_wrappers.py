@@ -15,8 +15,11 @@ fits 2^22 elements, because an element gather is serial there; elsewhere
 it keeps the sparse product.  The port runs on a GPU, so ``None`` keeps
 the sparse product, as the JAX rule does off a TPU.  ``True`` stores the
 dense matrix and multiplies it with :func:`raft_tpu_torch.core.precision.matmul`
-(IEEE float32).  ``spmv_impl`` pins the SpMV route (``None``:
-``"segment"``); a name that is not a route raises at construction.
+(IEEE float32).  ``spmv_impl`` pins the SpMV route; ``None`` resolves the
+``spmv_impl`` knob (the tuning table on the matrix's (rows, nnz) shape
+class included) once, at construction, as the JAX operator fixes its
+route when its solve compiles.  A name that is not a route raises at
+construction, in the candidate registry's message shape.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from raft_tpu_torch.core import precision
 from raft_tpu_torch.core.device import as_tensor
 from raft_tpu_torch.sparse.formats import CSR
-from raft_tpu_torch.sparse.linalg import check_spmv_impl, spmv, spmv_plan
+from raft_tpu_torch.sparse.linalg import resolve_spmv_impl, spmv, spmv_plan
 
 
 class SparseMatrix:
@@ -34,10 +37,8 @@ class SparseMatrix:
 
     def __init__(self, csr: CSR, densify: bool | None = None, spmv_impl: str | None = None):
         # a misspelled route fails here, not deep inside a solve
-        if spmv_impl is not None:
-            check_spmv_impl(spmv_impl, "SparseMatrix")
+        self.spmv_impl = resolve_spmv_impl(spmv_impl, csr, "SparseMatrix")
         self.csr = csr
-        self.spmv_impl = spmv_impl
         self.dense = csr.to_dense() if densify else None
         self._plan = None if densify else spmv_plan(csr)
 
@@ -54,7 +55,7 @@ class SparseMatrix:
             x = as_tensor(x, self.device)
         if self.dense is not None:
             return precision.matmul(self.dense, x)
-        return spmv(self._plan, x, self.spmv_impl or "segment")
+        return spmv(self._plan, x, self.spmv_impl)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         return self._ax(x)

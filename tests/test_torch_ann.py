@@ -156,7 +156,9 @@ def test_explicit_kernel_outside_its_limits_raises(data, pindex):
     with pytest.raises(LogicError, match="scan_impl"):
         ivf_flat_search(pindex, Q.astype(np.float64), 5, scan_impl="kernel_bf16",
                         device="cpu")
-    with pytest.raises(LogicError, match="scan_impl must be"):
+    # a JAX name is refused in the registry's message shape, never mapped
+    with pytest.raises(LogicError, match="ivf_scan_impl='pallas' is illegal.*legal: kernel, "
+                                         "kernel_bf16, scan"):
         ivf_flat_search(pindex, Q, 5, scan_impl="pallas", device="cpu")
 
 

@@ -230,8 +230,14 @@ def test_mnmg_ivf_k_above_k3s_limit_takes_the_scan_route(ivf):
 
 
 def test_mnmg_ivf_select_impl_names_item_7(ivf):
-    with pytest.raises(RaftError, match="item 7"):
+    # item 7b ported select_impl: a JAX name is refused in the registry's
+    # message shape, and the port's two routes give the same answer
+    with pytest.raises(RaftError, match="select_impl='approx' is illegal.*legal: kernel, sort"):
         mnmg_ivf_flat_search(ivf[3], np.zeros((1, 16), np.float32), 4, select_impl="approx")
+    q = np.random.default_rng(16).standard_normal((3, 16)).astype(np.float32)
+    got = [mnmg_ivf_flat_search(ivf[3], q, 6, nprobe=8, select_impl=impl)
+           for impl in ("kernel", "sort")]
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
 
 
 # --------------------------------------------------------------------- #

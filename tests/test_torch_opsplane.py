@@ -444,6 +444,30 @@ def test_debug_config_ops_and_fleet_knobs_match_jax(planes, monkeypatch):
         {k: jconfig.knob_default(k) for k in names}
 
 
+def test_statusz_and_config_report_an_installed_table(planes):
+    """With a table installed, ``/statusz`` and ``/debug/config`` carry
+    ``config.tuning_table_info()`` as the JAX plane does; cleared, None."""
+    from raft_tpu_torch.core import tuning
+
+    _, _, pp = planes
+    table = {"version": 1, "fingerprint": tuning.backend_fingerprint(), "entries": [
+        {"op": "select_k", "knob": "select_impl", "shape_class": "*", "dtype": "*",
+         "winner": "sort"},
+        {"op": "csr_spmv", "knob": "spmv_impl", "shape_class": "*", "dtype": "*",
+         "winner": "segment"}]}
+    assert config.install_tuning_table(table, source="<statusz test>")
+    try:
+        want = config.tuning_table_info()
+        assert want == {"source": "<statusz test>", "fingerprint": tuning.backend_fingerprint(),
+                        "cells": 2, "knobs": {"select_impl": 1, "spmv_impl": 1}}
+        (_, status), (_, conf) = _body(pp._ep_statusz({})), _body(pp._ep_config({}))
+        assert status["tuning_table"] == want and conf["tuning_table"] == want
+        assert conf["knobs"]["select_impl"] == {"value": "sort", "layer": "table"}
+    finally:
+        config.clear_tuning_table()
+    assert _body(pp._ep_statusz({}))[1]["tuning_table"] is None
+
+
 def test_config_describe_rungs():
     assert config.describe()["fleet_timeout_s"] == "10"
     config.configure(fleet_timeout_s="3")

@@ -89,7 +89,9 @@ def test_import_pulls_in_no_jax():
                                     "raft_tpu_torch.fleet.tracing",
                                     "raft_tpu_torch.fleet.chaos", "raft_tpu_torch.fleet.router",
                                     "raft_tpu_torch.fleet.worker",
-                                    "raft_tpu_torch.fleet.supervisor"])
+                                    "raft_tpu_torch.fleet.supervisor",
+                                    "raft_tpu_torch.core.tuning",
+                                    "raft_tpu_torch.core.specializations"])
 def test_serving_modules_pull_in_no_jax(module):
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
@@ -98,9 +100,39 @@ def test_serving_modules_pull_in_no_jax(module):
                    check=True, timeout=120)
 
 
+@pytest.mark.parametrize("tool", ["torch_autotune.py", "torch_loadgen.py"])
+def test_tools_pull_in_no_jax(tool):
+    code = ("import importlib.util, sys; "
+            "spec = importlib.util.spec_from_file_location('t', 'tools/%s'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
+            " or m == 'raft_tpu']; assert not bad, bad" % tool)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                   check=True, timeout=120)
+
+
+def test_pyproject_names_every_port_subpackage():
+    """A wheel built from the tree carries every subpackage of the port
+    and its data files (the kernels' sources, the tuning tables)."""
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    named = set(conf["tool"]["setuptools"]["packages"])
+    found = {".".join(p.parent.relative_to(ROOT).parts)
+             for p in (ROOT / "raft_tpu_torch").rglob("__init__.py")}
+    assert found <= named, sorted(found - named)
+    data = conf["tool"]["setuptools"]["package-data"]["raft_tpu_torch"]
+    assert {"ops/csrc/*.cu", "ops/csrc/*.cuh", "tuning/*.json"} <= set(data)
+    manifest = (ROOT / "MANIFEST.in").read_text()
+    assert "recursive-include raft_tpu_torch/tuning *.json" in manifest
+    assert "recursive-include raft_tpu_torch/ops/csrc *.cu *.cuh" in manifest
+
+
 def test_sources_import_no_jax():
     banned = re.compile(r"\s*(from|import)\s+(jax|raft_tpu)(\.|\s|$)")
-    for path in list((ROOT / "raft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in list((ROOT / "raft_tpu_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py", ROOT / "tools" / "torch_autotune.py",
+            ROOT / "tools" / "torch_loadgen.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
 

@@ -480,17 +480,20 @@ DEFERRED = {"ooc": True, "device_budget_bytes": 1 << 20, "tile_slots": 4,
             "ooc_overlap": True, "ooc_promote_batches": 8, "persist_mmap": True,
             "mesh": object(), "axis": "x", "merge": "ring",
             "group_size": 2, "select_impl": "approx"}
-ITEM = {"select_impl": "item 7"}
+ITEM = {}
 
 
-# the out-of-core arguments were deferred to queue 1 item 5 and the sharded
-# ones to item 6, and are ported now: alone on a resident index each is taken
-# as the JAX service takes it (None: accepted; else the LogicError's text;
-# merge and group_size only act with a mesh or an axis), and none names an item
+# the out-of-core arguments were deferred to queue 1 item 5, the sharded
+# ones to item 6 and select_impl to item 7b, and are ported now: alone on a
+# resident index each is taken as the JAX service takes it (None: accepted;
+# else the LogicError's text; merge and group_size only act with a mesh or
+# an axis; "approx", a JAX name, is refused in the registry's message
+# shape), and none names an item
 PORTED = {"ooc": "needs a device budget", "device_budget_bytes": "out-of-core knobs",
           "tile_slots": "out-of-core knobs", "ooc_overlap": None, "ooc_promote_batches": None,
           "persist_mmap": "durability knobs", "mesh": "raft_tpu_torch.comms.Mesh",
-          "axis": "not in mesh axes", "merge": None, "group_size": None}
+          "axis": "not in mesh axes", "merge": None, "group_size": None,
+          "select_impl": "ANNService: select_impl='approx' is illegal.*legal: kernel, sort"}
 
 
 @pytest.mark.parametrize("arg", list(DEFERRED))
@@ -504,7 +507,7 @@ def test_deferred_arguments_raise_naming_their_item(pindex, arg):
         return
     with pytest.raises(LogicError, match=PORTED[arg]) as ei:
         ANNService(pindex, K, start=False, device="cpu", **{arg: DEFERRED[arg]})
-    assert "item 5" not in str(ei.value) and "item 6" not in str(ei.value)
+    assert all("item %s" % i not in str(ei.value) for i in ("5", "6", "7"))
 
 
 def test_other_index_kinds_raise_naming_item_4(pindex):
