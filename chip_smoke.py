@@ -154,6 +154,28 @@ paths through the public entry points with ``device="cuda"``:
   win, every response bitwise equal to the unbatched call, p50 and p99
   and the hedge and failover counters).  Where the machine shows more
   than one card, ``mnmg_knn_1M`` also runs over distinct cards.
+- the multi-process session (queue 1 item 8, ``mp_paths``): two child
+  processes of ``python -m raft_tpu_torch.comms.mp_selftest``, two rank
+  slots each on ``cuda:0``, one session over ``torch.distributed`` (a
+  world of 4 spanning 2 processes; both on one card, so the backend rule
+  picks gloo): ``mp_comms_selftest_4`` (the 14 self-tests in each child,
+  a split by process, ``health_check``, the registry, the backend, the
+  host-staged bytes, no kernel built in a child); ``mp_mnmg_knn_1M``
+  (config #5 at config #3's shape, 1M x 128 drawn by numpy from seed 7
+  in each child and here, 1024 queries, k 100, each merge) and
+  ``mp_mnmg_ivf_1M`` (this script's IVF index written once with the
+  port's snapshot under ``build/mp/`` and restored by each child, its
+  digest held to this one's; nprobe 32): every child's answer bitwise
+  equal to this process's world of 4 (SHA-256 of the distance and id
+  bytes), each child's median ms a topology, the exchange's share and
+  bytes a search, K1 and K3 held against their plain versions in each
+  child; ``mp_bootstrap`` (a session aimed at a coordinator nobody serves
+  raises ``CommError`` after 3 attempts within its bound; child 1 starts
+  3 s after child 0's store answers, so child 0's bootstrap retries,
+  then succeeds).  The children's K1, K2 and K3 launches join the
+  ``kernels`` line.  Where the machine shows two or more cards the NCCL
+  route runs too (a child a card); otherwise a line says it was not run.
+  ``build/mp/`` is removed after; no child outlives the phase.
 - the fleet (queue 1 item 7), a ``Router`` in this process and worker
   processes (``python -m raft_tpu_torch.fleet.worker``) on ``cuda:0``:
   ``fleet_ann_1M`` (the 1M x 128 mixture of ``fleet/worker.py:_synth``,
@@ -354,6 +376,12 @@ OOC_FIXED, OOC_RECALL_ROWS, OOC_PEAK_FRAC = 1024, 256, 0.5
 # worlds of 1, 2, 4 and 8; the session's inserts and fixed queries; the
 # replicas' fixed hedge threshold and the delay injected on replica 1
 MNMG_WORLD, SELFTEST_P2P_FLOATS, IVF_ATOL = 4, 262_144, 1e-4
+MP_PROCESSES, MP_SLOTS, MP_SEED = 2, 2, 7
+MP_REPS = 5                # timed searches a topology in each child
+MP_LATE_S = 3.0            # child 1 starts this long after child 0's store answers
+MP_BOOT_TIMEOUT_S = 2.0    # child 0's bootstrap attempts (their waits end at 1.6 s)
+MP_DEAD_TIMEOUT_S = 1.0    # each attempt at a coordinator nobody serves
+MP_CHILD_TIMEOUT_S = 300.0
 SHARDED_N, SHARDED_THREADS, SHARDED_ROWS, SHARDED_SECONDS = 500_000, 16, 16, 4.0
 SHARDED_RUNGS = (8, 32, 64, 128)
 SHARDED_POOL, SHARDED_NOISE = 32, 0.1   # tools/loadgen.py:make_query_pool's defaults
@@ -1986,6 +2014,226 @@ def session_paths(ctx, m):
     return paths, extra
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_children(root, tag, devices, extra, late_s=None):
+    """Run one session of ``len(devices)`` processes of ``python -m
+    raft_tpu_torch.comms.mp_selftest`` (process i on ``devices[i]``, its
+    log under ``root``), bounded by ``MP_CHILD_TIMEOUT_S``; with
+    ``late_s``, process 1 starts only once process 0's store answers and
+    ``late_s`` more seconds have passed.  Every child is killed on the way
+    out.  Returns the reports; raises if a child failed."""
+    port = free_port()
+    procs, logs, outs = [], [], []
+
+    def start(i):
+        outs.append(root / ("%s_p%d.json" % (tag, i)))
+        logs.append(open(root / ("%s_p%d.log" % (tag, i)), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "raft_tpu_torch.comms.mp_selftest", "--process-id", str(i),
+             "--num-processes", str(len(devices)), "--coordinator", "127.0.0.1:%d" % port,
+             "--slots", str(MP_SLOTS), "--device", devices[i], "--out", str(outs[i]),
+             "--reps", str(MP_REPS), "--bootstrap-timeout", str(MP_BOOT_TIMEOUT_S),
+             "--bootstrap-retries", "60", *extra],
+            cwd=str(ROOT), stdout=logs[i], stderr=subprocess.STDOUT))
+
+    t0 = time.perf_counter()
+    try:
+        start(0)
+        if late_s is not None:
+            import datetime
+
+            probe = torch.distributed.TCPStore(
+                "127.0.0.1", port, len(devices), False, wait_for_workers=False,
+                timeout=datetime.timedelta(seconds=MP_CHILD_TIMEOUT_S))
+            del probe
+            time.sleep(late_s)
+        for i in range(1, len(devices)):
+            start(i)
+        for p in procs:
+            p.wait(timeout=max(1.0, MP_CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    reports = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        tail = (root / ("%s_p%d.log" % (tag, i))).read_text()[-3000:]
+        assert p.returncode == 0 and out.exists(), "%s process %d: rc %s\n%s%s" % (
+            tag, i, p.returncode, tail, out.read_text()[-3000:] if out.exists() else "")
+        reports.append(json.loads(out.read_text()))
+    return reports, time.perf_counter() - t0
+
+
+def mp_paths(ctx, m):
+    """The multi-process session on the card (queue 1 item 8): two child
+    processes of two rank slots each on ``ctx.dev`` (a world of 4 spanning
+    2 processes; one card held by both, so the backend rule picks gloo):
+    ``mp_comms_selftest_4``, ``mp_mnmg_knn_1M``, ``mp_mnmg_ivf_1M`` and
+    ``mp_bootstrap`` (module doc).  Every child answer is held bitwise to
+    this process's one-process world of 4 for the same merge (digests of
+    the distance and id bytes).  The NCCL arm runs where the machine shows
+    two or more cards.  The children live under ``build/mp/``, removed
+    after.  Returns (paths, per-kernel launches inside the children)."""
+    import shutil
+
+    dev, D = ctx.dev, m.D
+    root = ROOT / "build" / "mp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    paths = {}
+    world = MP_PROCESSES * MP_SLOTS
+    merges = ("allgather", "ring", "hierarchical")
+    try:
+        # mp_bootstrap: a session aimed at a coordinator nobody serves
+        policy = m.RetryPolicy(max_retries=2, base_delay=0.05, timeout=MP_DEAD_TIMEOUT_S)
+        t0 = time.perf_counter()
+        try:
+            m.Comms(mesh=m.Mesh([dev] * MP_SLOTS, ("ranks",)),
+                    coordinator_address="127.0.0.1:%d" % free_port(), num_processes=2,
+                    process_id=1, bootstrap_retry_policy=policy).init()
+            raise AssertionError("mp_bootstrap: a session with no coordinator came up")
+        except m.CommError as e:
+            dead_s = time.perf_counter() - t0
+            assert "after 3 attempts" in str(e), e
+        dead_bound = 3 * MP_DEAD_TIMEOUT_S + sum(policy.schedule()) + 2.0
+        assert dead_s <= dead_bound, (dead_s, dead_bound)
+
+        # this process's one-process world of 4: the answers the children
+        # are held to, on the children's data (numpy, from the seed)
+        rng = np.random.default_rng(MP_SEED)
+        index = torch.from_numpy(rng.standard_normal((N_INDEX, DIM), dtype=np.float32)).to(dev)
+        queries = torch.from_numpy(rng.standard_normal((N_QUERIES, DIM),
+                                                       dtype=np.float32)).to(dev)
+        one = m.Mesh([dev] * world, ("ranks",))
+        want_knn, want_ivf, one_ms = {}, {}, {}
+        for merge in merges:
+            g = MP_SLOTS if merge == "hierarchical" else None
+            want_knn[merge] = m.digest(*m.mnmg_knn(index, queries, K, D.L2Expanded, mesh=one,
+                                                   axis="ranks", merge=merge, group_size=g))
+            one_ms[merge] = ctx.time_ms(lambda: m.mnmg_knn(
+                index, queries, K, D.L2Expanded, mesh=one, axis="ranks", merge=merge,
+                group_size=g), reps=5)
+        del index, queries
+        snap = root / "ivf"
+        t0 = time.perf_counter()
+        m.write_snapshot(str(snap), ctx.ivf, seq=1, wal_seq=0)
+        np.save(snap / "queries.npy", ctx.ivf_q.cpu().numpy())
+        snapshot_s = time.perf_counter() - t0
+        ivf_digest = m.digest(ctx.ivf.centroids, ctx.ivf.slot_vecs, ctx.ivf.slot_ids,
+                              ctx.ivf.cent_slots)
+        sharded = m.shard_ivf_flat_index(ctx.ivf, one, "ranks")
+        for merge in merges:
+            g = MP_SLOTS if merge == "hierarchical" else None
+            want_ivf[merge] = m.digest(*m.mnmg_ivf_flat_search(sharded, ctx.ivf_q, K,
+                                                               nprobe=NPROBE, merge=merge,
+                                                               group_size=g))
+        del sharded
+
+        # the two children: child 1 joins late, so child 0's bootstrap retries
+        reports, wall_s = mp_children(
+            root, "gloo", [str(dev)] * MP_PROCESSES,
+            ["--knn", "%d,%d,%d,%d" % (N_INDEX, DIM, N_QUERIES, K), "--seed", str(MP_SEED),
+             "--ivf", str(snap), "--nprobe", str(NPROBE), "--k", str(K)], late_s=MP_LATE_S)
+        for r in reports:
+            assert r["ok"], r["failures"]
+            assert r["backend"] == "gloo" and r["build"]["builds"] == 0, (r["backend"], r["build"])
+            assert r["process_indices"] == [p for p in range(MP_PROCESSES)
+                                            for _ in range(MP_SLOTS)], r["process_indices"]
+            assert r["axis_host_group_size"] == MP_SLOTS and r["remote_device_refused"]
+        assert reports[0]["bootstrap_retries"] >= 1, reports[0]["bootstrap_retries"]
+        launches = {part: {name: sum(r[part]["launches"].get(name, 0) for r in reports)
+                           for name in ctx.wrappers} for part in ("knn", "ivf")}
+        if dev.type == "cuda":      # (a rehearsal on the CPU runs the plain versions)
+            assert launches["knn"]["knn_tile"] >= world and launches["knn"]["select_tile"] > 0
+            assert launches["ivf"]["ivf_tile"] >= world and launches["ivf"]["select_tile"] > 0
+
+        paths["mp_comms_selftest_4"] = {
+            "processes": MP_PROCESSES, "slots_per_process": MP_SLOTS, "ranks": world,
+            "backend": reports[0]["backend"],
+            "tests": [r["selftests"] for r in reports],
+            "health": [r["health"] for r in reports],
+            "process_indices": reports[0]["process_indices"],
+            "axis_host_group_size": reports[0]["axis_host_group_size"],
+            "host_staged_bytes": [r["exchange"]["host_staged_bytes"] for r in reports],
+            "bootstrap_s": [r["bootstrap_s"] for r in reports],
+            "bootstrap_retries": [r["bootstrap_retries"] for r in reports],
+            "kernel_builds_in_children": [r["build"]["builds"] for r in reports],
+            "kernel_loads_in_children": [r["build"]["loads"] for r in reports],
+            "children_wall_s": wall_s}
+        print("mp_comms_selftest_4: %s" % json.dumps(paths["mp_comms_selftest_4"]), flush=True)
+        for part, name, want in (("knn", "mp_mnmg_knn_1M", want_knn),
+                                 ("ivf", "mp_mnmg_ivf_1M", want_ivf)):
+            runs = {}
+            for merge in merges:
+                got = [r[part]["runs"][merge] for r in reports]
+                assert all(g["digest"] == want[merge] for g in got), (
+                    "%s %s: a child's answer differs from this process's world of %d"
+                    % (name, merge, world))
+                runs[merge] = {
+                    "bitwise_equal_to_one_process_world": True,
+                    "ms": [g["ms"] for g in got], "ms_all": [g["ms_all"] for g in got],
+                    "exchange_ms": [g["exchange_ms"] for g in got],
+                    "exchange_share": [g["exchange_share"] for g in got],
+                    "bytes_exchanged_per_search": got[0]["bytes_exchanged_per_search"]}
+                if part == "knn":
+                    runs[merge]["one_process_world_ms"] = one_ms[merge]
+            check = "k1_check" if part == "knn" else "k3_check"
+            out = {"processes": MP_PROCESSES, "ranks": world, "backend": reports[0]["backend"],
+                   "runs": runs, "launches": launches[part],
+                   check: [r[part][check] for r in reports]}
+            if part == "knn":
+                out["shape"] = "index %dx%d f32 (numpy seed %d), %d queries, k=%d, L2Expanded" % (
+                    N_INDEX, DIM, MP_SEED, N_QUERIES, K)
+            else:
+                out.update(nprobe=NPROBE, index_digest_equal=all(
+                    r["ivf"]["index_digest"] == ivf_digest for r in reports),
+                    snapshot_write_s=snapshot_s)
+                assert out["index_digest_equal"], "mp_mnmg_ivf_1M: a child restored another index"
+            paths[name] = out
+            print("%s: %s" % (name, json.dumps(out)), flush=True)
+        paths["mp_bootstrap"] = {
+            "dead_coordinator": {"attempts": 3, "attempt_timeout_s": MP_DEAD_TIMEOUT_S,
+                                 "seconds": dead_s, "bound_s": dead_bound},
+            "late_join": {"delay_s": MP_LATE_S, "attempt_timeout_s": MP_BOOT_TIMEOUT_S,
+                          "retries": [r["bootstrap_retries"] for r in reports],
+                          "bootstrap_s": [r["bootstrap_s"] for r in reports]}}
+        print("mp_bootstrap: %s" % json.dumps(paths["mp_bootstrap"]), flush=True)
+
+        # the NCCL route: one card a process
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if cards >= MP_PROCESSES:
+            nreports, nwall = mp_children(
+                root, "nccl", ["cuda:%d" % i for i in range(MP_PROCESSES)],
+                ["--knn", "%d,%d,%d,%d" % (N_INDEX, DIM, N_QUERIES, K), "--seed", str(MP_SEED)])
+            for r in nreports:
+                assert r["ok"] and r["backend"] == "nccl", (r["backend"], r["failures"])
+                for merge in merges:
+                    assert r["knn"]["runs"][merge]["digest"] == want_knn[merge], merge
+            paths["mp_nccl"] = {
+                "cards": MP_PROCESSES, "backend": "nccl", "wall_s": nwall,
+                "ms": {mg: [r["knn"]["runs"][mg]["ms"] for r in nreports] for mg in merges},
+                "launches": {name: sum(r["knn"]["launches"].get(name, 0) for r in nreports)
+                             for name in ctx.wrappers}}
+            print("mp_nccl: %s" % json.dumps(paths["mp_nccl"]), flush=True)
+        else:
+            print("mp_nccl: not run: this machine shows %d card(s), and NCCL needs a card for "
+                  "each of the %d processes (two processes on one card is a duplicate GPU)"
+                  % (cards, MP_PROCESSES), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def http_json(url, body=None, timeout=30.0):
     """(status, parsed body) of a GET (``body`` None) or a JSON POST; a
     status of 400 or more is returned, not raised."""
@@ -3560,6 +3808,22 @@ def main():
         CommAbortedError=CommAbortedError, cost=cost)
     spaths, sextra = session_paths(sctx, smods)
     paths.update(spaths)
+
+    # 5j'. the multi-process session (queue 1 item 8): two child processes
+    # of two rank slots each, held bitwise to this process's world of 4;
+    # the kernels' launches read from the children
+    from raft_tpu_torch.comms import RetryPolicy
+    from raft_tpu_torch.comms.mp_selftest import _digest
+    from raft_tpu_torch.core.error import CommError
+    from raft_tpu_torch.persist.snapshot import write_snapshot
+
+    mctx = types.SimpleNamespace(dev=dev, ivf=ivf, ivf_q=ivf_q, time_ms=time_ms,
+                                 wrappers=wrappers)
+    mmods = types.SimpleNamespace(
+        D=D, Mesh=Mesh, Comms=Comms, RetryPolicy=RetryPolicy, CommError=CommError,
+        digest=_digest, mnmg_knn=mnmg_knn, mnmg_ivf_flat_search=mnmg_ivf_flat_search,
+        shard_ivf_flat_index=shard_ivf_flat_index, write_snapshot=write_snapshot)
+    paths.update(mp_paths(mctx, mmods))
 
     # 5k. the fleet (queue 1 item 7): a router in this process, worker
     # processes on the card; the kernels' launches read from the workers

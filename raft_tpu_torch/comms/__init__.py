@@ -3,9 +3,9 @@
 Port of ``raft_tpu/comms`` (reference cpp/include/raft/comms/:
 ``comms_t``/``comms_iface``, comms.hpp:91,193, with its NCCL+UCX and MPI
 implementations injected into the handle, handle.hpp:229).  The JAX
-package is single-controller, and so is the port: one process drives
-every rank.  A :class:`Mesh` names axes over rank slots, each bound to a
-``torch.device`` (several may share a card);
+package is single-controller, and so is the port inside a process: one
+process drives every rank of its own.  A :class:`Mesh` names axes over
+rank slots, each bound to a ``torch.device`` (several may share a card);
 :class:`MeshComms` defines each verb once over a list of per-rank
 tensors, and :class:`HostComms` runs it eagerly on rank-major data with
 tagged p2p, ``comm_split`` and a status-returning ``sync_stream``.
@@ -19,8 +19,10 @@ transient failures with deterministic backoff and a watchdog deadline;
 :mod:`~raft_tpu_torch.comms.faults` injects failures at the execute seam
 (:func:`faults.inject`), so every path runs on the CPU in tests.
 :mod:`~raft_tpu_torch.comms.selftest` is the reference's battery.  The
-multi-process bootstrap over ``torch.distributed`` is a later item of
-``ROADMAP.md``.
+multi-process bootstrap over ``torch.distributed`` and the mesh that
+spans processes are :mod:`~raft_tpu_torch.comms.dist` (one process a
+card; every process builds the same spanning mesh, and one
+:class:`HostComms` spans them all).
 """
 
 from raft_tpu_torch.comms.types import Datatype, Op, Status, get_type  # noqa: F401

@@ -15,8 +15,30 @@ ranks' devices, runs the verb of
 stacks the per-rank results into a rank-major tensor on the first rank's
 device.  On a mesh of several axes the verbs run along ``axis`` through
 coordinate 0 of the others (the other lines would compute the same).
-The multi-process bootstrap (one process per card over
-``torch.distributed``) is item 8 of ``ROADMAP.md``.
+
+**Across processes** (a mesh that spans processes, built by a
+multi-process session: :mod:`raft_tpu_torch.comms.dist`).  One
+:class:`HostComms` spans every process, as under ``jax.distributed``.
+Every process makes the same calls with the same rank-major inputs; a
+process places only its own ranks' rows (a remote rank's row is never
+read), and inside the :meth:`_execute` seam one exchange of each
+process's local rows (``ProcessGroup.exchange``) hands every process
+every row, received onto its home device (:meth:`Mesh.home`).  Then the
+:class:`MeshComms` arithmetic runs in rank order, so every process ends
+with the whole rank-major result, bitwise the one a world of the same
+slots gives in one process (a reduction is a gather and a local fold in
+rank order, never a library ``all_reduce``).  ``gather``/``gatherv``
+keep root-only validity.  Tagged p2p: a pair with both ends in this
+process takes the direct route below; a pair that crosses processes is
+one ``isend``/``irecv`` of ``batch_isend_irecv``, in the matched order
+every process computes alike; then every process receives every
+result (one exchange, as ``process_allgather`` gives in the JAX
+package).  ``comm_split`` children exchange through the parent's group,
+and every process calls their verbs, one that holds no member too.  A
+remote rank's probe reports live (a dead process is the group's to
+detect: a verb that outlasts the group's timeout latches the abort).
+On one process nothing of this runs: the code paths are the
+single-controller ones.
 
 **Policy layer** (:meth:`HostComms._run`): a verb on a latched-aborted
 communicator fails fast with :class:`CommAbortedError` (the
@@ -71,6 +93,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.comms.dist import Remote
 from raft_tpu_torch.comms.mesh import AXIS, Mesh, as_mesh, default_mesh
 from raft_tpu_torch.comms.mesh_comms import MeshComms
 from raft_tpu_torch.comms.types import Op, Status
@@ -91,14 +114,31 @@ _STAGINGS = ("device", "ppermute", "host")
 
 
 def axis_host_group_size(mesh: Mesh, axis: str) -> Optional[int]:
-    """Ranks per host along ``axis`` when hosts are contiguous runs: the
-    natural group of the hierarchical top-k merge.  The port runs one
-    process, so no rank lies on another host and the answer is None, as
-    the JAX package's is on a single-process mesh; the caller falls back
-    to a divisor heuristic."""
-    expects(axis in as_mesh(mesh).axis_names, "axis_host_group_size: axis %s not in mesh",
-            axis)
-    return None
+    """Ranks per process along ``axis`` when processes are contiguous
+    runs: the natural group of the hierarchical top-k merge (its inner
+    allgather stays within a process, its ring crosses them).  The run
+    length of equal :attr:`Rank.process` values along one line of the
+    axis (other axes at coordinate 0) when every run has that length and
+    no process comes back; None on one process (the caller falls back to
+    a divisor heuristic) or on interleaved or uneven placement, as
+    ``raft_tpu/comms/host_comms.py:axis_host_group_size``."""
+    mesh = as_mesh(mesh)
+    expects(axis in mesh.axis_names, "axis_host_group_size: axis %s not in mesh", axis)
+    procs = [r.process for r in mesh.line(axis, (0,) * len(mesh.axis_names))]
+    if len(set(procs)) <= 1:
+        return None
+    run = 1
+    while run < len(procs) and procs[run] == procs[0]:
+        run += 1
+    if len(procs) % run != 0:
+        return None
+    for base in range(0, len(procs), run):
+        chunk = procs[base:base + run]
+        if len(set(chunk)) != 1:
+            return None
+        if base and chunk[0] == procs[base - 1]:
+            return None
+    return run
 
 
 class _Request:
@@ -135,7 +175,14 @@ class HostComms:
                 "p2p_staging must be 'device', 'ppermute' or 'host', got %r", p2p_staging)
         self.p2p_staging = p2p_staging
         self.ranks = self.mesh.line(axis, (0,) * len(self.mesh.axis_names))
-        self.devices = [r.device for r in self.ranks]
+        self.group = self.mesh.group
+        local = [r for r in self.ranks if r.is_local]
+        # where results land, and what this process receives is kept
+        self.home = local[0].device if local else self.group.home
+        # where this process holds each rank's row: the rank's device, or
+        # the home device for a rank of another process
+        self.devices = [r.device if r.is_local else self.home for r in self.ranks]
+        self._owners = [r.process for r in self.ranks]
         self._mc = MeshComms(axis, len(self.ranks), self.devices)
         self._requests: List[_Request] = []
         self._aborted = False
@@ -204,12 +251,17 @@ class HostComms:
 
     def _execute(self, key: tuple, fn, *args):
         """Run ``fn`` (a :class:`MeshComms` verb over per-rank lists) and
-        stack its per-rank result rank-major on the first rank's device.
-        The seam the fault injector patches."""
+        stack its per-rank result rank-major on the home device (the first
+        rank's in one process).  Across processes the per-rank lists are
+        first completed by the exchange (module doc).  The seam the fault
+        injector patches."""
+        if self.group is not None:
+            args = tuple(self.group.exchange(a, self._owners, key[0]) if isinstance(a, list)
+                         else a for a in args)
         return self._stack(fn(*args))
 
     def _stack(self, outs: List[torch.Tensor]) -> torch.Tensor:
-        dev = self.devices[0]
+        dev = self.home
         return torch.stack([o if o.device == dev else o.to(dev) for o in outs])
 
     def _ensure_alive(self, verb: str) -> None:
@@ -220,19 +272,29 @@ class HostComms:
                 "%s on aborted communicator (size=%d); rebuild via Comms.recover()"
                 % (verb, self.get_size()), collect_stack=False)
 
-    def _check(self, x) -> List[torch.Tensor]:
-        """A rank-major input as per-rank tensors on the ranks' devices."""
+    def _check(self, x) -> list:
+        """A rank-major input as per-rank tensors on the ranks' devices;
+        across processes a remote rank's row is not read: its entry is a
+        :class:`~raft_tpu_torch.comms.dist.Remote` of the row's shape
+        (None where a list gave none), which the exchange fills."""
         size = self.get_size()
         if isinstance(x, (list, tuple)):
             expects(len(x) == size, "rank-major input required: %d buffers for size=%d",
                     len(x), size)
-            rows = [torch.as_tensor(t) for t in x]
+            rows = [None if t is None else torch.as_tensor(t) for t in x]
         else:
             x = torch.as_tensor(x)
             expects(x.ndim >= 1 and x.shape[0] == size,
                     "rank-major input required: leading axis must be size=%d", size)
             rows = list(x.unbind(0))
-        return [r if r.device == d else r.to(d) for r, d in zip(rows, self.devices)]
+        out = []
+        for r, rank, d in zip(rows, self.ranks, self.devices):
+            if not rank.is_local:
+                out.append(None if r is None else Remote(r.shape, r.dtype))
+            else:
+                expects(r is not None, "rank-major input: no buffer for local rank %d", rank.id)
+                out.append(r if r.device == d else r.to(d))
+        return out
 
     def allreduce(self, x, op: Op = Op.SUM):
         xs = self._check(x)
@@ -276,7 +338,13 @@ class HostComms:
         return self._run(("reducescatter", op), lambda b: self._mc.reducescatter(b, op), xs)
 
     def barrier(self) -> None:
-        self._run(("barrier",), self._mc.barrier, payload_bytes=0)
+        self._run(("barrier",), self._barrier, payload_bytes=0)
+
+    def _barrier(self) -> List[torch.Tensor]:
+        out = self._mc.barrier()
+        if self.group is not None:
+            self.group.barrier()
+        return out
 
     # ------------------------------------------------------------------ #
     # tagged p2p (reference comms.hpp:254-292 isend/irecv/waitall)
@@ -364,8 +432,11 @@ class HostComms:
                         rows = []
                         for rk, dev in enumerate(self.devices):
                             row = by_rank.get(rk)
-                            rows.append(zeros_cached(shape, dtype, dev) if row is None
-                                        else row.to(dev))
+                            if not self.ranks[rk].is_local:
+                                rows.append(Remote(shape, dtype))
+                            else:
+                                rows.append(zeros_cached(shape, dtype, dev) if row is None
+                                            else row.to(dev))
                     out = self._run(("p2p", tuple(perm)),
                                     lambda b, perm=perm: self._mc.device_sendrecv(b, perm),
                                     rows, payload_bytes=sum(_nbytes(s.data) for s, _ in layer))
@@ -392,12 +463,16 @@ class HostComms:
         try:
             with timer.time():
                 for s, r in pairs:
+                    if not (self.ranks[s.rank].is_local and self.ranks[r.rank].is_local):
+                        continue
                     dev = self.devices[r.rank]
                     if self.retry_policy is None:
                         r.result = s.data.to(dev, copy=True)
                     else:
                         r.result = self.retry_policy.call(
                             lambda t, d: t.to(d, copy=True), s.data, dev, verb="p2p")
+                if self.group is not None:
+                    self._cross_process_p2p(pairs)
         except CALLER_BUG_ERRORS:
             raise
         except (CommAbortedError, CommTimeoutError):
@@ -411,6 +486,24 @@ class HostComms:
                                              % (self.retry_policy.max_retries + 1), e)) from e
         self._series("counter", "raft_tpu_comms_bytes_total", "p2p",
                      "payload bytes moved by eager verbs").inc(payload)
+
+    def _cross_process_p2p(self, pairs) -> None:
+        """The pairs that cross processes, one ``isend``/``irecv`` each in
+        the matched order; then every process receives every result (module
+        doc).  Not retried: a retried exchange on one process alone would
+        desynchronise the group."""
+        local = [r.is_local for r in self.ranks]
+        moves = [(s.rank, r.rank, s.data if local[s.rank] else Remote(s.data.shape, s.data.dtype))
+                 for s, r in pairs]
+        for n, t in self.group.send_recv(moves, self._owners).items():
+            r = pairs[n][1]
+            r.result = t.to(self.devices[r.rank])
+        items = [r.result if local[r.rank] else Remote(s.data.shape, s.data.dtype)
+                 for s, r in pairs]
+        full = self.group.exchange(items, [self._owners[r.rank] for _, r in pairs], "p2p")
+        for (_, r), t in zip(pairs, full):
+            if not local[r.rank]:
+                r.result = t
 
     # device_send/recv: the reference's stream-ordered p2p verbs
     # (comms.hpp:508,522) share the tagged machinery with a reserved tag
@@ -440,7 +533,11 @@ class HostComms:
         """Whether rank ``rank`` answers: a scalar round trip on its
         device, run through the ``_execute`` seam (so a fault injected on
         the rank shows here) but not through the abort latch (an aborted
-        communicator's ranks may still be fit to carry a rebuilt one)."""
+        communicator's ranks may still be fit to carry a rebuilt one).  A
+        rank of another process reports live, untouched: a dead process is
+        the group's to detect."""
+        if not self.ranks[rank].is_local:
+            return True
         dev = self.devices[rank]
 
         def ping():

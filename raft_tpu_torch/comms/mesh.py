@@ -1,8 +1,8 @@
 """A mesh of rank slots: where ``jax.sharding.Mesh`` stands in the JAX package.
 
-The JAX package is single-controller: one process drives every device,
-and its tests run every multi-device path on 8 virtual CPU devices of
-one process.  The port keeps that design.  A :class:`Mesh` holds named
+The JAX package is single-controller: one process drives every device
+of its own, and its tests run every multi-device path on 8 virtual CPU
+devices of one process.  The port keeps that design inside a process.  A :class:`Mesh` holds named
 axes over an array of **rank slots** (:class:`Rank`), each bound to a
 :class:`torch.device`, and several slots may share one device, as the
 virtual JAX mesh shares the host's cores.  So a world of 4 runs on one
@@ -18,6 +18,19 @@ first built in), and sub-meshes (:meth:`Mesh.submesh`, the session's
 included.  Everything that names a rank (the liveness verdicts of a
 session's ``health_check``, ``recover(devices=...)``, a replica's span,
 ``worker_info``) names it by that id or by the :class:`Rank` object.
+
+**A mesh that spans processes.**  A multi-process session (one process a
+card over ``torch.distributed``, :mod:`raft_tpu_torch.comms.dist`)
+builds one mesh on every process: the concatenation of every process's
+local slots in process order, ids their flat positions, carrying the
+process group (:attr:`Mesh.group`).  Each :class:`Rank` knows the
+process that owns it (``process``) and whether that is this process
+(``is_local``).  A remote rank carries its owner's device description
+(``"cuda:0@process 1"``) and no device: reading :attr:`Rank.device` of
+a remote rank raises :class:`~raft_tpu_torch.core.error.LogicError`, so
+no code can copy data to "its" device by mistake.  Sub-meshes keep the
+group.  :meth:`Mesh.home` is where this process holds what it receives
+from other processes: its first local slot's device.
 """
 
 from __future__ import annotations
@@ -28,22 +41,39 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.device import resolve_device
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import RaftError, expects, fail
 
 AXIS = "ranks"
 
 
 class Rank:
-    """One rank slot: an id and the device it runs on."""
+    """One rank slot: an id, the process that owns it, and, where this
+    process owns it, the device it runs on (module doc)."""
 
-    __slots__ = ("id", "device")
+    __slots__ = ("id", "_device", "process", "desc")
 
-    def __init__(self, rank_id: int, device: torch.device):
+    def __init__(self, rank_id: int, device: Optional[torch.device], process: int = 0,
+                 desc: Optional[str] = None):
         self.id = int(rank_id)
-        self.device = device
+        self._device = device
+        self.process = int(process)
+        self.desc = desc if desc is not None else str(device)
+
+    @property
+    def is_local(self) -> bool:
+        """Whether this process owns the slot (and so may touch its device)."""
+        return self._device is not None
+
+    @property
+    def device(self) -> torch.device:
+        """The slot's device; a rank of another process has none here."""
+        if self._device is None:
+            fail("Rank %d lives on %s: another process's device cannot be touched here",
+                 self.id, self.desc)
+        return self._device
 
     def __repr__(self) -> str:
-        return "Rank(%d, %s)" % (self.id, self.device)
+        return "Rank(%d, %s)" % (self.id, self.desc)
 
 
 def _as_device(d) -> torch.device:
@@ -65,9 +95,12 @@ class Mesh:
         as they are, ids included).
     axis_names:
         One name per array dimension.
+    group:
+        The :class:`~raft_tpu_torch.comms.dist.ProcessGroup` of a mesh
+        that spans processes (None: every slot is this process's).
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], group=None):
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for pos, idx in enumerate(np.ndindex(arr.shape)):
@@ -83,6 +116,9 @@ class Mesh:
         expects(len(set(ids)) == len(ids), "Mesh: repeated rank ids %r", ids)
         self.ranks = arr
         self.axis_names: Tuple[str, ...] = axis_names
+        self.group = group
+        expects(group is not None or all(r.is_local for r in arr.ravel()),
+                "Mesh: remote rank slots need the process group that spans them")
 
     # -- geometry ------------------------------------------------------- #
     @property
@@ -96,11 +132,29 @@ class Mesh:
 
     @property
     def devices(self) -> np.ndarray:
-        """The device of every rank slot, in the mesh's shape."""
+        """The device of every rank slot, in the mesh's shape (raises on a
+        mesh with remote slots: their devices are not this process's)."""
         out = np.empty(self.ranks.shape, dtype=object)
         for idx in np.ndindex(self.ranks.shape):
             out[idx] = self.ranks[idx].device
         return out
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.group is not None
+
+    def local_ranks(self) -> list:
+        """This process's slots, in flat order."""
+        return [r for r in self.ranks.ravel() if r.is_local]
+
+    def home(self) -> torch.device:
+        """Where this process keeps results and what it receives from other
+        processes: its first local slot's device (the process group's
+        first slot where this mesh holds none of this process's)."""
+        local = self.local_ranks()
+        if local:
+            return local[0].device
+        return self.group.home
 
     def rank_list(self) -> list:
         """The rank slots in flat (row-major) order."""
@@ -121,7 +175,7 @@ class Mesh:
                     "Mesh.submesh: %r is not a rank of this mesh", r)
             picked.append(by_id[int(key)])
         names = tuple(axis_names) if axis_names is not None else (self.axis_names[0],)
-        return Mesh(np.asarray(picked, dtype=object), names)
+        return Mesh(np.asarray(picked, dtype=object), names, group=self.group)
 
     def line(self, axis: str, coord: Tuple[int, ...]) -> list:
         """The slots along ``axis`` through the mesh coordinate ``coord``
@@ -154,6 +208,16 @@ def default_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     n = 1 if n_devices is None else int(n_devices)
     expects(n >= 1, "default_mesh: n_devices=%d", n)
     return Mesh([dev] * n, (AXIS,))
+
+
+def refuse_spanning(mesh, what: str) -> None:
+    """Raise :class:`RaftError` when ``mesh`` spans processes: ``what``
+    does not run across a process boundary yet (``ROADMAP.md``'s
+    performance work holds it as "serving across processes")."""
+    if mesh is not None and getattr(mesh, "group", None) is not None:
+        raise RaftError("%s over a mesh that spans processes is not ported yet; ROADMAP.md "
+                        "holds it under performance work as 'serving across processes'"
+                        % what, collect_stack=False)
 
 
 def as_mesh(mesh) -> Mesh:

@@ -8,8 +8,9 @@ violations (propagate — retrying a shape error cannot help), and aborts
 (latch).  In the port it wraps every eager verb of a
 :class:`~raft_tpu_torch.comms.host_comms.HostComms`
 (``retry_policy=``) and the serving worker's device call
-(``Service(retry_policy=...)``); the multi-process bootstrap that also
-uses it in the JAX package is item 8 of ``ROADMAP.md``.
+(``Service(retry_policy=...)``), and the multi-process bootstrap
+(``Comms(bootstrap_retry_policy=...)``, :mod:`raft_tpu_torch.comms.dist`),
+as in the JAX package.
 
 Every retry/timeout is reported through
 :func:`raft_tpu_torch.core.tracing.event` (span + monotonic counter)

@@ -190,8 +190,13 @@ class Handle:
 
     def get_device_properties(self) -> Dict[str, Any]:
         """The device's name and sizes (``torch.cuda.get_device_properties``
-        on the card; the platform alone on the CPU)."""
-        props: Dict[str, Any] = {"platform": self.device.type, "id": self.device.index}
+        on the card; the platform alone on the CPU) and the index of the
+        process that drives it (its rank in the ``torch.distributed``
+        group of a multi-process session, else 0)."""
+        from raft_tpu_torch.comms.dist import process_index
+
+        props: Dict[str, Any] = {"platform": self.device.type, "id": self.device.index,
+                                 "process_index": process_index()}
         if self.device.type != "cuda":
             return props
         p = torch.cuda.get_device_properties(self.device)

@@ -132,7 +132,7 @@ from raft_tpu_torch.mr.tile_pool import TilePool
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.persist import PersistManager
 from raft_tpu_torch.serve.resilience import BreakerState
-from raft_tpu_torch.comms.mesh import as_mesh
+from raft_tpu_torch.comms.mesh import as_mesh, refuse_spanning
 from raft_tpu_torch.serve.service import (Service, _knob_float, _knob_int, _resolve_shard_spec,
                                           _service_device, _service_seq, _shard_gauge)
 from raft_tpu_torch.spatial import ann as _ann
@@ -1047,6 +1047,7 @@ class ANNService(Service):
         ``warmup()`` after.  True when the mesh changed."""
         expects(self.axis is not None, "%s.repartition: service is not sharded", self.name)
         mesh = self._recovery_mesh() if mesh is None else as_mesh(mesh)
+        refuse_spanning(mesh, "%s.repartition" % self.name)
         expects(self.axis in mesh.axis_names,
                 "%s.repartition: replacement mesh lacks axis %r", self.name, self.axis)
         changed = mesh is not self.mesh

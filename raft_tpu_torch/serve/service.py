@@ -70,6 +70,7 @@ import torch
 
 from raft_tpu_torch import config
 from raft_tpu_torch.cache import VecCache
+from raft_tpu_torch.comms.mesh import refuse_spanning
 from raft_tpu_torch.core import flight
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import (
@@ -619,6 +620,7 @@ def _resolve_shard_spec(cls_name: str, mesh, axis, merge, device):
     from raft_tpu_torch.comms.mesh import as_mesh, default_mesh
 
     mesh = default_mesh(device=device) if mesh is None else as_mesh(mesh)
+    refuse_spanning(mesh, cls_name)
     if axis is None:
         axis = mesh.axis_names[0]
     expects(axis in mesh.axis_names, "%s: axis %r not in mesh axes %r", cls_name, axis,
@@ -629,6 +631,7 @@ def _resolve_shard_spec(cls_name: str, mesh, axis, merge, device):
 def _service_device(device, mesh):
     """A sharded or replicated service's device: the one asked for, else
     the first rank's of its mesh, else ``"cuda"``."""
+    refuse_spanning(mesh, "a sharded or replicated service")
     if device is not None:
         return resolve_device(device)
     if mesh is not None:
@@ -785,6 +788,7 @@ class KNNService(Service):
         Call ``warmup()`` after.  True when the mesh changed."""
         expects(self.axis is not None, "%s.repartition: service is not sharded", self.name)
         mesh = self._recovery_mesh() if mesh is None else mesh
+        refuse_spanning(mesh, "%s.repartition" % self.name)
         expects(self.axis in mesh.axis_names,
                 "%s.repartition: replacement mesh lacks axis %r", self.name, self.axis)
         if mesh is self.mesh:
@@ -850,6 +854,7 @@ class KNNService(Service):
                 mesh = comms.mesh
             else:
                 mesh = self._replica_parent
+        refuse_spanning(mesh, "%s.rebuild_replicas" % self.name)
         changed = mesh is not self._replica_parent
         n = min(self._n_replicas, int(mesh.size))
         self._replica_parent = mesh

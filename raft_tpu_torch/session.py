@@ -7,12 +7,24 @@ worker, :414-460, to set up the communicator and
 ``get_raft_comm_state`` :266, and tears everything down in ``destroy``;
 ``local_handle(sessionId)``, :247, fetches a worker's handle).
 
-The port is single-controller like the JAX package: "workers" are the
-rank slots of a :class:`~raft_tpu_torch.comms.mesh.Mesh`, driven by one
-process; several slots may share a card, so a world of 4 runs on one
-H100.  The multi-process bootstrap (``coordinator_address``,
+Inside a process the port is single-controller like the JAX package:
+"workers" are the rank slots of a :class:`~raft_tpu_torch.comms.mesh.Mesh`,
+driven by one process; several slots may share a card, so a world of 4
+runs on one H100.  Across processes (``coordinator_address``,
 ``num_processes``, ``process_id``: one process a card over
-``torch.distributed``) is item 8 of ``ROADMAP.md`` and raises until then.
+``torch.distributed``, :mod:`raft_tpu_torch.comms.dist`) every process
+runs the same session: the bootstrap brings up the process group under
+``bootstrap_retry_policy``, the processes exchange their local slots,
+and the session spans them (every process's local slots in process
+order, ids their flat positions), as ``jax.distributed`` spans hosts in
+the JAX package.  ``mesh=`` then names this process's slots (the JAX
+``mesh=`` is global; torch cannot name another process's device).  The
+payload backend is NCCL where every slot is on its own process's card,
+gloo otherwise (one card shared by two processes, or the CPU); it shows
+in :meth:`Comms.worker_info` and :meth:`Comms.health_check`.  Ownership
+is the JAX package's: a group the user brought up is adopted and never
+torn down; one the session brought up is torn down by :meth:`destroy`,
+or at once when ``init()`` fails after the bootstrap.
 
 Resilience: the session is the recovery authority.  :meth:`Comms.health_check`
 runs the :mod:`~raft_tpu_torch.comms.selftest` battery plus a per-rank
@@ -44,7 +56,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from raft_tpu_torch.comms import HostComms, default_mesh, selftest
+from raft_tpu_torch.comms import HostComms, default_mesh, dist, selftest
 from raft_tpu_torch.comms.mesh import Mesh, Rank, as_mesh
 from raft_tpu_torch.comms.resilience import RetryPolicy
 from raft_tpu_torch.core import flight as _flight
@@ -52,14 +64,17 @@ from raft_tpu_torch.core import inventory as _inventory
 from raft_tpu_torch.core import metrics as _metrics
 from raft_tpu_torch.core import profiler as _profiler
 from raft_tpu_torch.core import tracing
-from raft_tpu_torch.core.error import RaftError, expects, fail
+from raft_tpu_torch.core.error import CommError, expects, fail
 from raft_tpu_torch.core.handle import Handle
 
 # module-level session registry (the reference keeps worker-local state
 # dicts keyed by sessionId, comms.py:266)
 _sessions: Dict[str, "Comms"] = {}
 
-_BOOTSTRAP_ITEM = "item 8 (the multi-process bootstrap over torch.distributed)"
+
+def _distributed_is_initialized() -> bool:
+    """Whether this process already has a ``torch.distributed`` group."""
+    return dist.is_initialized()
 
 
 def inject_comms_on_handle(handle: Handle, comms: HostComms) -> None:
@@ -81,15 +96,23 @@ class Comms:
     mesh:
         Rank mesh to span; default: one rank a visible card
         (:func:`~raft_tpu_torch.comms.mesh.default_mesh`), or one CPU rank
-        with ``device="cpu"``.
-    coordinator_address / num_processes / process_id / bootstrap_retry_policy:
-        The multi-process bootstrap and its retry policy: item 8 of
-        ``ROADMAP.md``; each raises.
+        with ``device="cpu"``.  In a multi-process session, this
+        process's slots (1-D), which the session joins into the mesh that
+        spans every process.
+    coordinator_address / num_processes / process_id:
+        The multi-process bootstrap (:func:`raft_tpu_torch.comms.dist.initialize`):
+        ``host:port`` of the store process 0 serves, the process count and
+        this process's index.  Leave None for one process.
     retry_policy:
         Optional :class:`~raft_tpu_torch.comms.resilience.RetryPolicy` for
         every eager verb of the session's communicator (and its
-        ``comm_split`` children), and the default of the services it
-        serves.  None: fail on the first error.
+        ``comm_split`` children), the default of the services it serves,
+        and, unless ``bootstrap_retry_policy`` overrides it, of the
+        bootstrap.  None: fail on the first error.
+    bootstrap_retry_policy:
+        Optional separate policy for the bootstrap, whose failures are
+        transient (a peer not up yet) where a verb's timeout should be
+        fatal; each attempt's waits end inside its ``timeout``.
     device:
         The kind of the default mesh (``"cuda"`` unless ``"cpu"``).
     """
@@ -101,17 +124,18 @@ class Comms:
                  retry_policy: Optional[RetryPolicy] = None,
                  bootstrap_retry_policy: Optional[RetryPolicy] = None,
                  verbose: bool = False, device="cuda"):
-        for name, value in (("coordinator_address", coordinator_address),
-                            ("num_processes", num_processes), ("process_id", process_id),
-                            ("bootstrap_retry_policy", bootstrap_retry_policy)):
-            if value is not None:
-                raise RaftError("Comms: %s= is not ported yet; it waits for queue 1 %s"
-                                % (name, _BOOTSTRAP_ITEM), collect_stack=False)
         self.comms_p2p = comms_p2p
         self.sessionId = uuid.uuid4().hex
         self._mesh = as_mesh(mesh) if mesh is not None else None
         self._device = device
+        self._coordinator = coordinator_address
+        self._num_processes = num_processes
+        self._process_id = process_id
         self.retry_policy = retry_policy
+        self.bootstrap_retry_policy = (bootstrap_retry_policy
+                                       if bootstrap_retry_policy is not None else retry_policy)
+        self._owns_distributed = False
+        self._group: Optional[dist.ProcessGroup] = None
         self.verbose = verbose
         self.initialized = False
         self.comms: Optional[HostComms] = None
@@ -121,14 +145,73 @@ class Comms:
         self._ops_plane = None
 
     # -- lifecycle (reference init/destroy, comms.py:171,228) ---------- #
+    def _bootstrap_distributed(self) -> None:
+        """Join the process group (the NCCL-uid-exchange analog), retried
+        under the bootstrap policy: a peer that is not up yet is the most
+        transient failure a cluster has, and each attempt's waits end
+        inside the policy's timeout, so a black-holed connect cannot hang
+        bring-up."""
+        if _distributed_is_initialized():
+            # a group the user brought up: use it, never own it (destroy()
+            # must not tear down what this session did not create)
+            return
+        expects(self._num_processes is not None and self._process_id is not None,
+                "Comms: coordinator_address= needs num_processes= and process_id=")
+        policy = self.bootstrap_retry_policy
+        attempt_s = (0.8 * policy.timeout if policy is not None and policy.timeout
+                     else dist.GROUP_TIMEOUT_S)
+
+        def connect():
+            # idempotency guard for the retry path: an attempt abandoned
+            # by the watchdog may still land the group after its deadline;
+            # a retry that finds it up takes that as success (the group
+            # was down before the first attempt, so it is ours to own)
+            if _distributed_is_initialized():
+                return
+            dist.initialize(self._coordinator, self._num_processes, self._process_id,
+                            timeout_s=attempt_s)
+
+        if policy is None:
+            connect()
+        else:
+            try:
+                policy.call(connect, verb="bootstrap")
+            except Exception as e:
+                raise CommError(
+                    "multi-host bootstrap to %s failed after %d attempts: %s"
+                    % (self._coordinator, policy.max_retries + 1, e)) from e
+        self._owns_distributed = True
+
+    def _span(self, local: Mesh) -> Mesh:
+        """The mesh over every process's slots, ``local`` this process's."""
+        if self._num_processes is not None and self._process_id is not None:
+            world, rank = int(self._num_processes), int(self._process_id)
+        else:
+            world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+        self._group = dist.ProcessGroup.create([r.device for r in local.rank_list()], rank,
+                                               world)
+        return self._group.span(local)
+
     def init(self) -> "Comms":
         if self.initialized:
             return self
-        mesh = self._mesh if self._mesh is not None else default_mesh(device=self._device)
-        self._mesh = mesh
-        self.comms = HostComms(mesh, retry_policy=self.retry_policy)
-        self.handle = Handle(device=mesh.ranks.flat[0].device, mesh=mesh)
-        self.register_handle(self.handle)
+        if self._coordinator is not None:
+            self._bootstrap_distributed()
+        try:
+            # self._mesh stays this process's part: a re-init spans it again
+            self._mesh = self._mesh if self._mesh is not None else default_mesh(
+                device=self._device)
+            mesh = self._mesh if self._coordinator is None else self._span(self._mesh)
+            self.comms = HostComms(mesh, retry_policy=self.retry_policy)
+            self.handle = Handle(device=mesh.home(), mesh=mesh)
+            self.register_handle(self.handle)
+        except Exception:
+            # failure after a successful bootstrap: release the owned
+            # group now (a context manager's __exit__ never runs when
+            # __enter__ raises, and a leaked group would be adopted,
+            # unowned, by the next session of this process)
+            self.destroy()
+            raise
         _sessions[self.sessionId] = self
         self.initialized = True
         if self.verbose:
@@ -155,7 +238,12 @@ class Comms:
         entry is removed in a ``finally``, so a teardown failure never
         leaves a dead session shadowing a later one."""
         if not self.initialized:
-            _sessions.pop(self.sessionId, None)
+            # a bootstrap that succeeded before a later init() failure
+            # still owns the group: release it here
+            try:
+                self._teardown()
+            finally:
+                _sessions.pop(self.sessionId, None)
             return
         try:
             plane, self._ops_plane = self._ops_plane, None
@@ -169,6 +257,7 @@ class Comms:
                     svc.close(drain=True, timeout=10.0)
                 except Exception:
                     pass
+            self._teardown()
         finally:
             self.comms = None
             self.handle = None
@@ -182,13 +271,32 @@ class Comms:
 
             default_zeros_pool().release()
 
+    def _teardown(self) -> None:
+        """Leave the process group when this session brought it up."""
+        self._group = None
+        if self._owns_distributed:
+            self._owns_distributed = False
+            try:
+                dist.shutdown()
+            except Exception:
+                pass
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The payload backend across processes (``"nccl"`` or
+        ``"gloo"``, :func:`raft_tpu_torch.comms.dist.choose_backend`);
+        None for a session of one process."""
+        return self._group.backend if self._group is not None else None
+
     # -- health / recovery --------------------------------------------- #
     def health_check(self) -> Dict:
         """Run the self-test battery plus the per-rank liveness probes.
 
         Returns ``{"ok": bool, "tests": {name: bool}, "ranks": {rank_id:
-        bool}}`` (the JAX package keys its probes ``"devices"`` by device
-        id; here a rank is not a device).  On an aborted communicator every
+        bool}, "backend": ...}`` (the JAX package keys its probes
+        ``"devices"`` by device id; here a rank is not a device).  Ranks of
+        other processes report live, as the JAX package's do: a dead
+        process is the group's to detect.  On an aborted communicator every
         collective verdict is False while the probes still report which
         ranks could carry a rebuilt communicator: the input :meth:`recover`
         needs.  With services registered (:meth:`serve`) it also carries
@@ -201,7 +309,7 @@ class Comms:
             tests = selftest.run_all(self.comms)
             ranks = {r.id: self.comms.probe_rank(pos) for pos, r in enumerate(self.comms.ranks)}
         ok = all(tests.values()) and all(ranks.values())
-        out = {"ok": ok, "tests": tests, "ranks": ranks}
+        out = {"ok": ok, "tests": tests, "ranks": ranks, "backend": self.backend}
         blackboxes = _flight.default_recorder().blackbox_summaries()
         if blackboxes:
             out["flight_blackboxes"] = blackboxes
@@ -274,7 +382,8 @@ class Comms:
             # carry the communicator's configuration across the rebuild
             self.comms = HostComms(mesh, axis, retry_policy=self.retry_policy,
                                    p2p_staging=self.comms.p2p_staging)
-            self._mesh = mesh
+            if mesh.group is None:
+                self._mesh = mesh
             for h in self._handles:
                 inject_comms_on_handle(h, self.comms)
         if self.verbose:
@@ -289,7 +398,7 @@ class Comms:
             expects(by_id.get(d.id) is d, "recover: rank %r not in the session mesh", d)
             return d
         if isinstance(d, torch.device):
-            holders = [r for r in mesh.ranks.ravel() if r.device == d]
+            holders = [r for r in mesh.ranks.ravel() if r.is_local and r.device == d]
             expects(len(holders) == 1, "recover: device %s holds %d ranks of the session "
                     "mesh; name ranks by id", d, len(holders))
             return holders[0]
@@ -332,7 +441,7 @@ class Comms:
         expects(name is None or name not in self._services,
                 "serve: a service named %r is already registered", name)
         kwargs.setdefault("retry_policy", self.retry_policy)
-        kwargs.setdefault("device", self.comms.mesh.ranks.flat[0].device)
+        kwargs.setdefault("device", self.comms.home)
         if ((kwargs.get("axis") is not None or kwargs.get("replicas") is not None)
                 and kwargs.get("mesh") is None):
             kwargs["mesh"] = self.comms.mesh
@@ -393,9 +502,12 @@ class Comms:
     def worker_info(self, workers=None) -> Dict:
         """Rank map per "worker" (reference Comms.worker_info, comms.py:154):
         keyed by rank id, each with its communicator rank (its coordinate
-        along the comms axis), its coordinates on every mesh axis, its
-        device, platform and device kind.  ``workers`` restricts to those
-        rank ids."""
+        along the comms axis), its coordinates on every mesh axis, the
+        index of the process that owns it, its device (a rank of another
+        process: its owner's description, ``"cuda:0@process 1"``),
+        platform and device kind (a remote rank's from the bootstrap's
+        exchange), and the session's payload backend.  ``workers``
+        restricts to those rank ids."""
         expects(self.initialized, "worker_info: session not initialized")
         mesh = self.comms.mesh
         axis_idx = mesh.axis_names.index(self.comms.axis)
@@ -404,14 +516,15 @@ class Comms:
             r = mesh.ranks[coords]
             if workers is not None and r.id not in workers:
                 continue
-            dev = r.device
+            slot = (dist.describe_slot(r.device) if r.is_local
+                    else mesh.group.slot_of(r.id))
             info[r.id] = {"rank": int(coords[axis_idx]),
                           "mesh_coords": dict(zip(mesh.axis_names, map(int, coords))),
-                          "process_index": 0,
-                          "device": str(dev),
-                          "platform": dev.type,
-                          "device_kind": (torch.cuda.get_device_name(dev)
-                                          if dev.type == "cuda" else "cpu")}
+                          "process_index": r.process,
+                          "device": str(r.device) if r.is_local else r.desc,
+                          "platform": slot["type"],
+                          "device_kind": slot["name"],
+                          "backend": self.backend}
         return info
 
     def __enter__(self) -> "Comms":

@@ -32,9 +32,9 @@ card):
   * ``"hierarchical"``: an allgather within groups of ``group_size``
     ranks, a ring across the groups (HiCCL's decomposition applied to
     the merge); the group size resolves from placement
-    (:func:`raft_tpu_torch.comms.host_comms.axis_host_group_size`: None
-    in one process) and falls back to the divisor of the axis size
-    nearest its square root.
+    (:func:`raft_tpu_torch.comms.host_comms.axis_host_group_size`: the
+    slots a process holds, None in one process) and falls back to the
+    divisor of the axis size nearest its square root.
 
   Every re-selection is K2 (:func:`~raft_tpu_torch.spatial.select_k.select_k`)
   over candidates put in global-id order first, so ties order by
@@ -49,6 +49,19 @@ centroids (K2) and scans only the probed slots it owns, on K3 (the way
 above its ``MAX_K`` or a store that is not float32, on the resident
 search's step scan), then the same merges run.  The IVF quantizers are
 L2-only, as in :mod:`raft_tpu_torch.spatial.ann`.
+
+**Across processes** (a mesh that spans processes, built by a
+multi-process session): every process makes the same call; the shard
+functions place only this process's shards (a remote rank's entry is
+None), each process searches its own ranks only, and :func:`_merge_line`,
+the one point both searches merge through, first brings every remote
+rank's (distances, ids) block to every process with one exchange of each
+process's blocks in rank-id order
+(:meth:`~raft_tpu_torch.comms.dist.ProcessGroup.exchange`).  Every
+process then runs the same merge, so each ends with the whole result,
+bitwise the one a world of the same slots gives in one process, for all
+three topologies.  The ring and the hierarchy are merge orders here, not
+wire patterns: every block crosses the wire once, in the exchange.
 
 The communicator resolves from (in order) an explicit ``comms``, the
 ``handle``'s injected comms, an explicit ``mesh``/``axis`` pair, the
@@ -71,6 +84,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raft_tpu_torch.comms.dist import Remote
 from raft_tpu_torch.comms.host_comms import axis_host_group_size
 from raft_tpu_torch.comms.mesh import Mesh, as_mesh, default_mesh
 from raft_tpu_torch.core import precision, tuning
@@ -217,10 +231,27 @@ def _merge_topk(ds: List[torch.Tensor], ids: List[torch.Tensor], k: int, select_
 def _merge_line(mesh: Mesh, axis: str, coord, local, k, select_min, worst, merge, group_size,
                 select_impl=None):
     """The merge along the line of ``axis`` through ``coord``; ``local``
-    maps a rank id to its rank's (d, ids)."""
+    maps a rank id to its rank's (d, ids).  Across processes a remote
+    rank's entry is a pair of :class:`~raft_tpu_torch.comms.dist.Remote`
+    (or None where its shape is not known here), and one exchange first
+    brings every block to every process (module doc)."""
     line = mesh.line(axis, coord)
-    return _merge_topk([local[r.id][0] for r in line], [local[r.id][1] for r in line], k,
-                       select_min, worst, merge, group_size, select_impl)
+    items = [t for r in line for t in local[r.id]]
+    if mesh.group is not None:
+        items = mesh.group.exchange(items, [r.process for r in line for _ in (0, 1)],
+                                    "mnmg_merge")
+    return _merge_topk(items[0::2], items[1::2], k, select_min, worst, merge, group_size,
+                       select_impl)
+
+
+def _remote_block(local, rows, cols):
+    """The Remote specs of a remote rank's (d, ids) block: ``rows`` x
+    ``cols``, the dtypes this process's own blocks have (None, one
+    metadata round, where this process holds no block of the line)."""
+    mine = next((b for b in local.values() if isinstance(b[0], torch.Tensor)), None)
+    if mine is None:
+        return (None, None)
+    return (Remote((rows, cols), mine[0].dtype), Remote((rows, cols), mine[1].dtype))
 
 
 # --------------------------------------------------------------------- #
@@ -230,7 +261,7 @@ class ShardedRows(NamedTuple):
     """An index row-sharded over a mesh axis (:func:`shard_knn_index`):
     shard j holds rows ``[bases[j], bases[j] + len)`` and lies on every
     rank at position j of the axis (``shards`` in flat mesh order, each on
-    its rank's device)."""
+    its rank's device; None for a rank of another process)."""
 
     mesh: Mesh
     axis: str
@@ -247,8 +278,7 @@ def shard_knn_index(index, mesh: Mesh, axis: str) -> Tuple[ShardedRows, int]:
     ``n_rows=n``) to :func:`mnmg_knn` to reuse the shards."""
     mesh = as_mesh(mesh)
     expects(axis in mesh.axis_names, "shard_knn_index: axis %s not in mesh", axis)
-    dev0 = mesh.ranks.flat[0].device
-    index = as_tensor(index, dev0)
+    index = as_tensor(index, mesh.home())
     expects(index.ndim == 2, "shard_knn_index: (n, d) index required")
     n = int(index.shape[0])
     ax = mesh.axis_names.index(axis)
@@ -257,9 +287,9 @@ def shard_knn_index(index, mesh: Mesh, axis: str) -> Tuple[ShardedRows, int]:
     bases = tuple(min(j * rows, n) for j in range(size))
     shards = []
     for coord in np.ndindex(mesh.ranks.shape):
-        j = coord[ax]
+        j, rank = coord[ax], mesh.ranks[coord]
         part = index[bases[j]:min(bases[j] + rows, n)]
-        shards.append(part.to(mesh.ranks[coord].device))
+        shards.append(part.to(rank.device) if rank.is_local else None)
     return ShardedRows(mesh, axis, tuple(shards), bases, n), n
 
 
@@ -328,9 +358,9 @@ def mnmg_knn(
         expects(n_rows is None, "mnmg_knn: n_rows= needs the ShardedRows of shard_knn_index")
         sharded, _ = shard_knn_index(index, mesh_, axis_)
     n = sharded.n_rows
-    out_dev = mesh_.ranks.flat[0].device
+    out_dev = mesh_.home()
     q = as_tensor(queries, out_dev)
-    d_dim = sharded.shards[0].shape[1]
+    d_dim = next(s for s in sharded.shards if s is not None).shape[1]
     expects(q.ndim == 2 and q.shape[1] == d_dim,
             "mnmg_knn: index/query dimensionality mismatch")
     nq = q.shape[0]
@@ -358,12 +388,16 @@ def mnmg_knn(
         if qax is not None:
             line[qax] = qi
         qb = q[qi * bq:(qi + 1) * bq]
-        local = {}
+        local, remote = {}, {}
         for j in range(size):
             line[ax] = j
             rank = mesh_.ranks[tuple(line)]
             shard = sharded.shards[int(np.ravel_multi_index(line, mesh_.ranks.shape))]
-            kl = min(k, shard.shape[0])
+            end = sharded.bases[j + 1] if j + 1 < size else n
+            kl = min(k, end - sharded.bases[j])
+            if not rank.is_local:
+                remote[rank.id] = kl
+                continue
             if kl == 0:
                 local[rank.id] = (
                     torch.full((bq, 0), worst, dtype=torch.float32, device=rank.device),
@@ -372,6 +406,8 @@ def mnmg_knn(
             dl, il = _search_one_partition(shard, qb.to(rank.device), kl, metric, metric_arg,
                                            tile_n, precision, 1)
             local[rank.id] = (dl, (il + sharded.bases[j]).to(torch.int32))
+        for rid, kl in remote.items():
+            local[rid] = _remote_block(local, bq, kl)
         blocks.append(_merge_line(mesh_, axis_, tuple(line), local, k, select_min, worst,
                                   merge, group_size))
     dist = torch.cat([d.to(out_dev) for d, _ in blocks])
@@ -390,10 +426,11 @@ class ShardedIVFFlat(NamedTuple):
 
     Every field but ``mesh``, ``axis``, ``metric``, ``nprobe`` and
     ``nlist`` is a tuple with one entry a rank (flat mesh order, each on
-    its rank's device).  Centroids are replicated (every rank probes the
-    same coarse quantizer); shard j owns the global slots ``[j * rows,
-    (j + 1) * rows)`` (views of the index's stores where the device holds
-    them), and ``cent_slots_local`` maps each centroid's slot list to the
+    its rank's device; None for a rank of another process).  Centroids
+    are replicated (every rank probes the same coarse quantizer); shard
+    j owns the global slots ``[j * rows, (j + 1) * rows)`` (views of the
+    index's stores where the device holds them), and
+    ``cent_slots_local`` maps each centroid's slot list to the
     rank's local slot ids (-1: not owned here), so a rank scans exactly
     the probed slots it holds.  ``slot_ids`` carry global row ids."""
 
@@ -436,6 +473,10 @@ def shard_ivf_flat_index(index, mesh: Mesh, axis: str) -> ShardedIVFFlat:
     fields = {"centroids": [], "slot_vecs": [], "slot_norms": [], "slot_ids": [],
               "cent_slots_local": []}
     for coord in np.ndindex(mesh.ranks.shape):
+        if not mesh.ranks[coord].is_local:
+            for v in fields.values():
+                v.append(None)
+            continue
         dev = mesh.ranks[coord].device
         j = coord[ax]
         a, b = min(j * rows, n_slots), min((j + 1) * rows, n_slots)
@@ -495,9 +536,9 @@ def mnmg_ivf_flat_search(sharded: ShardedIVFFlat, queries, k: int,
 
     _check_metric("mnmg_ivf_flat_search", sharded.metric)
     mesh = sharded.mesh
-    out_dev = mesh.ranks.flat[0].device
+    out_dev = mesh.home()
     q = as_tensor(queries, out_dev)
-    d_dim = int(sharded.centroids[0].shape[1])
+    d_dim = int(next(c for c in sharded.centroids if c is not None).shape[1])
     expects(q.ndim == 2 and q.shape[1] == d_dim,
             "mnmg_ivf_flat_search: (nq, %d) queries required, got %r", d_dim, tuple(q.shape))
     nprobe = sharded.nprobe if nprobe is None else nprobe
@@ -509,15 +550,20 @@ def mnmg_ivf_flat_search(sharded: ShardedIVFFlat, queries, k: int,
     # the line of the axis through the origin; other lines hold replicas
     ax = mesh.axis_names.index(sharded.axis)
     line = [0] * len(mesh.axis_names)
-    local = {}
+    local, remote = {}, []
     for j in range(size):
         line[ax] = j
         rank = mesh.ranks[tuple(line)]
+        if not rank.is_local:
+            remote.append(rank.id)
+            continue
         flat = int(np.ravel_multi_index(line, mesh.ranks.shape))
         local[rank.id] = _shard_scan(q.to(rank.device), sharded.centroids[flat],
                                      sharded.slot_vecs[flat], sharded.slot_norms[flat],
                                      sharded.slot_ids[flat], sharded.cent_slots_local[flat],
                                      k, nprobe, select_impl)
+    for rid in remote:
+        local[rid] = _remote_block(local, q.shape[0], k)
     d, i = _merge_line(mesh, sharded.axis, tuple(line), local, k, True, float("inf"), merge,
                        group_size, select_impl)
     d, i = d.to(out_dev), i.to(out_dev)

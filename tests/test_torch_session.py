@@ -1,9 +1,9 @@
 """The port's session (raft_tpu_torch.session) on meshes of CPU rank slots:
 the lifecycle, the registry, ``worker_info``, ``health_check`` with a
 lost rank, ``recover`` on a shrunk mesh (the self-tests pass there), the
-refusals that name their ``ROADMAP.md`` item, and the serving recovery
-sequence (:class:`RecoveryManager`), beside the JAX package's session on
-its 8 virtual devices where the two answer the same question."""
+ops plane, and the serving recovery sequence (:class:`RecoveryManager`),
+beside the JAX package's session on its 8 virtual devices where the two
+answer the same question."""
 
 import json
 
@@ -15,7 +15,7 @@ from raft_tpu.comms import Op as JOp
 from raft_tpu.session import Comms as JComms
 from raft_tpu_torch.comms import HostComms, Mesh, Op, faults, selftest
 from raft_tpu_torch.core import tracing
-from raft_tpu_torch.core.error import CommAbortedError, LogicError, RaftError
+from raft_tpu_torch.core.error import CommAbortedError, LogicError
 from raft_tpu_torch.core.handle import Handle
 from raft_tpu_torch.serve import KNNService, RecoveryManager
 from raft_tpu_torch.session import (Comms, Session, _sessions, get_raft_comm_state,
@@ -144,14 +144,6 @@ def test_health_check_leaves_user_p2p_queue_alone():
         assert send in s.comms._requests and recv in s.comms._requests
         s.comms.waitall()
         assert (recv.result == 1.0).all()
-
-
-@pytest.mark.parametrize("arg,value", [("coordinator_address", "localhost:1234"),
-                                       ("num_processes", 2), ("process_id", 0),
-                                       ("bootstrap_retry_policy", object())])
-def test_multiprocess_bootstrap_names_its_item(arg, value):
-    with pytest.raises(RaftError, match="item 8"):
-        Comms(mesh=_mesh(), **{arg: value})
 
 
 def test_ops_plane_names_item_7():
