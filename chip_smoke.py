@@ -201,6 +201,36 @@ paths through the public entry points with ``device="cuda"``:
   hung through ``/chaos`` for 1 s: every request answered, hedges and
   wins counted).  The kernels' launches on these paths are read from
   the workers' inventories.  No worker outlives its fleet.
+- the load generator's scenarios (queue 1 item 9, ``loadgen_paths``):
+  ``tools/torch_loadgen.py``'s ``run_*`` functions in this process, 4 s
+  windows of 16-row requests: ``loadgen_chaos_1M`` (``KNNService`` over
+  the 1M index, k 100, 4 threads, seeds 0 and 1: transient faults at p
+  0.05 at the serve seam, a 0.8 s outage at 35% of the window,
+  ``RecoveryManager``), ``loadgen_kill_shard_1M`` (the same on a world
+  of 4 rank slots that loses its last: re-partitioned over 3, the
+  post-heal answer equal to ``brute_force_knn``), ``loadgen_hedge_chaos_1M``
+  (2 replicas, a 25 ms hedge, replica 0 held 0.4 s a batch for half the
+  window: hedges win), ``loadgen_tenants_1M`` (weights interactive:4,
+  bulk:1, bulk 300 qps of 32 rows: every shed typed),
+  ``loadgen_ooc_chaos_1M`` (the chaos arm on the out-of-core
+  ``ANNService`` over the 1M IVF-Flat index at a quarter of its store),
+  ``loadgen_crash_restart_1M`` (a persistent ``ANNService`` over a fresh
+  1M x 128 build into 1024 lists under queries and 8-row inserts, dropped
+  with no final snapshot and restored from ``build/loadgen/``: no acked
+  insert lost, answers bitwise, nothing built after the restore's
+  warmup), ``loadgen_ops_scrape_1M`` (``ANNService``, 8 threads, two
+  windows, the second scraped at 1 Hz) and ``loadgen_fleet_200k`` (two
+  sharded workers of 100,000 rows, cut from 1M for the spawn and rejoin
+  time, under the seeded schedule of ``FLEET_SEED``: a kill and
+  restart, frame faults; no acked row lost, one terminal a request,
+  healed); the ANN arms at the nprobe ``serve_ann_1M`` calibrated.  Each
+  prints rows/s, p50/p99, its invariants and ``ok``, recovery or restore
+  seconds and K1, K2 and K3 launches (the fleet's from the workers'
+  inventories).  Then ``reports``: ``tools/torch_trace_report.py`` renders
+  the chaos arm's flight dump (summary, a waterfall, Chrome JSON) and a
+  fleet request's joined trace (no problems), and
+  ``tools/torch_metrics_report.py`` this process's ``metrics_snapshot()``
+  (its sections and line counts).
 - the tuning half (queue 1 item 7b, ``tuning``): the checked-in table of
   this card's fingerprint (``raft_tpu_torch/tuning/``, written by
   ``tools/torch_autotune.py``; where none matches, a line says so and
@@ -405,7 +435,11 @@ CHAOS_BEFORE_S, CHAOS_OUTAGE_S, CHAOS_AFTER_S = 3.0, 1.0, 3.0
 REPL_ROWS, REPL_NLIST, REPL_HEDGE_MS, REPL_HANG_S = 200_000, 256, 60.0, 1.0
 # the K2 shapes of these paths are timed on normal keys (their merges
 # re-order candidates by global id first, so no sorted runs survive)
-NORMAL_KEY_PATHS = ("mnmg_", "serve_knn_sharded_500k", "session_recover", "serve_knn_replicas")
+NORMAL_KEY_PATHS = ("mnmg_", "serve_knn_sharded_500k", "session_recover", "serve_knn_replicas",
+                    "loadgen_kill_shard_1M", "loadgen_hedge_chaos_1M")
+# the paths whose K2 probes (k = nprobe) take the query-to-centroid keys
+PROBE_PATHS = ("ivf_search_1M", "serve_ann_1M", "loadgen_ooc_chaos_1M",
+               "loadgen_crash_restart_1M", "loadgen_ops_scrape_1M")
 QUANTIZED_PATHS = ("ivf_pq_1M", "ivf_sq_1M", "serve_ann_pq_1M", "serve_ann_sq_1M",
                    "persist_ann_1M", "rbc_haversine_1M", "rbc_l2_3d_1M")
 
@@ -2728,6 +2762,265 @@ def replicated_path(m, root, wrappers):
     return res
 
 
+# the load generator's scenarios (queue 1 item 9): tools/torch_loadgen.py's
+# run_* functions on this script's data, a window of LG_SECONDS each, 16-row
+# requests (the serving paths' size) from 4 closed-loop threads; the chaos
+# arm's seeds and fault rates are the JAX tool's defaults; a sharded world of
+# 4 slots for the shard kill, 2 replicas at the replicas' fixed hedge for the
+# straggler; the JAX tool's tenant defaults; the ops plane scraped through
+# two windows of 8 threads; the fleet cut to 200,000 rows, as
+# fleet_replicated_200k is, for the workers' spawn and rejoin time, with a
+# schedule (FLEET_SEED's) that kills and restarts a worker
+LG_SECONDS, LG_ROWS, LG_THREADS, LG_POOL = 4.0, 16, 4, 16
+LG_RUNGS = (8, 32, 64, 128)
+LG_CHAOS_SEEDS, LG_TRANSIENT_P, LG_OUTAGE_AT, LG_OUTAGE_S = (0, 1), 0.05, 0.35, 0.8
+LG_WORLD, LG_REPLICAS = 4, 2
+LG_TENANT_WEIGHTS, LG_BULK_QPS, LG_BULK_ROWS = "interactive:4,bulk:1", 300.0, 32
+LG_OOC_THREADS, LG_SCRAPE_THREADS = 3, 8
+LG_FLEET_ROWS, LG_FLEET_SECONDS, LG_FLEET_INSERT_ROWS = 200_000, 6.0, 8
+LG_SHOWN = ("knn_tile", "select_tile", "ivf_tile")
+
+
+def lg_window(t):
+    """Rows/s, p50 and p99 ms of a scenario's answered requests (its
+    ``timings``)."""
+    lat = sorted(x * 1e3 for x in t["latencies_s"])
+    return {"rows_per_s": t["rows"] / t["window_s"] if t["window_s"] else 0.0,
+            "p50_ms": quantile(lat, 0.5) if lat else None,
+            "p99_ms": quantile(lat, 0.99) if lat else None, "answered": len(lat)}
+
+
+def loadgen_paths(ctx, m):
+    """The load generator's scenarios on the card (queue 1 item 9):
+    ``tools/torch_loadgen.py``'s ``run_*`` functions in this process over
+    the script's 1M x 128 index (``KNNService`` arms) and its 1M IVF-Flat
+    index at the nprobe ``serve_ann_1M`` calibrated (``ANNService`` arms),
+    then the report tools (queue 1 item 10) on what they left.  Each path
+    prints rows/s, p50 and p99, the scenario's invariants and its ``ok``,
+    recovery or restore seconds, and K1, K2 and K3 launches; any failed
+    invariant raises.  Persist directories, the fleet's root and the dumps
+    live under ``build/loadgen/``, removed after."""
+    import contextlib
+    import io
+    import shutil
+
+    lg, dev, wrappers = m.lg, ctx.dev, ctx.wrappers
+    base = ROOT / "build" / "loadgen"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    paths = {}
+    knn_opts = dict(max_batch_rows=LG_RUNGS[-1], bucket_rungs=LG_RUNGS, max_wait_ms=1.0,
+                    device=dev)
+    ann_opts = dict(knn_opts, nprobe=ctx.nprobe, nprobe_ladder=ANN_LADDER)
+    knn_pool = lg.make_query_pool(ctx.index, LG_ROWS, n=LG_POOL, seed=1)
+    ann_pool = lg.make_query_pool(ctx.X, LG_ROWS, n=LG_POOL, seed=2)
+    rec = m.flight.default_recorder()
+    dump = base / ("chaos_seed%d.json" % LG_CHAOS_SEEDS[0])
+
+    def done(name, res, launches=None):
+        res["launches"] = ctx.counts(name) if launches is None else launches
+        res["k1_k2_k3_launches"] = {w: res["launches"][w] for w in LG_SHOWN}
+        paths[name] = res
+        print("%s: %s" % (name, json.dumps(res, default=str)), flush=True)
+
+    def serve(svc, scenario, **kw):
+        """Warm ``svc``, run ``scenario`` on it and close it; (report,
+        timings, kernel libraries built or loaded after the warmup)."""
+        t = {}
+        try:
+            svc.warmup()
+            rep = scenario(svc, timings=t, **kw)
+            built = svc.kernel_libraries_after_warmup()
+        finally:
+            svc.close()
+        assert built == {"builds": 0, "loads": 0}, ("a kernel built after warmup", built)
+        return rep, t
+
+    try:
+        # the serve-seam chaos: transient faults, an outage, recovery
+        ctx.reset()
+        res = {"seeds": {}}
+        for seed in LG_CHAOS_SEEDS:
+            if seed == LG_CHAOS_SEEDS[0]:
+                rec.clear()          # the dump holds this run alone
+            svc = m.KNNService(ctx.index, K, name="lg_chaos%d" % seed, **knn_opts)
+            rep, t = serve(svc, lg.run_chaos, duration=LG_SECONDS, concurrency=LG_THREADS,
+                           seed=seed, transient_p=LG_TRANSIENT_P, outage_at=LG_OUTAGE_AT,
+                           outage_s=LG_OUTAGE_S, query_pool=knn_pool,
+                           manager=m.RecoveryManager(services=[svc]))
+            if seed == LG_CHAOS_SEEDS[0]:
+                rec.dump_to(str(dump))
+            assert rep["chaos_ok"] and rep["exactly_once"] and rep["typed_only"], rep
+            assert rep["breaker_trips"] >= 1 and rep["recoveries"] == 1, rep
+            res["seeds"][seed] = dict(rep, recovery_s=t["recovery_s"], **lg_window(t))
+        done("loadgen_chaos_1M", res)
+
+        # the shard kill: a world of 4 slots loses its last one mid-run
+        ctx.reset()
+        svc = m.KNNService(ctx.index, K, mesh=lg.world_mesh(LG_WORLD, dev), axis="ranks",
+                           name="lg_kill_shard", **knn_opts)
+        rep, t = serve(svc, lg.run_chaos, duration=LG_SECONDS, concurrency=LG_THREADS, seed=0,
+                       transient_p=LG_TRANSIENT_P, outage_at=LG_OUTAGE_AT, outage_s=LG_OUTAGE_S,
+                       query_pool=knn_pool, manager=m.RecoveryManager(services=[svc]),
+                       kill_shard=True)
+        assert rep["chaos_ok"] and rep["shard_devices"] == LG_WORLD - 1, rep
+        assert rep["post_recovery_exact"] is True, rep
+        done("loadgen_kill_shard_1M", dict(rep, recovery_s=t["recovery_s"], **lg_window(t)))
+
+        # the hedge chaos: replica 0 straggles, hedges to replica 1 win
+        ctx.reset()
+        svc = m.KNNService(ctx.index, K, mesh=lg.world_mesh(LG_REPLICAS, dev), axis="ranks",
+                           replicas=LG_REPLICAS, hedge_ms=REPLICA_HEDGE_MS, name="lg_hedge",
+                           **knn_opts)
+        rep, t = serve(svc, lg.run_hedge_chaos, duration=LG_SECONDS, concurrency=LG_THREADS,
+                       rows=LG_ROWS, seed=0, query_pool=knn_pool)
+        assert rep["chaos_ok"] and rep["hedge_wins"] > 0, rep
+        done("loadgen_hedge_chaos_1M", dict(rep, hedge_ms=REPLICA_HEDGE_MS, **lg_window(t)))
+
+        # the mixed tenants: interactive clients beside a bulk flood
+        ctx.reset()
+        svc = m.KNNService(ctx.index, K, tenant_weights=LG_TENANT_WEIGHTS, name="lg_tenants",
+                           **knn_opts)
+        try:
+            svc.warmup()
+            rep = lg.run_mixed_tenants(svc, duration=LG_SECONDS,
+                                       interactive_concurrency=LG_THREADS,
+                                       bulk_qps=LG_BULK_QPS, interactive_rows=LG_ROWS,
+                                       bulk_rows=LG_BULK_ROWS, seed=0)
+        finally:
+            svc.close()
+        assert rep["untyped_sheds"] == 0 and rep["post_warmup_compiles"] == 0, rep
+        assert rep["tenants"]["interactive"]["requests_ok"] > 0, rep
+        tenant_rows = {"interactive": LG_ROWS, "bulk": LG_BULK_ROWS}
+        rep["rows_per_s"] = sum(rep["tenants"][tn]["qps"] * r for tn, r in tenant_rows.items())
+        done("loadgen_tenants_1M", rep)
+
+        # the out-of-core tier under chaos, a quarter of the store resident
+        ctx.reset()
+        store = int(ctx.ivf.slot_vecs.numel() * ctx.ivf.slot_vecs.element_size())
+        svc = m.ANNService(ctx.ivf, K, ooc=True, device_budget_bytes=store // 4,
+                           name="lg_ooc", **ann_opts)
+        rep, t = serve(svc, lg.run_chaos, duration=LG_SECONDS, concurrency=LG_OOC_THREADS,
+                       seed=0, transient_p=LG_TRANSIENT_P, outage_at=LG_OUTAGE_AT,
+                       outage_s=LG_OUTAGE_S, query_pool=ann_pool,
+                       manager=m.RecoveryManager(services=[svc]))
+        assert rep["chaos_ok"] and rep["exactly_once"], rep
+        del svc
+        torch.cuda.empty_cache()
+        done("loadgen_ooc_chaos_1M", dict(rep, recovery_s=t["recovery_s"],
+                                          device_budget_bytes=store // 4, **lg_window(t)))
+
+        # the crash and restart of a persistent ANNService
+        ctx.reset()
+        t = {}
+        rep = lg.run_crash_restart(str(base / "persist"), k=K, seed=0, duration=LG_SECONDS,
+                                   concurrency=LG_OOC_THREADS, rows=LG_ROWS, nlist=NLIST,
+                                   insert_rows=8, device=dev, train_rows=TRAIN_ROWS,
+                                   data=ctx.X, timings=t,
+                                   svc_opts=dict(nprobe=ctx.nprobe, nprobe_ladder=ANN_LADDER))
+        assert rep["crash_ok"], rep
+        shutil.rmtree(base / "persist", ignore_errors=True)
+        torch.cuda.empty_cache()
+        done("loadgen_crash_restart_1M", dict(rep, warmup_s=t["warmup_s"], **lg_window(t)))
+
+        # the ops plane scraped at 1 Hz through the second of two windows
+        ctx.reset()
+        t = {}
+        svc = m.ANNService(ctx.ivf, K, name="lg_ops", **ann_opts)
+        try:
+            svc.warmup()
+            rep = lg.run_ops_scrape(svc, port=0, duration=2 * LG_SECONDS,
+                                    concurrency=LG_SCRAPE_THREADS, rows=LG_ROWS,
+                                    query_pool=ann_pool, timings=t)
+        finally:
+            svc.close()
+        assert rep["ops_ok"], rep
+        for arm in ("baseline", "scraped"):
+            rep[arm] = {key: t[arm][key] for key in ("query_qps", "p50_ms", "p99_ms")}
+        rep["rows_per_s"] = t["scraped"]["query_qps"]
+        done("loadgen_ops_scrape_1M", rep)
+
+        # the fleet drill: a router here, two sharded workers on the card
+        ctx.reset()
+        seen = {}
+
+        def inspect(f):
+            # a request through the healed fleet and its joined trace, and
+            # the live workers' launches from their inventories
+            q = np.random.default_rng(3).standard_normal((LG_ROWS, DIM)).astype(np.float32)
+            out = f.router.search(q.tolist(), timeout_s=60.0)
+            code, joined = f.router.fleet_trace(out["request_id"])
+            assert code == 200, (code, joined)
+            seen["joined"] = joined
+            seen["workers"] = {}
+            for w, p in sorted(f.router.registry().items()):
+                code, inv = http_json("http://127.0.0.1:%d/debug/inventory" % p["ops_port"])
+                assert code == 200, code
+                seen["workers"][w] = worker_launches(inv["summary"]["per_fn"], wrappers)
+
+        rep = lg.run_fleet(str(base / "fleet"), n_workers=2, index_rows=LG_FLEET_ROWS, dim=DIM,
+                           k=K, seed=FLEET_SEED, duration=LG_FLEET_SECONDS,
+                           concurrency=LG_THREADS, rows=LG_ROWS, nlist=REPL_NLIST,
+                           clusters=FLEET_CLUSTERS, insert_rows=LG_FLEET_INSERT_ROWS,
+                           device=dev.type, service_opts=FLEET_SERVICE_OPTS, inspect=inspect)
+        assert rep["fleet_ok"], rep
+        assert "kill" in rep["chaos_applied"] and rep["rejoins"] >= 1, rep
+        launches = {w: sum(c[w] for c in seen["workers"].values()) for w in wrappers}
+        assert launches["ivf_tile"] > 0 and launches["select_tile"] > 0, seen["workers"]
+        done("loadgen_fleet_200k", dict(rep, rows_per_s=rep["query_qps"],
+                                        worker_launches=seen["workers"]), launches)
+
+        # the report tools: the chaos arm's dump and the fleet's join through
+        # torch_trace_report, this process's snapshot through
+        # torch_metrics_report
+        out = {}
+
+        def run_tool(tool, argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tool.main(argv)
+            assert rc == 0, (argv, rc)
+            return buf.getvalue()
+
+        summary = run_tool(m.tr, [str(dump)])
+        events = m.tr.load_events(json.loads(dump.read_text()))
+        ids = m.tr.trace_ids(events)
+        assert ids and "failed" in summary and "recovery_begin" in summary, summary[-2000:]
+        wf = run_tool(m.tr, [str(dump), "--trace-id", str(ids[0])])
+        chrome = base / "chaos_chrome.json"
+        run_tool(m.tr, [str(dump), "--chrome", str(chrome)])
+        joined = seen["joined"]
+        assert joined["problems"] == [], joined["problems"]
+        join_path = base / "fleet_join.json"
+        join_path.write_text(json.dumps(joined))
+        fleet_wf = run_tool(m.tr, [str(join_path)])
+        assert "hop tiling" in fleet_wf and "!!" not in fleet_wf, fleet_wf
+        snap_path = base / "snapshot.json"
+        snap_path.write_text(json.dumps(m.metrics_snapshot(), default=str))
+        report = run_tool(m.mr, [str(snap_path)])
+        sections, head = {}, None
+        for line in report.splitlines():
+            if line.startswith("== "):
+                head = line
+                sections[head] = 0
+            elif head is not None:
+                sections[head] += 1
+        for want in ("== serving", "== kernel inventory", "== SLO burn", "== timers"):
+            assert any(h.startswith(want) for h in sections), (want, list(sections))
+        out["trace_report"] = {
+            "dump_events": len(events), "traces": len(ids),
+            "summary_lines": len(summary.splitlines()), "waterfall_lines": len(wf.splitlines()),
+            "chrome_events": len(json.loads(chrome.read_text())["traceEvents"]),
+            "fleet_waterfall_lines": len(fleet_wf.splitlines()),
+            "fleet_problems": joined["problems"]}
+        out["metrics_report"] = {"lines": len(report.splitlines()), "sections": sections}
+        paths["reports"] = out
+        print("reports: %s" % json.dumps(out), flush=True)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return paths
+
+
 # the tuning path: the main path's cell of each tuned knob
 TUNING_CELLS = ("select_1M", "bfknn_1M", "twophase_1M", "ivf_search_1M")
 
@@ -3836,6 +4129,20 @@ def main():
                                   fused_knn_tile=fused_knn_tile)
     paths.update(fleet_paths(fctx, fmods))
 
+    # 5k'. the load generator's scenarios and the report tools (queue 1
+    # items 9 and 10): tools/torch_loadgen.py's run_* over this script's
+    # data, then tools/torch_trace_report.py and torch_metrics_report.py
+    from raft_tpu_torch.session import metrics_snapshot
+    from tools import torch_loadgen, torch_metrics_report, torch_trace_report
+
+    lctx = types.SimpleNamespace(dev=dev, reset=reset, counts=counts, wrappers=wrappers,
+                                 index=index, X=X, ivf=ivf, nprobe=calibrated)
+    lmods = types.SimpleNamespace(lg=torch_loadgen, tr=torch_trace_report,
+                                  mr=torch_metrics_report, KNNService=KNNService,
+                                  ANNService=ANNService, RecoveryManager=RecoveryManager,
+                                  flight=flight, metrics_snapshot=metrics_snapshot)
+    paths.update(loadgen_paths(lctx, lmods))
+
     # 5c. the dense library at BASELINE.md config #2: gemm 4096^3 at both
     # precisions, row norm, the two reductions and the transpose, each held
     # against float64 on the card and timed with CUDA events
@@ -4228,7 +4535,7 @@ def main():
             # merges (two sorted runs of k) are runs
             normal = (path == "bfknn_L1_100k" or w % run
                       or path.startswith(NORMAL_KEY_PATHS)
-                      or (path in ("ivf_search_1M", "serve_ann_1M") and k != K)
+                      or (path in PROBE_PATHS and k != K)
                       or (path in QUANTIZED_PATHS and not (path.startswith("rbc_")
                                                            and w == 2 * k)))
             run = None if normal else run

@@ -179,7 +179,7 @@ class Trace:
 
     def timeline(self) -> List[dict]:
         """The ordered event dicts — the ``ServeFuture.trace()``
-        payload ``tools/trace_report.py`` renders."""
+        payload ``tools/torch_trace_report.py`` renders."""
         return [ev.to_dict() for ev in list(self.events)]
 
     def kinds(self) -> List[str]:
@@ -344,7 +344,7 @@ class FlightRecorder:
             # the shared ring event names every rider, so a ring dump
             # alone (black box, trace-dump file) can reconstruct each
             # request's batch-level steps after the Trace objects are
-            # gone (tools/trace_report.py reads `traces`)
+            # gone (tools/torch_trace_report.py reads `traces`)
             ring_attrs = dict(attrs or {},
                               traces=[t.trace_id for t in riders])
             fids = sorted({str(t.fleet["id"]) for t in riders

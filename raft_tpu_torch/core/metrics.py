@@ -372,7 +372,7 @@ class MetricsRegistry:
     def family_total(self, name: str) -> float:
         """Sum of a family's series values, 0.0 when the family was
         never materialized — the one spelling of the "total of a
-        counter across labels" read (bench.py / tools/loadgen.py /
+        counter across labels" read (bench.py / tools/torch_loadgen.py /
         tests all share it, so absent-family handling cannot skew)."""
         fam = self.get(name)
         if fam is None:

@@ -35,7 +35,7 @@ fleet; it does no device work.  One router process faces clients; N worker proce
   router's own registry.  ``/fleet/healthz`` rolls worker health into
   ``ok`` (anything still serving) + ``degraded`` (anything wrong).
   ``/debug/snapshot`` carries a ``fleet`` section so
-  ``tools/metrics_report.py --url`` works against a router unchanged.
+  ``tools/torch_metrics_report.py --url`` works against a router unchanged.
 
 Exactly-once accounting: every admitted request records
 ``fleet_admitted`` and EXACTLY one terminal ``fleet_resolved`` /
@@ -1047,7 +1047,7 @@ class Router:
         estimated offset.  The reply carries the joined ``spans``, the
         per-hop summaries, the alignment metadata, and the waterfall
         invariant ``problems`` (empty = monotonic and gapless) —
-        ``tools/trace_report.py`` renders it."""
+        ``tools/torch_trace_report.py`` renders it."""
         fleet_id = str(fleet_id)
         router_events: List[dict] = []
         for t in flight.fleet_traces(fleet_id):
@@ -1094,7 +1094,7 @@ class Router:
         return 200, joined
 
     def fleet_snapshot(self) -> dict:
-        """The ``/debug/snapshot`` payload ``tools/metrics_report.py
+        """The ``/debug/snapshot`` payload ``tools/torch_metrics_report.py
         --url`` consumes: router registry + per-worker digests + a
         fleet-wide rollup (p99 from the router's own end-to-end timer
         — the only process that sees true client latency)."""

@@ -262,7 +262,7 @@ class Fleet:
     def trace(self, request_id: str) -> dict:
         """The joined cross-process waterfall for one fleet request —
         the in-process twin of ``GET /fleet/debug/trace/<id>`` (same
-        payload; tests and tools/loadgen.py call it without going
+        payload; tests and tools/torch_loadgen.py call it without going
         through HTTP).  Raises ``KeyError`` for an unknown/evicted id
         so callers distinguish "never traced" from "empty join"."""
         status, payload = self.router.fleet_trace(request_id)

@@ -175,7 +175,7 @@ def hop_segments(joined: dict) -> List[dict]:
     segment is ``{"proc", "name", "t0", "t1"}`` and consecutive
     boundaries are shared — router dispatch ends exactly where the
     outbound network segment begins.  Rendered by
-    ``tools/trace_report.py``; :func:`validate` checks the boundary
+    ``tools/torch_trace_report.py``; :func:`validate` checks the boundary
     ordering that makes the tiling real."""
     by_proc = _proc_events(joined)
     router = by_proc.get("router", [])

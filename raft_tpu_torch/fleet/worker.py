@@ -68,7 +68,7 @@ __all__ = ["FleetWorker", "main"]
 
 
 def _synth(index_rows: int, dim: int, seed: int, clusters: int):
-    """The fleet dataset: same shape as tools/loadgen.py synth_data —
+    """The fleet dataset: same shape as tools/torch_loadgen.py synth_data —
     deterministic in the spec fields, so every worker (and the test
     harness computing ground truth) regenerates identical bytes."""
     import numpy as np

@@ -32,6 +32,7 @@ service's), so tests drive snapshot intervals with a fake clock.
 from __future__ import annotations
 
 import os
+import threading
 import time
 import zlib
 from typing import NamedTuple, Optional
@@ -142,6 +143,9 @@ class PersistManager:
         self._wal_depth = 0
         self._base_seq = 0            # seq floor for a fresh WAL file
         self._next_snap_seq = 1
+        # one snapshot at a time: a caller's snapshot and the worker's
+        # interval snapshot would otherwise write the same sequence
+        self._snap_lock = threading.Lock()
         self._last_snapshot_t: Optional[float] = None
         self._snapshot_bytes = 0
         self._snapshot_seq = 0
@@ -286,7 +290,13 @@ class PersistManager:
     def snapshot(self, state) -> dict:
         """Write one atomic snapshot of the immutable serving
         ``state`` (an ``_AnnState``) and truncate the WAL of
-        everything it contains; returns the manifest."""
+        everything it contains; returns the manifest.  Snapshots are
+        serialized: a call waits for one in progress on another
+        thread."""
+        with self._snap_lock:
+            return self._snapshot(state)
+
+    def _snapshot(self, state) -> dict:
         t0 = self._clock()
         rows = int(state.delta_rows)
         delta = None

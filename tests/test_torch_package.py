@@ -100,7 +100,8 @@ def test_serving_modules_pull_in_no_jax(module):
                    check=True, timeout=120)
 
 
-@pytest.mark.parametrize("tool", ["torch_autotune.py", "torch_loadgen.py"])
+@pytest.mark.parametrize("tool", ["torch_autotune.py", "torch_loadgen.py",
+                                  "torch_trace_report.py", "torch_metrics_report.py"])
 def test_tools_pull_in_no_jax(tool):
     code = ("import importlib.util, sys; "
             "spec = importlib.util.spec_from_file_location('t', 'tools/%s'); "
@@ -109,6 +110,20 @@ def test_tools_pull_in_no_jax(tool):
             " or m == 'raft_tpu']; assert not bad, bad" % tool)
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                    check=True, timeout=120)
+
+
+def test_metrics_demo_runs_without_jax():
+    # the port's --demo on the CPU end to end, then the modules it loaded
+    code = ("import runpy, sys; sys.argv = ['torch_metrics_report.py', '--demo', '--device', "
+            "'cpu', '--format', 'json']\n"
+            "try:\n    runpy.run_path('tools/torch_metrics_report.py', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code in (0, None), e.code\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))"
+            " or m == 'raft_tpu']; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert '"raft_tpu_serve_requests_total"' in out.stdout
 
 
 def test_pyproject_names_every_port_subpackage():
@@ -132,7 +147,8 @@ def test_sources_import_no_jax():
     banned = re.compile(r"\s*(from|import)\s+(jax|raft_tpu)(\.|\s|$)")
     for path in list((ROOT / "raft_tpu_torch").rglob("*.py")) + [
             ROOT / "chip_smoke.py", ROOT / "tools" / "torch_autotune.py",
-            ROOT / "tools" / "torch_loadgen.py"]:
+            ROOT / "tools" / "torch_loadgen.py", ROOT / "tools" / "torch_trace_report.py",
+            ROOT / "tools" / "torch_metrics_report.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
 

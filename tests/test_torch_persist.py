@@ -21,6 +21,7 @@ its byte compatibility with the JAX package's (``raft_tpu.persist``).
 
 import filecmp
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -493,6 +494,39 @@ def test_interval_snapshot_truncates_wal(flat_index, rng, tmp_path):
     ps = svc.stats()["persist"]
     assert ps["snapshot_seq"] == 2 and ps["wal_records"] == 0 and not ps["dirty"]
     assert current_manifest(str(tmp_path))["delta_rows"] == 8
+    svc.close(snapshot=False)
+
+
+def test_snapshots_from_two_threads_are_serialized(flat_index, rng, tmp_path, monkeypatch):
+    # a caller's snapshot while the worker's interval snapshot is still
+    # writing (a 1M store takes seconds): the second waits for the first
+    # and writes the next sequence, never the same temporary directory
+    from raft_tpu_torch.persist import snapshot as psnap
+
+    svc = make_svc(flat_index, tmp_path)
+    svc.insert(np.arange(1000, 1008), rng.standard_normal((8, DIM)).astype(np.float32))
+    write, active, overlaps = psnap.write_snapshot, [0], []
+
+    def slow_write(*args, **kwargs):
+        active[0] += 1
+        overlaps.append(active[0] > 1)
+        threading.Event().wait(0.2)
+        try:
+            return write(*args, **kwargs)
+        finally:
+            active[0] -= 1
+
+    monkeypatch.setattr(psnap, "write_snapshot", slow_write)
+    seqs = []
+    threads = [threading.Thread(target=lambda: seqs.append(
+        svc._persist.snapshot(svc._ann_state)["seq"])) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert overlaps == [False, False] and sorted(seqs) == [2, 3]
+    assert current_manifest(str(tmp_path))["seq"] == 3
     svc.close(snapshot=False)
 
 
