@@ -12,6 +12,14 @@ paths through the public entry points with ``device="cuda"``:
   (pairwise K5 + select K2) at 100k x 128;
 - the two-phase fused kNN (``fused_knn_twophase``, K6 then K2) on the
   same index and queries at ``block_n`` 2048, held against K1's result;
+- the kNN's reduced-precision and approximate modes on the same data
+  (``precision_paths``): ``bfknn_1M_bf16`` (``precision="default"``, K1's
+  bfloat16 instance, held to the tile scan at "default", recall@100
+  against float32), ``knn_twophase_1M_bf16`` (K6's), ``knn_rerank_1M``
+  (``rerank_ratio=4``), ``knn_approx95_1M`` (the tile scan under
+  ``select_impl="approx95"``, its bins and folds) with recall@100
+  against exact, and ``serve_knn_1M_bf16`` (``KNNService`` at "default",
+  4 threads, bitwise its unbatched calls);
 - IVF-Flat at the size of the repository's ``serve_ann_1m`` workload:
   ``ivf_flat_build`` of 1M x 128 rows from a Gaussian mixture into 1024
   lists, k-means trained on 131,072 sampled rows (K4 assigns), then
@@ -253,7 +261,10 @@ paths through the public entry points with ``device="cuda"``:
 
 It checks that each path launched its kernels, and times every kernel
 beside its plain version and, where one exists, a single-call PyTorch
-yardstick.  K1 and K6 are also held against their plain versions on
+yardstick; K1, K4 and K6 at both precisions (their rows add the
+bfloat16 instance's ``bf16_*`` times and bounds beside ``torch.mm`` of
+bfloat16 operands to float32), and K3 at "default" bitwise its
+``accum_bf16``.  K1 and K6 are also held against their plain versions on
 offset data (100 + N(0, 1)) and on uniform [0, 1) data at depth 128;
 K1, K3, K4 and K6 (3xTF32 on the tensor
 cores) carry the 3xTF32 bound beside the float32 FFMA one, and the card's
@@ -314,6 +325,8 @@ N_FULL_PROBE = 64          # queries searched at nprobe = nlist
 # K6: the JAX knn_1m_twophase rung (bench.py:644-650) uses block_n 2048;
 # the kernel checks cover the smallest rung too
 TWOPHASE_BLOCK_N = 2048
+# the precisions of K1, K3, K4 and K6: 3xTF32, and the bfloat16 instance
+PRECISIONS = ("highest", "default")
 # serving: 8 submitter threads x 32 requests of row counts drawn from
 # SERVE_ROWS by seed 0; PairwiseService over N_PAIRWISE rows
 SERVE_THREADS, SERVE_PER_THREAD, SERVE_ROWS = 8, 32, (1, 8, 64, 256)
@@ -338,6 +351,7 @@ GEMM_RTOL = {"highest": 2e-5, "default": 2e-3}   # of max (|A| @ |B|)
 SUM_RTOL = 1e-5            # a float32 sum of 4096 terms, of the sum of |terms|
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 OFFSET = 100.0             # offset data for K1 and K6: the expanded form cancels most
 # spectral partitioning on CSR (BASELINE.md config #4): the graph of
@@ -434,14 +448,21 @@ CHAOS_QUERY_THREADS, CHAOS_INSERT_ROWS, CHAOS_MAX_INSERTS = 4, 8, 400
 CHAOS_BEFORE_S, CHAOS_OUTAGE_S, CHAOS_AFTER_S = 3.0, 1.0, 3.0
 REPL_ROWS, REPL_NLIST, REPL_HEDGE_MS, REPL_HANG_S = 200_000, 256, 60.0, 1.0
 # the K2 shapes of these paths are timed on normal keys (their merges
-# re-order candidates by global id first, so no sorted runs survive)
-NORMAL_KEY_PATHS = ("mnmg_", "serve_knn_sharded_500k", "session_recover", "serve_knn_replicas",
-                    "loadgen_kill_shard_1M", "loadgen_hedge_chaos_1M")
+# re-order candidates by global id first, so no sorted runs survive; the
+# re-rank selects from fresh distances of its candidates)
+NORMAL_KEY_PATHS = ("knn_rerank_1M", "mnmg_", "serve_knn_sharded_500k", "session_recover",
+                    "serve_knn_replicas", "loadgen_kill_shard_1M", "loadgen_hedge_chaos_1M")
 # the paths whose K2 probes (k = nprobe) take the query-to-centroid keys
 PROBE_PATHS = ("ivf_search_1M", "serve_ann_1M", "loadgen_ooc_chaos_1M",
                "loadgen_crash_restart_1M", "loadgen_ops_scrape_1M")
 QUANTIZED_PATHS = ("ivf_pq_1M", "ivf_sq_1M", "serve_ann_pq_1M", "serve_ann_sq_1M",
                    "persist_ann_1M", "rbc_haversine_1M", "rbc_l2_3d_1M")
+
+
+def bf16_mm(a, b):
+    """One PyTorch product of bfloat16 operands to float32 sums, the
+    yardstick of the bfloat16 instances."""
+    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 def card_line():
@@ -501,12 +522,22 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bound_tf32x3(ops, nbytes):
+def bound_tf32x3(ops, nbytes, passes=3):
     """The same for a float32-faithful product in 3xTF32 on the tensor
-    cores: three TF32 operations for each float32 one."""
-    t_ops, t_bytes = 3.0 * ops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    cores: three TF32 operations for each float32 one (``passes``: one
+    for the bfloat16 instances as built, a TF32 wgmma of bfloat16 values)."""
+    t_ops, t_bytes = passes * ops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     if t_ops >= t_bytes:
-        return t_ops, "operations, 3xTF32 on tensor cores"
+        return t_ops, "operations, %s on tensor cores" % ("3xTF32" if passes == 3 else "TF32")
+    return t_bytes, "bytes"
+
+
+def bound_bf16(ops, nbytes):
+    """The least time of a product of bfloat16 operands: its operations at
+    the tensor cores' bfloat16 rate, or its bytes."""
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations, bfloat16 on tensor cores"
     return t_bytes, "bytes"
 
 
@@ -535,16 +566,22 @@ def check_knn(name, got_d, got_i, ref_d, ref_i, atol):
     return err
 
 
-def check_nn(name, got_v, got_i, ref_v, ref_i, x, y, atol):
+def check_nn(name, got_v, got_i, ref_v, ref_i, x, y, atol, prec="highest"):
     """1-NN values within ``atol``; an id that differs from the reference's
-    must be a tie (within ``atol``) at the minimum.  Returns the largest
-    value error."""
+    must be a tie (within ``atol``) at the minimum, in the arithmetic of
+    ``prec`` (at "default" the expanded form of the bfloat16 single pass).
+    Returns the largest value error."""
     assert got_v.shape == ref_v.shape and got_i.dtype == torch.int32, name
     err = (got_v - ref_v).abs().max().item()
     assert err <= atol, "%s: value error %g > %g" % (name, err, atol)
     bad = got_i != ref_i
     if bad.any():
-        alt = ((x[bad] - y[got_i[bad].long()]) ** 2).sum(dim=1)
+        xb, yb = x[bad], y[got_i[bad].long()]
+        if prec == "highest":
+            alt = ((xb - yb) ** 2).sum(dim=1)
+        else:
+            rnd = lambda t: t.to(torch.bfloat16).to(torch.float32)  # noqa: E731
+            alt = (xb * xb).sum(1) + (yb * yb).sum(1) - 2.0 * (rnd(xb) * rnd(yb)).sum(1)
         assert ((alt - ref_v[bad]).abs() <= atol).all(), "%s: an id is no tie" % name
     return err
 
@@ -3200,6 +3237,170 @@ def tuning_path(ctx, m):
     return out
 
 
+# the kNN's speed-for-accuracy paths (precision_paths): the re-rank ratio of
+# bench.py _bench_knn_rerank, the tile width of the scan (fused_l2_knn's
+# tile_n), and KNNService at "default" under 4 threads x 16 requests
+RERANK_RATIO = 4
+SCAN_TILE = 8192
+PREC_THREADS, PREC_PER_THREAD = 4, 16
+
+
+def precision_paths(ctx, m):
+    """The kNN layer's reduced-precision and approximate modes on the main
+    path's data (the 1M x 128 index, 1024 queries, k 100), each through
+    the public entry point:
+
+    - ``bfknn_1M_bf16``: ``brute_force_knn(precision="default")``, K1's
+      bfloat16 instance (K1 launched, and K2 once for its splits, not the
+      tile scan's K2 a tile), held to the tile scan at "default" (distances
+      within ``l2_atol``, ids as sets up to ties), recall@100 against the
+      float32 path (``_bench_knn_bf16``);
+    - ``knn_twophase_1M_bf16``: K6's at block_n 2048, held to the above;
+    - ``knn_rerank_1M``: ``rerank_ratio=4`` (the scan at "default" for 400
+      candidates, an exact float32 re-rank), recall@100 against exact;
+    - ``knn_approx95_1M``: the tile scan with ``select_impl="approx95"``
+      (``config.override`` around this path only), its tiles' bins and
+      folds, recall@100 against exact;
+    - ``serve_knn_1M_bf16``: ``KNNService(precision="default")`` under 4
+      threads, every response bitwise its unbatched call, no kernel built
+      after warmup.
+
+    ``ctx`` carries dev, reset, counts, index, queries, exact_d (the
+    float32 path's squared distances), exact_i, randn, l2_atol; ``m`` the
+    port's names.  Returns ``{path: report}``."""
+    dev, index, queries = ctx.dev, ctx.index, ctx.queries
+    exact_d, exact_i = ctx.exact_d, ctx.exact_i
+    atol = ctx.l2_atol(queries, index)
+    L2 = m.D.L2Expanded
+    out = {}
+
+    def recall(got_i):
+        return (got_i[:, :, None] == exact_i[:, None, :]).any(-1).float().mean().item()
+
+    def no_better_than_exact(name, got_d):
+        # the j-th of any K ids is no nearer than the exact j-th
+        assert (got_d[:, 1:] >= got_d[:, :-1]).all(), name
+        assert (got_d >= exact_d - atol).all(), "%s: nearer than the exact answer" % name
+
+    def bf16_knn():
+        return m.brute_force_knn(index, queries, K, L2, precision="default", device=dev)
+
+    ctx.reset()
+    t0 = time.perf_counter()
+    bf_d, bf_i = bf16_knn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = ctx.counts("bfknn_1M_bf16")
+    # K1, and K2 once to merge its splits; the tile scan launches K2 a tile
+    assert launched["knn_tile"] == 1 and launched["select_tile"] <= 1, launched
+    assert bf_d.shape == (N_QUERIES, K) and torch.isfinite(bf_d).all()
+    assert bf_i.min() >= 0 and bf_i.max() < N_INDEX
+    # the bfloat16 rounding moves a distance by far more than l2_atol: no
+    # bound against the exact answer here, only recall
+    scan_d, scan_i = m.fused_l2_knn(index, queries[:N_CHECK], K, precision="default",
+                                    impl="scan", device=dev)
+    err = check_knn("bfknn_1M_bf16 vs the scan at default", bf_d[:N_CHECK], bf_i[:N_CHECK],
+                    scan_d, scan_i, atol)
+    differ, exact_ties = tie_rows("bfknn_1M_bf16 vs the scan at default", bf_d[:N_CHECK],
+                                  bf_i[:N_CHECK], scan_d, scan_i, atol)
+    out["bfknn_1M_bf16"] = {
+        "launches": launched, "first_call_ms": first_ms, "ms": time_ms(bf16_knn, reps=3),
+        "max_err_vs_scan": err, "rows_checked": N_CHECK, "rows_differing_by_ties": differ,
+        "rows_differing_by_exact_ties": exact_ties, "recall_at_100_vs_f32": recall(bf_i)}
+    out["bfknn_1M_bf16"]["qps"] = N_QUERIES / out["bfknn_1M_bf16"]["ms"] * 1e3
+    print("bfknn_1M_bf16: %s" % json.dumps(out["bfknn_1M_bf16"]), flush=True)
+
+    def twophase():
+        return m.fused_knn_twophase(index, queries, K, block_n=TWOPHASE_BLOCK_N,
+                                    precision="default")
+
+    ctx.reset()
+    tp_d, tp_i = twophase()
+    torch.cuda.synchronize()
+    launched = ctx.counts("knn_twophase_1M_bf16")
+    assert launched["knn_twophase"] == 1 and launched["select_tile"] == 1, launched
+    err = check_knn("knn_twophase_1M_bf16 vs bfknn_1M_bf16", tp_d, tp_i, bf_d, bf_i, atol)
+    out["knn_twophase_1M_bf16"] = {"launches": launched, "block_n": TWOPHASE_BLOCK_N,
+                                   "max_err_vs_bfknn_1M_bf16": err,
+                                   "ms": time_ms(twophase, reps=3)}
+    out["knn_twophase_1M_bf16"]["qps"] = N_QUERIES / out["knn_twophase_1M_bf16"]["ms"] * 1e3
+    print("knn_twophase_1M_bf16: %s" % json.dumps(out["knn_twophase_1M_bf16"]), flush=True)
+    del tp_d, tp_i
+
+    def rerank():
+        return m.brute_force_knn(index, queries, K, L2, rerank_ratio=RERANK_RATIO, device=dev)
+
+    ctx.reset()
+    rr_d, rr_i = rerank()
+    torch.cuda.synchronize()
+    launched = ctx.counts("knn_rerank_1M")
+    # stage 1 keeps 400 > 128 candidates: the tile scan with the sort, as
+    # the JAX package pins it to its scan; the re-rank's select is K2
+    assert launched["knn_tile"] == 0 and launched["select_tile"] >= 1, launched
+    no_better_than_exact("knn_rerank_1M", rr_d)
+    rr_recall = recall(rr_i)
+    assert rr_recall >= 0.95, rr_recall
+    out["knn_rerank_1M"] = {"launches": launched, "rerank_ratio": RERANK_RATIO,
+                            "candidates": K * RERANK_RATIO, "recall_at_100_vs_exact": rr_recall,
+                            "ms": time_ms(rerank, reps=2)}
+    out["knn_rerank_1M"]["qps"] = N_QUERIES / out["knn_rerank_1M"]["ms"] * 1e3
+    print("knn_rerank_1M: %s" % json.dumps(out["knn_rerank_1M"]), flush=True)
+    del rr_d, rr_i
+
+    def approx():
+        return m.brute_force_knn(index, queries, K, L2, device=dev)
+
+    bins, folds = m.approx_bins(SCAN_TILE, K)
+    with m.config.override(fused_knn_impl="scan", select_impl="approx95"):
+        ctx.reset()
+        ap_d, ap_i = approx()
+        torch.cuda.synchronize()
+        launched = ctx.counts("knn_approx95_1M")
+        ap_ms = time_ms(approx, reps=2)
+    assert launched["knn_tile"] == 0 and launched["select_tile"] > 0, launched
+    no_better_than_exact("knn_approx95_1M", ap_d)
+    ap_recall = recall(ap_i)
+    assert ap_recall >= 0.9, ap_recall
+    out["knn_approx95_1M"] = {"launches": launched, "tile_n": SCAN_TILE, "bins": bins,
+                              "folds": folds, "recall_target": m.APPROX_RECALL,
+                              "recall_at_100_vs_exact": ap_recall, "ms": ap_ms,
+                              "qps": N_QUERIES / ap_ms * 1e3}
+    print("knn_approx95_1M: %s" % json.dumps(out["knn_approx95_1M"]), flush=True)
+    del ap_d, ap_i
+
+    draw = np.random.default_rng(SEED + 1)
+    rows = [int(r) for r in draw.choice(SERVE_ROWS, size=PREC_THREADS * PREC_PER_THREAD)]
+    pool = ctx.randn(sum(rows), DIM)
+    starts = np.cumsum([0] + rows)
+    blocks = [pool[a:b] for a, b in zip(starts[:-1], starts[1:])]
+    svc = m.KNNService(index, k=K, metric=L2, precision="default", max_batch_rows=N_QUERIES,
+                       device=dev, name="serve_knn_1M_bf16")
+    try:
+        svc.warmup()
+        ctx.reset()
+        futs, wall_ms = serve_concurrently(svc, blocks, PREC_THREADS)
+        torch.cuda.synchronize()
+        launched = ctx.counts("serve_knn_1M_bf16")
+        after_warmup = svc.kernel_libraries_after_warmup()
+    finally:
+        svc.close()
+    assert launched["knn_tile"] > 0, launched
+    assert after_warmup == {"builds": 0, "loads": 0}, after_warmup
+    for q, f in zip(blocks, futs):
+        d, i = f.result(timeout=0)
+        d0, i0 = m.brute_force_knn(index, q, K, L2, precision="default", device=dev)
+        assert torch.equal(d, d0) and torch.equal(i, i0), (
+            "serve_knn_1M_bf16: a %d-row response differs from the unbatched call" % len(q))
+    lat_ms = latencies_ms(futs)
+    out["serve_knn_1M_bf16"] = {
+        "launches": launched, "requests": len(futs), "rows": sum(rows), "wall_ms": wall_ms,
+        "rows_per_s": sum(rows) / wall_ms * 1e3, "p50_ms": statistics.median(lat_ms),
+        "p99_ms": quantile(lat_ms, 0.99), "kernel_libraries_after_warmup": after_warmup,
+        "bitwise_unbatched": True}
+    print("serve_knn_1M_bf16: %s" % json.dumps(out["serve_knn_1M_bf16"]), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3292,6 +3493,8 @@ def main():
               {k: round(v, 3) for k, v in warm["run_s"].items()}), flush=True)
 
     errs = {name: 0.0 for name in wrappers}
+    # the bfloat16 instances' (precision="default") against their plain versions
+    errs_bf16 = {name: 0.0 for name in ("knn_tile", "knn_twophase", "nn_tile", "ivf_tile")}
 
     # 2. each kernel against its plain version; K1 and K6 also on offset
     # data (index and queries OFFSET + N(0, 1)), where the expanded form
@@ -3314,35 +3517,41 @@ def main():
             x, q = randn(n, d) + off, randn(nq, d) + off
         if data == "dup":                        # exact ties: every row twice
             x = torch.cat([x[: n // 2], x[: n // 2]])
-        got = fused_knn_tile(x, q, k)
-        torch.cuda.synchronize()
-        ref = knn_tile_plain(x, q, k)
         atol = l2_atol(q, x)
-        err = check_knn("knn_tile n=%d nq=%d d=%d k=%d %s" % (len(x), nq, d, k, data),
-                        *got, *ref, atol)
-        errs["knn_tile"] = max(errs["knn_tile"], err)
-        print("check knn_tile n=%d nq=%d d=%d k=%d %s: max err %.3g (atol %.3g)"
-              % (len(x), nq, d, k, data, err, atol), flush=True)
+        # each at both precisions: 3xTF32, and the bfloat16 instance against
+        # the plain version's bfloat16 single pass
+        for prec in PRECISIONS:
+            tag = "" if prec == "highest" else " default"
+            errs_to = errs if prec == "highest" else errs_bf16
+            got = fused_knn_tile(x, q, k, prec)
+            torch.cuda.synchronize()
+            ref = knn_tile_plain(x, q, k, prec)
+            err = check_knn("knn_tile n=%d nq=%d d=%d k=%d %s%s" % (len(x), nq, d, k, data, tag),
+                            *got, *ref, atol)
+            errs_to["knn_tile"] = max(errs_to["knn_tile"], err)
+            print("check knn_tile n=%d nq=%d d=%d k=%d %s%s: max err %.3g (atol %.3g)"
+                  % (len(x), nq, d, k, data, tag, err, atol), flush=True)
 
-        # K6 at the same shapes, at the smallest block_n and the main path's
-        for block_n in (256, TWOPHASE_BLOCK_N):
-            bn, n_tiles = twophase_geometry(len(x), block_n)
-            part = twophase_tiles(x, q, bn)
-            torch.cuda.synchronize()
-            part_ref = twophase_tiles_plain(x, q, bn)
-            name = "knn_twophase n=%d nq=%d d=%d bn=%d" % (len(x), nq, d, bn)
-            assert part[0].shape == (nq, n_tiles * 128), name
-            assert torch.equal(part[1] < 0, part_ref[1] < 0), "%s: deficit slots differ" % name
-            live = part_ref[1] >= 0
-            perr = (part[0][live] - part_ref[0][live]).abs().max().item()
-            assert perr <= atol, "%s: tile distance error %g > %g" % (name, perr, atol)
-            got = fused_knn_twophase(x, q, k, block_n=block_n)
-            torch.cuda.synchronize()
-            err = check_knn(name + " k=%d" % k, *got,
-                            *knn_twophase_plain(x, q, k, block_n=block_n), atol)
-            errs["knn_twophase"] = max(errs["knn_twophase"], err, perr)
-            print("check %s k=%d %s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
-                  % (name, k, data, n_tiles, err, perr, atol), flush=True)
+            # K6 at the same shapes, at the smallest block_n and the main path's
+            for block_n in (256, TWOPHASE_BLOCK_N):
+                bn, n_tiles = twophase_geometry(len(x), block_n)
+                part = twophase_tiles(x, q, bn, prec)
+                torch.cuda.synchronize()
+                part_ref = twophase_tiles_plain(x, q, bn, prec)
+                name = "knn_twophase n=%d nq=%d d=%d bn=%d%s" % (len(x), nq, d, bn, tag)
+                assert part[0].shape == (nq, n_tiles * 128), name
+                assert torch.equal(part[1] < 0, part_ref[1] < 0), "%s: deficit slots differ" % name
+                live = part_ref[1] >= 0
+                perr = (part[0][live] - part_ref[0][live]).abs().max().item()
+                assert perr <= atol, "%s: tile distance error %g > %g" % (name, perr, atol)
+                got = fused_knn_twophase(x, q, k, block_n=block_n, precision=prec)
+                torch.cuda.synchronize()
+                err = check_knn(name + " k=%d" % k, *got,
+                                *knn_twophase_plain(x, q, k, block_n=block_n, precision=prec),
+                                atol)
+                errs_to["knn_twophase"] = max(errs_to["knn_twophase"], err, perr)
+                print("check %s k=%d %s: %d tiles, max err %.3g (tiles %.3g, atol %.3g)"
+                      % (name, k, data, n_tiles, err, perr, atol), flush=True)
 
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -3430,26 +3639,33 @@ def main():
         x, y = randn(m, d), randn(n, d)
         if dup:                                  # exact ties: every row of y twice
             y = torch.cat([y[: n // 2], y[: n // 2]])
-        got = fused_nn_tile(x, y)
-        torch.cuda.synchronize()
-        ref = nn_tile_plain(x, y)
         atol = l2_atol(x, y)
-        err = check_nn("nn_tile m=%d n=%d d=%d" % (m, n, d), *got, *ref, x, y, atol)
-        errs["nn_tile"] = max(errs["nn_tile"], err)
-        print("check nn_tile m=%d n=%d d=%d%s: max err %.3g (atol %.3g)"
-              % (m, n, d, " dup" if dup else "", err, atol), flush=True)
+        for prec in PRECISIONS:
+            tag = "" if prec == "highest" else " default"
+            got = fused_nn_tile(x, y, prec)
+            torch.cuda.synchronize()
+            ref = nn_tile_plain(x, y, prec)
+            err = check_nn("nn_tile m=%d n=%d d=%d%s" % (m, n, d, tag), *got, *ref, x, y, atol,
+                           prec)
+            errs_to = errs if prec == "highest" else errs_bf16
+            errs_to["nn_tile"] = max(errs_to["nn_tile"], err)
+            print("check nn_tile m=%d n=%d d=%d%s%s: max err %.3g (atol %.3g)"
+                  % (m, n, d, " dup" if dup else "", tag, err, atol), flush=True)
     # K4's own contract: a row with no finite distance (a NaN in x) keeps
     # (inf, IDX_SENTINEL), as the plain version does
     x, y = randn(300, 64), randn(700, 64)
     x[7, 3] = float("nan")
-    got, ref = fused_nn_tile(x, y), nn_tile_plain(x, y)
-    torch.cuda.synchronize()
-    assert torch.isinf(got[0][7]) and int(got[1][7]) == int(ref[1][7]) == 2**31 - 1, got
     keep = torch.arange(300, device=dev) != 7
-    errs["nn_tile"] = max(errs["nn_tile"], check_nn("nn_tile NaN row", got[0][keep], got[1][keep],
-                                                    ref[0][keep], ref[1][keep], x[keep], y,
-                                                    l2_atol(x[keep], y)))
-    print("check nn_tile NaN row: (inf, IDX_SENTINEL), the other rows agree", flush=True)
+    for prec in PRECISIONS:
+        got, ref = fused_nn_tile(x, y, prec), nn_tile_plain(x, y, prec)
+        torch.cuda.synchronize()
+        assert torch.isinf(got[0][7]) and int(got[1][7]) == int(ref[1][7]) == 2**31 - 1, got
+        errs_to = errs if prec == "highest" else errs_bf16
+        errs_to["nn_tile"] = max(errs_to["nn_tile"], check_nn(
+            "nn_tile NaN row " + prec, got[0][keep], got[1][keep], ref[0][keep], ref[1][keep],
+            x[keep], y, l2_atol(x[keep], y), prec))
+    print("check nn_tile NaN row at both precisions: (inf, IDX_SENTINEL), the other rows agree",
+          flush=True)
 
     # slot stores: S slots of cap rows, the last `vacant` rows of each
     # vacant; scan lists with a short list, an empty one and pad steps; in
@@ -3482,6 +3698,12 @@ def main():
         name = "ivf_tile S=%d cap=%d d=%d k=%d nq=%d%s" % (S, cap, d, k, nq,
                                                           " bf16" if bf16 else "")
         err = check_knn(name, *got, *ref, atol)
+        if bf16:
+            # precision="default" is the same instance as accum_bf16
+            dflt = fused_ivf_scan(*args, precision="default")
+            assert torch.equal(dflt[0], got[0]) and torch.equal(dflt[1], got[1]), (
+                "%s: precision='default' differs from accum_bf16" % name)
+            errs_bf16["ivf_tile"] = max(errs_bf16["ivf_tile"], err)
         work = scan_work_list(slots, S, cap, item_queries(d, dev))
         flat = (q, sv.reshape(S * cap, d), args[2].reshape(-1), si.reshape(-1), work, cap, k,
                 nq * steps, bf16)
@@ -3567,6 +3789,19 @@ def main():
                                                                     block_n=TWOPHASE_BLOCK_N))]:
         paths[name]["ms"] = time_ms(fn, reps=3)
         paths[name]["qps"] = N_QUERIES / paths[name]["ms"] * 1e3
+
+    # 3b. the reduced-precision and approximate modes on the same data
+    from raft_tpu_torch.spatial.fused_l2_knn import fused_l2_knn
+    from raft_tpu_torch.spatial.select_k import APPROX_RECALL, approx_bins
+
+    pctx = types.SimpleNamespace(dev=dev, reset=reset, counts=counts, index=index,
+                                 queries=queries, exact_d=dist ** 2, exact_i=ids, randn=randn,
+                                 l2_atol=l2_atol)
+    pmods = types.SimpleNamespace(D=D, brute_force_knn=brute_force_knn, fused_l2_knn=fused_l2_knn,
+                                  fused_knn_twophase=fused_knn_twophase, KNNService=KNNService,
+                                  config=config, approx_bins=approx_bins,
+                                  APPROX_RECALL=APPROX_RECALL)
+    paths.update(precision_paths(pctx, pmods))
 
     # 4. the IVF-Flat paths, on a Gaussian mixture drawn on the card (the
     # recipe of bench.py make_blobs): the index and 1024 queries
@@ -4474,6 +4709,18 @@ def main():
     print("tuning: %s" % json.dumps(paths["tuning"]), flush=True)
 
     # 6. kernels at the main paths' shapes: kernel, plain version, yardstick
+    def bf16_row(fn, plain, ops, nbytes, library, err, library_form):
+        """The bfloat16 instance's entries of a kernel's row: its time,
+        its plain version's, its bound at the bfloat16 rate and as built
+        (one TF32 pass), and the library's product of bfloat16 operands."""
+        b16, by16 = bound_bf16(ops, nbytes)
+        return {"bf16_max_abs_err": err, "bf16_ms": time_ms(fn, reps=5),
+                "bf16_plain_ms": time_ms(plain, reps=2),
+                "bf16_bound_ms": b16, "bf16_bound_by": by16,
+                "bf16_tf32_pass_bound_ms": bound_tf32x3(ops, nbytes,
+                                                        cost.TENSOR_PASSES["default"])[0],
+                "bf16_library_ms": time_ms(library, reps=3), "bf16_library": library_form}
+
     launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
                 for name in wrappers}
     rows = []
@@ -4496,6 +4743,20 @@ def main():
         "plain_ms": time_ms(lambda: knn_tile_plain(index, queries, K), reps=2),
         "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(knn_ops, knn_bytes)[0],
         "library_ms": time_ms(full_l2_topk, reps=3), "mnmg_shard": sextra["k1_shard"]})
+    # the bfloat16 instance (precision="default") at the same shape: its
+    # least time is the products at the bfloat16 rate; the instance as
+    # built issues them as one TF32 pass (TF32 wgmma of bfloat16 values)
+    q16, x16 = queries.to(torch.bfloat16), index.to(torch.bfloat16)
+
+    def bf16_l2_topk():
+        qn = (queries * queries).sum(1, keepdim=True)
+        xn = (index * index).sum(1)
+        return torch.topk(qn + xn - 2.0 * bf16_mm(q16, x16.T), K, dim=1, largest=False)
+
+    rows[-1].update(bf16_row(lambda: fused_knn_tile(index, queries, K, "default"),
+                             lambda: knn_tile_plain(index, queries, K, "default"), knn_ops,
+                             knn_bytes, bf16_l2_topk, errs_bf16["knn_tile"],
+                             "torch.mm(out_dtype=float32) of bfloat16 operands + torch.topk"))
 
     keys = pairwise_tile(queries, index_l1, D.L1)
     got, ref = select_tile(keys, K), select_tile_plain(keys, K)
@@ -4528,7 +4789,7 @@ def main():
     k2_all = {}
     for path, shp in k2_shapes.items():
         for (m, w, k), n_launch in shp.items():
-            run = 128 if path == "knn_twophase_1M" else k
+            run = 128 if path.startswith("knn_twophase_1M") else k
             # the L1 select, the IVF probes (k an nprobe) and the delta merge
             # (one sorted run of k, then the delta's keys) take normal keys;
             # of the quantized and ball-cover paths only the ball cover's
@@ -4638,6 +4899,16 @@ def main():
     m, n = xs.shape[0], cents.shape[0]
     nn_ops, nn_bytes = cost.nn_cost(m, n, DIM)
     b, by = bound_tf32x3(nn_ops, nn_bytes)
+    got, ref = fused_nn_tile(xs, cents, "default"), nn_tile_plain(xs, cents, "default")
+    errs_bf16["nn_tile"] = max(errs_bf16["nn_tile"], check_nn(
+        "nn_tile at the build's shape, default", *got, *ref, xs, cents, l2_atol(xs, cents),
+        "default"))
+    xs16, cents16 = xs.to(torch.bfloat16), cents.to(torch.bfloat16)
+
+    def bf16_l2_min():
+        xn, cn = (xs * xs).sum(1), (cents * cents).sum(1)
+        return torch.min(xn[:, None] + cn[None, :] - 2.0 * bf16_mm(xs16, cents16.T), dim=1)
+
     rows.append({
         "name": "nn_tile", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/nn_tile.cu",
         "replaces": "raft_tpu/ops/nn_tile.py:151",
@@ -4648,6 +4919,11 @@ def main():
         "bound_ms": b, "bound_by": by, "bound_fp32_ms": bound(nn_ops, nn_bytes)[0],
         "library_ms": time_ms(l2_min, reps=5),
         "library": "composition: expanded-L2 matmul + torch.min(dim=1)"})
+    rows[-1].update(bf16_row(lambda: fused_nn_tile(xs, cents, "default"),
+                             lambda: nn_tile_plain(xs, cents, "default"), nn_ops, nn_bytes,
+                             bf16_l2_min, errs_bf16["nn_tile"],
+                             "torch.mm(out_dtype=float32) of bfloat16 operands + torch.min"))
+    del xs16, cents16
     # K4 at a PQ codebook's shape: the residuals' first subspace (depth 8)
     # against its 256 codewords, as each codebook's k-means assigns
     xs, cents = codebook
@@ -4751,6 +5027,16 @@ def main():
         "phase1_bytes": cost.knn_cost(N_QUERIES, N_INDEX, DIM, n_tiles * 128)[1],
         "library_ms": time_ms(full_l2_topk, reps=3),
         "library": "composition: expanded-L2 matmul + torch.topk, as K1's"})
+    rows[-1].update(bf16_row(lambda: fused_knn_twophase(index, queries, K,
+                                                        block_n=TWOPHASE_BLOCK_N,
+                                                        precision="default"),
+                             lambda: knn_twophase_plain(index, queries, K, TWOPHASE_BLOCK_N,
+                                                        "default"),
+                             knn_ops, knn_bytes, bf16_l2_topk, errs_bf16["knn_twophase"],
+                             "as K1's bf16_library"))
+    rows[-1]["bf16_phase1_ms"] = time_ms(lambda: twophase_tiles(index, queries, bn, "default"),
+                                         reps=5)
+    del q16, x16
 
     print(json.dumps({"card": card, "paths": paths}))
     print(json.dumps({"kernels": rows}))

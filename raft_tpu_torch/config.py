@@ -43,7 +43,9 @@ Knobs
 select_impl
     Per-row top-k of :func:`raft_tpu_torch.spatial.select_k` and every
     selection of the kNN and ANN paths: ``kernel`` (K2) | ``sort`` (a
-    stable ``torch.sort``); unset = K2 where legal, else the sort.
+    stable ``torch.sort``) | ``approx95`` (the TPU's approximate top-k at
+    recall target 0.95: an opt-in trade of exactness, never swept); unset
+    = K2 where legal, else the sort.
 fused_knn_impl
     :func:`raft_tpu_torch.spatial.fused_l2_knn`: ``kernel`` (K1) |
     ``scan`` (the tile scan); unset = K1 on CUDA where legal.
@@ -146,7 +148,7 @@ __all__ = ["configure", "override", "get", "describe", "tuned", "knob_default", 
 # knob -> (env alias, default, the values configure/override accept);
 # choices None = free-form (the consumer validates)
 _KNOBS: Dict[str, Tuple[str, Optional[str], Optional[Tuple[str, ...]]]] = {
-    "select_impl": ("RAFT_TPU_SELECT_IMPL", None, ("kernel", "sort")),
+    "select_impl": ("RAFT_TPU_SELECT_IMPL", None, ("kernel", "sort", "approx95")),
     "fused_knn_impl": ("RAFT_TPU_FUSED_KNN_IMPL", None, ("kernel", "scan")),
     "knn_block_n": ("RAFT_TPU_KNN_BLOCK_N", "1024", ("256", "512", "1024", "2048", "4096")),
     "ivf_scan_impl": ("RAFT_TPU_IVF_SCAN_IMPL", None, ("kernel", "kernel_bf16", "scan")),

@@ -19,11 +19,17 @@ legacy setting cannot be read (torch raises when the caller mixed the two
 kinds), only the per-backend settings are pinned.  When the flags already
 ask for IEEE float32 nothing is written.
 
-A product at the JAX package's ``precision="default"`` runs in TF32 on
-the card (:func:`tf32`, :func:`matmul_tf32`), the analogue of XLA's
-single-pass default on the TPU: the same flags, pinned to TF32 for that
-one call and restored after.  On the CPU, which has no TF32, such a
-product runs in float32.
+A product at the JAX package's ``precision="default"`` has two forms in
+the port.  The dense library's ``gemm`` runs it in TF32 on the card
+(:func:`tf32`, :func:`matmul_tf32`), the analogue of XLA's single-pass
+default on the TPU: the same flags, pinned to TF32 for that one call and
+restored after; on the CPU, which has no TF32, such a product runs in
+float32.  The kNN layer's distance products take the TPU's own
+single-pass arithmetic (:func:`matmul_bf16`): each operand rounded to
+bfloat16 (to nearest even), the products summed in float32, a float32
+result.  A bfloat16 value is exact in float32 (and in TF32), so the
+products are exact and only the sums round; the kernels K1, K3, K4 and
+K6 compute the same on the tensor cores (``ops/csrc/knn_tile.cuh``).
 
 The flags are process-global, not per thread.  Port calls in several
 threads share one pin (a count under a lock: the first call in pins, the
@@ -45,6 +51,9 @@ import threading
 import torch
 
 from raft_tpu_torch.core.error import RaftError
+
+# the JAX package's precisions the port's products take (module doc)
+PRECISIONS = ("highest", "default")
 
 _cond = threading.Condition()
 _depth = 0
@@ -155,6 +164,19 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.matmul(a, b)`` with float32 operands in TF32 on the card."""
     with tf32():
         return torch.matmul(a, b)
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as float32 values rounded to bfloat16 (to nearest even)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` at the JAX ``precision="default"`` (module doc): the
+    float32 product, in IEEE float32, of the operands rounded to
+    bfloat16."""
+    with ieee_fp32():
+        return torch.matmul(round_bf16(a), round_bf16(b))
 
 
 def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,9 @@ legality
     candidate on a CPU tensor runs its plain version, a test vehicle).
 no-sweep candidate
     Settable, never timed: a time-only comparison would trade something
-    away (``kernel_bf16`` rounds the multiplicands; ``cumsum``'s error
-    grows with the running sum).
+    away (``kernel_bf16`` rounds the multiplicands; ``approx95`` drops
+    top-k keys by design; ``cumsum``'s error grows with the running
+    sum).
 registry-only knob
     ``config_knob=False``: validated here and never read from config,
     environment or table (``fused_nn_impl``, ``mnmg_group_size``), so
@@ -51,8 +52,9 @@ shuffle network is the one selection core); ``knn_block_q`` and
 (``csrc/knn_tile.cuh`` ``kBN`` and ``block_q(d)``), so no runtime value
 exists to tune; ``pq_adc``'s other candidate, the one-hot ADC, was
 removed from the port (the gather is its one ADC, ``spatial/ann.py``);
-and ``merge_select_impl`` is K6's merge, pinned to the exact select
-(``ops/knn_tile.py``).  ``knn_block_n`` stays: K6's JAX tile width is a
+and ``merge_select_impl``, K6's merge, is an argument of
+``fused_knn_twophase`` alone (``"topk"``, the exact select, or
+``"approx95"``; ``ops/knn_tile.py``), which no setting reaches.  ``knn_block_n`` stays: K6's JAX tile width is a
 launch argument, and membership in its ladder is its whole legality (the
 kernel's shared memory does not depend on it).
 
@@ -141,7 +143,7 @@ _SPECS: Dict[str, KnobSpec] = {}
 # the JAX registry's candidates of each ported knob that the port does not
 # run under that name (refused, never mapped: module doc)
 _JAX_NAMES: Dict[str, Tuple[str, ...]] = {
-    "select_impl": ("topk", "approx", "approx95", "chunked", "pallas"),
+    "select_impl": ("topk", "approx", "chunked", "pallas"),
     "fused_knn_impl": ("xla", "pallas", "xla_fused"),
     "fused_nn_impl": ("xla", "pallas"),
     "ivf_scan_impl": ("xla", "pallas", "pallas_bf16"),
@@ -341,6 +343,11 @@ def _k_cap(ctx: Mapping, what: str) -> Optional[str]:
 
 
 def _legal_select_impl(value, ctx):
+    if value == "approx95":
+        dt = _dtype_str(ctx.get("dtype"))
+        if dt is not None and not dt.startswith(("float", "bfloat")):
+            return "the approximate select takes float keys, as in JAX; got %s" % dt
+        return None
     if value != "kernel":
         return None
     why = _k_cap(ctx, "K2 (the select kernel)")
@@ -353,6 +360,13 @@ def _legal_select_impl(value, ctx):
     return _off_card_sweep(ctx)
 
 
+# input types K1, K4 and K6 take (the narrower two through a float32 copy,
+# as the JAX pad_with_norms casts), and the precisions they have an
+# instance for: 3xTF32 at "highest", the bfloat16 single pass at "default"
+_KERNEL_INPUTS = ("float32", "float16", "bfloat16")
+_KERNEL_PRECISIONS = ("highest", "default")
+
+
 def _legal_fused_knn(value, ctx):
     if value != "kernel":
         return None
@@ -360,11 +374,11 @@ def _legal_fused_knn(value, ctx):
     if why:
         return why + " — use impl='scan' or reduce k"
     dt = _dtype_str(ctx.get("dtype"))
-    if dt is not None and dt != "float32":
-        return "K1 takes float32 inputs; got %s" % dt
-    if ctx.get("precision", "highest") != "highest":
-        return ("K1 computes float32-faithful products (precision="
-                "'highest'); got precision=%r" % ctx["precision"])
+    if dt is not None and dt not in _KERNEL_INPUTS:
+        return "K1 takes float32, float16 or bfloat16 inputs; got %s" % dt
+    if ctx.get("precision", "highest") not in _KERNEL_PRECISIONS:
+        return ("K1 has instances for precision='highest' (3xTF32) and "
+                "'default' (bfloat16 operands); got precision=%r" % ctx["precision"])
     return _off_card_sweep(ctx)
 
 
@@ -372,10 +386,10 @@ def _legal_fused_nn(value, ctx):
     if value != "kernel":
         return None
     dt = _dtype_str(ctx.get("dtype"))
-    if (ctx.get("masked") or (dt is not None and dt != "float32")
-            or ctx.get("precision", "highest") != "highest"):
+    if (ctx.get("masked") or (dt is not None and dt not in _KERNEL_INPUTS)
+            or ctx.get("precision", "highest") not in _KERNEL_PRECISIONS):
         return ("K4 serves the plain float32 min-reduce only (no mask, no "
-                "float64, precision='highest'); use impl='scan'")
+                "float64; precision 'highest' or 'default'); use impl='scan'")
     return _off_card_sweep(ctx)
 
 
@@ -413,12 +427,16 @@ def _legal_group_size(value, ctx):
 # the registry: every implementation choice of the port, one block
 # --------------------------------------------------------------------- #
 register(
-    "select_k", "select_impl", ("kernel", "sort"),
+    "select_k", "select_impl", ("kernel", "sort", "approx95"),
     legality=_legal_select_impl,
     auto_default="kernel",
+    no_sweep={"approx95": ("deliberately approximate (recall target 0.95) — "
+                           "a time-only sweep must not trade exactness for "
+                           "speed silently")},
     dims=("n", "k"),
     doc="per-row top-k (spatial/select_k.py): kernel = K2, sort = a "
-        "stable torch.sort; unset = K2 where legal, else the sort")
+        "stable torch.sort, approx95 = the TPU's approximate top-k (bins "
+        "folded, then K2); unset = K2 where legal, else the sort")
 
 register(
     "fused_l2_knn", "fused_knn_impl", ("kernel", "scan"),

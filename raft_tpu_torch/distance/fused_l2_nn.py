@@ -11,9 +11,10 @@ Two implementations with one contract, named as in
 ``spatial/fused_l2_knn.py``:
 
 - ``impl="kernel"``: K4 (:func:`raft_tpu_torch.ops.nn_tile.fused_nn_tile`),
-  for the plain float32 min-reduce: float32 (or integer) inputs,
-  ``precision="highest"``, no mask.  An explicit request outside those
-  limits raises, as the JAX ``impl="pallas"`` does.
+  for the plain float32 min-reduce: float32 inputs (or narrower ones,
+  through a float32 copy), ``precision="highest"`` (3xTF32) or
+  ``"default"`` (its bfloat16 instance), no mask.  An explicit request
+  outside those limits raises, as the JAX ``impl="pallas"`` does.
 - ``impl="scan"``: :func:`fused_l2_nn_min_reduce`, a loop over column
   tiles of y (one expanded-form matmul and a per-row argmin each) merged
   into a running (value, index) pair, with the pluggable reduce op, the
@@ -33,6 +34,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from raft_tpu_torch.core import tuning
+from raft_tpu_torch.core.precision import PRECISIONS
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.pairwise import matmul
@@ -141,14 +143,14 @@ def fused_l2_nn(
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
     vdt = torch.promote_types(_value_dtype(x), _value_dtype(y))
-    legal = mask is None and precision == "highest" and vdt == torch.float32
+    legal = mask is None and precision in PRECISIONS and vdt == torch.float32
     impl = tuning.resolve("fused_nn_impl", impl, site="fused_l2_nn", dtype=vdt,
                           n=y.shape[0], k=1, masked=mask is not None, precision=precision,
                           device=dev.type)
     if impl is None:
         impl = "kernel" if legal and dev.type == "cuda" else "scan"
     if impl == "kernel":
-        vals, idx = fused_nn_tile(x.to(torch.float32), y.to(torch.float32))
+        vals, idx = fused_nn_tile(x.to(torch.float32), y.to(torch.float32), precision)
         return (torch.sqrt(vals) if sqrt else vals), idx
     return fused_l2_nn_min_reduce(x, y, sqrt=sqrt, tile_n=tile_n, mask=mask,
                                   precision=precision, device=dev)

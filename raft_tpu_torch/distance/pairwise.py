@@ -8,8 +8,9 @@ Two regimes, as there:
   product, so each metric is one ``torch.matmul`` plus row vectors and an
   element-wise epilogue.  The JAX package leaves these to XLA outside any
   kernel.  Matmuls run in full float32 (``precision="highest"``, no TF32);
-  ``precision="default"`` rounds the operands to bfloat16, the
-  single-pass product of the JAX ``"default"``.
+  ``precision="default"`` rounds the operands to bfloat16 and sums their
+  exact products in float32, the single-pass product of the JAX
+  ``"default"`` (:func:`raft_tpu_torch.core.precision.matmul_bf16`).
 - **Unexpanded metrics** (L1, L2Unexpanded, L2SqrtUnexpanded, Linf,
   Canberra, LpUnexpanded, Hamming, JensenShannon and the BrayCurtis
   numerator): the accumulation is a non-linear function of (x_ik, y_jk)
@@ -36,16 +37,17 @@ from raft_tpu_torch.ops.pairwise_tile import pairwise_tile
 
 D = DistanceType
 
-PRECISIONS = ("highest", "default")
+PRECISIONS = _precision.PRECISIONS
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """``a @ b`` in IEEE float32 (:mod:`raft_tpu_torch.core.precision`), or
-    with bfloat16 operands for ``"default"``."""
+    for ``"default"`` the float32 sums of the exact products of the
+    operands rounded to bfloat16."""
     expects(precision in PRECISIONS, "precision must be one of %s, got %r",
             PRECISIONS, precision)
     if precision == "default":
-        return torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16)).to(torch.float32)
+        return _precision.matmul_bf16(a, b)
     return _precision.matmul(a, b)
 
 

@@ -14,12 +14,19 @@ from __future__ import annotations
 
 from typing import Tuple
 
-__all__ = ["K5_INSTR_PER_STEP", "knn_cost", "select_cost", "ivf_scan_cost", "nn_cost",
-           "pairwise_cost"]
+__all__ = ["K5_INSTR_PER_STEP", "TENSOR_PASSES", "knn_cost", "select_cost", "ivf_scan_cost",
+           "nn_cost", "pairwise_cost"]
 
 # FP32 instructions a step (one element pair) of K5's L1, L2Unexpanded and
 # Linf: a subtract and an absolute-add (or square-add, or max)
 K5_INSTR_PER_STEP = 2
+
+# TF32 tensor-core operations for each multiply-add of the distance tile of
+# K1, K3, K4 and K6, by precision: three products of TF32 halves at
+# "highest" (3xTF32), one product of bfloat16-rounded operands at
+# "default".  The counts below are the function's own multiply-adds; a
+# bound on the tensor cores multiplies them by this.
+TENSOR_PASSES = {"highest": 3, "default": 1}
 
 
 def knn_cost(nq: int, n: int, d: int, k: int) -> Tuple[float, float]:

@@ -29,22 +29,29 @@
 //
 // The norms qn and xn come from the wrapper, as pad_with_norms computes
 // them outside the Pallas call.
+//
+// bf16 != 0 runs the kBF16 instance, the JAX precision="default"
+// (knn_tile.cuh): one pass of exact bfloat16 products, 2*nq*n*d TF32
+// operations, 0.53 ms at the 1M shape, where a bf16 wgmma would take 0.27.
 #include "knn_tile.cuh"
 
 // Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous,
 // 16-byte aligned, d a multiple of 8.  out_d / out_i: (nq, n_splits, k),
 // where n_splits = ceil(n / rows_per_split) and rows_per_split is a
-// multiple of 64.  Returns cudaGetLastError().
+// multiple of 64.  bf16: 0 for 3xTF32 products, 1 for products of the
+// operands rounded to bfloat16.  Returns cudaGetLastError().
 extern "C" int knn_tile_launch(const void* Q, const void* X, const void* qn,
                                const void* xn, int nq, int n, int d, int k,
-                               int rows_per_split, void* out_d, void* out_i,
+                               int rows_per_split, int bf16, void* out_d, void* out_i,
                                void* stream) {
   using namespace raft_tpu_torch;
   if (rows_per_split < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int n_splits = (n + rows_per_split - 1) / rows_per_split;
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n, d, k, rows_per_split, 1, n_splits, (float*)out_d, (int*)out_i, {}};
-  return (int)launch<kSplits>(n_splits, (cudaStream_t)stream, a);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bf16 ? launch<kSplits, true>(n_splits, s, a)
+                    : launch<kSplits, false>(n_splits, s, a));
 }
 
 // The block geometry, for the wrapper and the tools, so that it is

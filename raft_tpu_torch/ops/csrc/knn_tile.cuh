@@ -77,11 +77,17 @@
 //   * K3 (kIvfItems): an item is up to N entries of the scan lists (the
 //     entry's output row out_row, its query row out_row / steps) against
 //     one slot's cap rows; ids map through the
-//     slot ids, a slot with no finite key is (+inf, -1).  The kBF16
-//     instance rounds both operands to bfloat16 and issues big x big only.
+//     slot ids, a slot with no finite key is (+inf, -1).
 //   * K4 (kNnItems): item i is the x rows [i N, i N + N) against all of
 //     y, k = 1; a row with no finite distance is (+inf, INT_MAX), and a
 //     NaN distance stays NaN, which the selection never takes.
+//
+// Every mode has a kBF16 instance, the JAX precision="default": each
+// operand is rounded to bfloat16 (to nearest even) where it would be split,
+// and only big x big is issued.  A bfloat16 value is a TF32 value, so its
+// small half is 0 and the products of two are exact in float32; the sums
+// stay the tensor cores' float32 (truncating, as above), and the norms and
+// every select operation stay float32.
 //
 // The depth d is a multiple of 8 and the rows 16-byte aligned (the
 // wrapper pads a copy otherwise); the norms qn and xn come from the
@@ -317,7 +323,6 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
   constexpr bool kSplitAcc = !kBF16;
   constexpr bool kWideRegs = kSplitAcc && N == 64;
   static_assert(N % kSelWarps == 0, "whole query rows a selection warp");
-  static_assert(!kBF16 || kMode == kIvfItems, "bfloat16 operands are K3's option");
   constexpr int kRowsPerWarp = N / kSelWarps;
   extern __shared__ char smem_raw[];
   char* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
@@ -368,7 +373,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
   if constexpr (!kWork) {
     // the query tile's first slab (its whole depth, but for the deepest)
     const Segment s = segment<N, kMode>(0, wl, nq, n, rows_per_part, parts_per_block);
-    fill_queries<N, false, false>(q_big, q_small, Q, d, wl, s.q0, s.q_cnt, 0, held, tid,
+    fill_queries<N, false, kBF16>(q_big, q_small, Q, d, wl, s.q0, s.q_cnt, 0, held, tid,
                                   kThreads);
     fence_proxy_async();
   }
@@ -757,10 +762,10 @@ template <int N, int kMode, bool kBF16>
 cudaError_t launch_nr(int blocks, cudaStream_t s, const KnnArgs& a) {
   if constexpr (kMode == kTileParts) {
     if (a.k != 128) return cudaErrorInvalidValue;
-    return launch_tile<N, 4, kMode, false>(blocks, s, a);
+    return launch_tile<N, 4, kMode, kBF16>(blocks, s, a);
   } else if constexpr (kMode == kNnItems) {
     if (a.k != 1) return cudaErrorInvalidValue;
-    return launch_tile<N, 1, kMode, false>(blocks, s, a);
+    return launch_tile<N, 1, kMode, kBF16>(blocks, s, a);
   } else {
     if (a.k <= 32) return launch_tile<N, 1, kMode, kBF16>(blocks, s, a);
     if (a.k <= 64) return launch_tile<N, 2, kMode, kBF16>(blocks, s, a);

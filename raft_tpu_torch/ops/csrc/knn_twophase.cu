@@ -49,10 +49,11 @@ void index_blocks(int q_tiles, int units, int sms, int* per_block, int* blocks) 
 
 // Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous,
 // 16-byte aligned, d a multiple of 8.  out_d / out_i: (nq, n_tiles, 128),
-// n_tiles = ceil(n / bn), bn a multiple of 64.  Returns
-// cudaGetLastError().
+// n_tiles = ceil(n / bn), bn a multiple of 64.  bf16: 0 for 3xTF32
+// products, 1 for products of the operands rounded to bfloat16 (the JAX
+// precision="default", knn_tile.cuh).  Returns cudaGetLastError().
 extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
-                                   const void* xn, int nq, int n, int d, int bn,
+                                   const void* xn, int nq, int n, int d, int bn, int bf16,
                                    void* out_d, void* out_i, void* stream) {
   using namespace raft_tpu_torch;
   constexpr int kPad = 128;  // the JAX kpad: every tile keeps 128
@@ -67,5 +68,7 @@ extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
   index_blocks((nq + n_q - 1) / n_q, n_tiles, sms, &per_block, &blocks);
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i, {}};
-  return (int)launch<kTileParts>(blocks, (cudaStream_t)stream, a);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bf16 ? launch<kTileParts, true>(blocks, s, a)
+                    : launch<kTileParts, false>(blocks, s, a));
 }

@@ -36,9 +36,12 @@
 
 // X (m, d), Y (n, d): float32, row-major, contiguous, 16-byte aligned, d a
 // multiple of 8; xn (m,), yn (n,) the squared norms; out_v (m,) float32,
-// out_i (m,) int32.  Returns cudaGetLastError().
+// out_i (m,) int32.  bf16: 0 for 3xTF32 products, 1 for products of the
+// operands rounded to bfloat16 (the JAX precision="default",
+// knn_tile.cuh).  Returns cudaGetLastError().
 extern "C" int nn_tile_launch(const void* X, const void* Y, const void* xn, const void* yn,
-                              int m, int n, int d, void* out_v, void* out_i, void* stream) {
+                              int m, int n, int d, int bf16, void* out_v, void* out_i,
+                              void* stream) {
   using namespace raft_tpu_torch;
   if (m < 1 || n < 1 || d < 8) return (int)cudaErrorInvalidValue;
   const int n_q = block_q(d);
@@ -48,5 +51,7 @@ extern "C" int nn_tile_launch(const void* X, const void* Y, const void* xn, cons
   const WorkList wl{nullptr, nullptr, nullptr, 1, nullptr, n};
   KnnArgs a{(const float*)X, (const float*)Y, (const float*)xn, (const float*)yn,
             m, n, d, 1, 0, 0, 0, (float*)out_v, (int*)out_i, wl};
-  return (int)launch<kNnItems>(blocks, (cudaStream_t)stream, a, n_q);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bf16 ? launch<kNnItems, true>(blocks, s, a, n_q)
+                    : launch<kNnItems, false>(blocks, s, a, n_q));
 }

@@ -44,6 +44,9 @@ is the plain version of the whole function.
 ``accum_bf16=True`` rounds the query and the slot vectors to bfloat16
 (the kernel does it where it splits its operands) and sums the products
 in float32; norms and every select operation stay float32, as in JAX.
+``precision="default"`` is the same arithmetic (the TPU's single pass,
+:func:`raft_tpu_torch.core.precision.matmul_bf16`) and takes the same
+instance.
 The JAX kernel casts a padded copy of the whole store instead
 (``_pad_slot_store``); here the store is read in place, and copied only
 where its depth is not a multiple of 8.  The JAX ``knn_tile_merge`` knob
@@ -59,7 +62,8 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from raft_tpu_torch.core import inventory, precision
+from raft_tpu_torch.core import inventory
+from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build, cost
@@ -69,10 +73,6 @@ from raft_tpu_torch.ops.select_tile import select_tile
 MAX_K = 128
 # bytes of one chunk's partial buffers (module doc)
 PARTIAL_BUDGET_BYTES = 256 << 20
-
-
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def fused_ivf_scan_plain(queries: torch.Tensor, slot_vecs: torch.Tensor,
@@ -86,7 +86,7 @@ def fused_ivf_scan_plain(queries: torch.Tensor, slot_vecs: torch.Tensor,
     q = queries.to(torch.float32)
     qn = (q * q).sum(dim=1)
     if accum_bf16:
-        q = _bf16(q)
+        q = _precision.round_bf16(q)
     nq = q.shape[0]
     inf = float("inf")
     best_d = torch.full((nq, k), inf, dtype=torch.float32, device=q.device)
@@ -96,8 +96,8 @@ def fused_ivf_scan_plain(queries: torch.Tensor, slot_vecs: torch.Tensor,
         slx = torch.clamp(sl, min=0)
         vecs = slot_vecs[slx].to(torch.float32)               # (nq, cap, d)
         if accum_bf16:
-            vecs = _bf16(vecs)
-        dot = precision.bmm(vecs, q[:, :, None])[:, :, 0]
+            vecs = _precision.round_bf16(vecs)
+        dot = _precision.bmm(vecs, q[:, :, None])[:, :, 0]
         dist = torch.clamp(qn[:, None] + slot_norms[slx] - 2.0 * dot, min=0.0)
         ids = slot_ids[slx]
         keep = (ids >= 0) & (sl >= 0)[:, None]
@@ -161,7 +161,7 @@ def ivf_items_plain(queries: torch.Tensor, store: torch.Tensor, norms: torch.Ten
     q = queries.to(torch.float32)
     qn = (q * q).sum(dim=1)
     if accum_bf16:
-        q = _bf16(q)
+        q = _precision.round_bf16(q)
     inf = float("inf")
     out_d = torch.full((n_out, k), inf, dtype=torch.float32, device=q.device)
     out_i = torch.full((n_out, k), -1, dtype=torch.int32, device=q.device)
@@ -171,8 +171,8 @@ def ivf_items_plain(queries: torch.Tensor, store: torch.Tensor, norms: torch.Ten
         qr = rows // work.n_steps
         vecs = store[row0:row0 + cap].to(torch.float32)
         if accum_bf16:
-            vecs = _bf16(vecs)
-        dot = precision.bmm(vecs.expand(count, cap, -1).contiguous(), q[qr][:, :, None])[:, :, 0]
+            vecs = _precision.round_bf16(vecs)
+        dot = _precision.bmm(vecs.expand(count, cap, -1).contiguous(), q[qr][:, :, None])[:, :, 0]
         dist = torch.clamp(qn[qr][:, None] + norms[row0:row0 + cap] - 2.0 * dot, min=0.0)
         gid = ids[row0:row0 + cap]
         vals, pos = torch.sort(torch.where(gid >= 0, dist, inf), dim=1, stable=True)
@@ -255,16 +255,20 @@ def queries_per_chunk(n_steps: int, k: int, n_q: int) -> int:
 
 def fused_ivf_scan(queries: torch.Tensor, slot_vecs: torch.Tensor,
                    slot_norms: torch.Tensor, slot_ids: torch.Tensor,
-                   slots: torch.Tensor, k: int,
-                   accum_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                   slots: torch.Tensor, k: int, accum_bf16: bool = False,
+                   precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """The k nearest rows of each query's listed slots (module doc).
 
     queries (nq, d) float32; slot_vecs (S, cap, d) float32; slot_norms
     (S, cap) float32 squared norms; slot_ids (S, cap) int32, -1 vacant;
-    slots (nq, n_steps) int32 slot indices, -1 padded.  Returns (nq, k)
+    slots (nq, n_steps) int32 slot indices, -1 padded.  ``precision=
+    "default"`` is ``accum_bf16=True`` (module doc).  Returns (nq, k)
     float32 ascending and (nq, k) int32.  CUDA tensors launch the kernel
     and K2; CPU tensors take their plain versions.
     """
+    expects(precision in _precision.PRECISIONS, "precision must be one of %s, got %r",
+            _precision.PRECISIONS, precision)
+    accum_bf16 = bool(accum_bf16) or precision == "default"
     expects(queries.ndim == 2 and slot_vecs.ndim == 3
             and queries.shape[1] == slot_vecs.shape[2],
             "fused_ivf_scan: shape mismatch")

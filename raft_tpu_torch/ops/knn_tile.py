@@ -3,12 +3,17 @@
 
 Port of ``raft_tpu/ops/knn_tile.py:fused_knn_tile``: per query, the k
 smallest of ``max(qn + xn - 2 q.x, 0)`` over the index rows, ascending,
-with int32 ids, k <= 128, float32 inputs.  Ties resolve to the smaller
-id.  The kernels compute the products in 3xTF32 on the tensor cores
+with int32 ids, k <= 128.  Ties resolve to the smaller id.  The inputs
+are float32; float16 and bfloat16 inputs go through a float32 copy, as
+``pad_with_norms`` casts them.  At ``precision="highest"`` the kernels
+compute the products in 3xTF32 on the tensor cores
 (``csrc/knn_tile.cuh``): each operand is split into two TF32 halves and
 three products are summed in float32, which keeps float32's accuracy and
-so meets the JAX ``precision="highest"`` contract that one TF32 pass
-would miss.
+so meets the JAX contract that one TF32 pass would miss.  At
+``precision="default"`` they run their bfloat16 instance, the TPU's
+single pass: each operand rounded to bfloat16, the exact products summed
+in float32 (:func:`raft_tpu_torch.core.precision.matmul_bf16`, which the
+plain versions take).  The norms stay float32 either way.
 
 The kernel splits the index across blocks as well as the queries, so
 that a thousand queries fill the card; each split writes its own top-k
@@ -38,9 +43,10 @@ ids).  ``block_n`` is the registry's ``knn_block_n`` knob
 4096 and rounding, :func:`twophase_geometry`; None resolves it through
 override, configure, env and the tuning table at each call);
 ``block_q`` and ``interpret`` are TPU arguments with no counterpart.
-The merge is pinned exact, as the JAX registry pins
-``merge_select_impl="topk"``.  Ties resolve to the
-smaller id: each tile's candidates are sorted by (distance, id) and the
+The merge is exact (``merge_select_impl="topk"``, the default, as the
+JAX registry pins it); an explicit ``"approx95"`` takes the approximate
+select (:mod:`raft_tpu_torch.spatial.select_k`), argument-only as in the
+JAX package.  Ties resolve to the smaller id: each tile's candidates are sorted by (distance, id) and the
 tiles are laid out in id order, so the select's first-column rule keeps
 the smaller id.
 """
@@ -48,11 +54,13 @@ the smaller id.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory, precision, tuning
+from raft_tpu_torch.core import inventory, tuning
+from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build, cost
@@ -66,13 +74,33 @@ DEPTH_UNIT = 8     # the kernels take a depth that is a multiple of wgmma's k8
 
 # index rows per tile of the plain version
 _PLAIN_TILE = 8192
+# input types the kernels take through a float32 copy
+_NARROW = (torch.float16, torch.bfloat16)
 
 
-def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor,
-                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def products(precision: str):
+    """The distance product of the plain versions at ``precision``:
+    IEEE float32, or the bfloat16 single pass (module doc)."""
+    expects(precision in _precision.PRECISIONS, "precision must be one of %s, got %r",
+            _precision.PRECISIONS, precision)
+    return _precision.matmul_bf16 if precision == "default" else _precision.matmul
+
+
+def as_float32(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``t`` if float32, a float32 copy if float16 or bfloat16 (as
+    ``pad_with_norms`` casts); any other type raises."""
+    expects(t.dtype == torch.float32 or t.dtype in _NARROW,
+            "%s: float32, float16 or bfloat16 inputs required, got %s", what, t.dtype)
+    return t.to(torch.float32)
+
+
+def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor, k: int,
+                   precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the same distances in expanded form (one
-    matmul per index tile) and the same (distance, id) order, kept by a
-    stable sort of the running top-k followed by the tile."""
+    matmul per index tile, :func:`products` at ``precision``) and the
+    same (distance, id) order, kept by a stable sort of the running top-k
+    followed by the tile."""
+    dot = products(precision)
     index = index.to(torch.float32)
     queries = queries.to(torch.float32)
     n = index.shape[0]
@@ -83,7 +111,7 @@ def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor,
     for j0 in range(0, n, _PLAIN_TILE):
         x = index[j0:j0 + _PLAIN_TILE]
         xn = (x * x).sum(dim=1)
-        d = torch.clamp(qn + xn[None, :] - 2.0 * precision.matmul(queries, x.T), min=0.0)
+        d = torch.clamp(qn + xn[None, :] - 2.0 * dot(queries, x.T), min=0.0)
         ids = torch.arange(j0, j0 + x.shape[0], device=queries.device)
         cat_d = torch.cat([best_d, d], dim=1)
         cat_i = torch.cat([best_i, ids.expand(nq, -1)], dim=1)
@@ -138,14 +166,15 @@ def pad_depth(t: torch.Tensor, dp: int) -> torch.Tensor:
     return out
 
 
-def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
-                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
+                   precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest index rows per query under squared L2.
 
-    index (n, d) and queries (nq, d) float32; returns (nq, k) float32
-    ascending and (nq, k) int32.  CUDA tensors launch the kernel (and the
-    select kernel to merge the splits); CPU tensors take
-    :func:`knn_tile_plain`.
+    index (n, d) and queries (nq, d) float32 (float16 and bfloat16
+    through a copy); ``precision`` ``"highest"`` or ``"default"`` (module
+    doc); returns (nq, k) float32 ascending and (nq, k) int32.  CUDA
+    tensors launch the kernel (and the select kernel to merge the
+    splits); CPU tensors take :func:`knn_tile_plain`.
     """
     expects(index.ndim == 2 and queries.ndim == 2
             and index.shape[1] == queries.shape[1],
@@ -154,13 +183,13 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
     nq = queries.shape[0]
     expects(0 < k <= n, "fused_knn_tile: k=%d out of range for n=%d", k, n)
     expects(k <= MAX_K, "fused_knn_tile: k <= %d (got %d)", MAX_K, k)
-    expects(index.dtype == torch.float32 and queries.dtype == torch.float32,
-            "fused_knn_tile: float32 inputs required, got %s and %s",
-            index.dtype, queries.dtype)
+    products(precision)
+    index = as_float32(index, "fused_knn_tile")
+    queries = as_float32(queries, "fused_knn_tile")
     expects(index.device == queries.device,
             "fused_knn_tile: index and queries on different devices")
     if index.device.type == "cpu":
-        return knn_tile_plain(index, queries, k)
+        return knn_tile_plain(index, queries, k, precision)
     fn = _entry()
     dev = index.device
     if nq == 0:
@@ -177,11 +206,11 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, dp, k, rows, part_d.data_ptr(),
-                  part_i.data_ptr(), stream)
+                  xn.data_ptr(), nq, n, dp, k, rows, int(precision == "default"),
+                  part_d.data_ptr(), part_i.data_ptr(), stream)
     _build.check(code, "fused_knn_tile")
     fused_knn_tile.launches += 1
-    inventory.count_launch("knn_tile", (nq, n, dp, k), lambda: (
+    inventory.count_launch("knn_tile", (nq, n, dp, k, precision), lambda: (
         *cost.knn_cost(nq, n, d, k),
         inventory.footprint((queries, index, qn, xn), (part_d, part_i), smem_bytes(dp, k))))
     if splits == 1:
@@ -195,7 +224,7 @@ fused_knn_tile.launches = 0
 
 def _entry():
     return _build.entry("knn_tile", "knn_tile_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
                         ctypes.c_int)
 
 
@@ -219,6 +248,7 @@ def smem_bytes(d: int, k: int) -> int:
 # K6: the two-phase fused kNN
 # --------------------------------------------------------------------- #
 TWOPHASE_PAD = 128                       # the JAX kpad: candidates per tile
+MERGE_SELECTS = ("topk", "approx95")     # phase 2's select (module doc)
 BLOCK_N_LADDER = tuple(int(b) for b in tuning.candidates("knn_block_n"))
 
 
@@ -234,11 +264,13 @@ def twophase_geometry(n: int, block_n: int = 1024) -> Tuple[int, int]:
     return bn, ceildiv(n, bn)
 
 
-def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor,
-                         bn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor, bn: int,
+                         precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch phase 1: per tile of ``bn`` index rows, the expanded
-    squared distances (one matmul), a stable ascending sort, and the
-    first 128 with global ids; a slot with no finite key is (+inf, -1)."""
+    squared distances (one matmul, :func:`products` at ``precision``), a
+    stable ascending sort, and the first 128 with global ids; a slot with
+    no finite key is (+inf, -1)."""
+    dot = products(precision)
     index = index.to(torch.float32)
     queries = queries.to(torch.float32)
     n, nq, dev = index.shape[0], queries.shape[0], queries.device
@@ -248,7 +280,7 @@ def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor,
     for j0 in range(0, n, bn):
         x = index[j0:j0 + bn]
         xn = (x * x).sum(dim=1)
-        d = torch.clamp(qn + xn[None, :] - 2.0 * precision.matmul(queries, x.T), min=0.0)
+        d = torch.clamp(qn + xn[None, :] - 2.0 * dot(queries, x.T), min=0.0)
         if x.shape[0] < TWOPHASE_PAD:      # the tile's masked columns
             d = torch.cat([d, inf.expand(nq, TWOPHASE_PAD - x.shape[0])], dim=1)
         vals, pos = torch.sort(d, dim=1, stable=True)
@@ -260,15 +292,19 @@ def twophase_tiles_plain(index: torch.Tensor, queries: torch.Tensor,
     return torch.cat(parts_d, dim=1), torch.cat(parts_i, dim=1)
 
 
-def twophase_tiles(index: torch.Tensor, queries: torch.Tensor,
-                   bn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def twophase_tiles(index: torch.Tensor, queries: torch.Tensor, bn: int,
+                   precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of K6: (nq, n_tiles * 128) float32 candidates and int32
-    ids, tile by tile.  A CUDA tensor launches ``csrc/knn_twophase.cu``;
-    a CPU tensor takes :func:`twophase_tiles_plain`."""
+    ids, tile by tile, at ``precision``.  A CUDA tensor launches
+    ``csrc/knn_twophase.cu``; a CPU tensor takes
+    :func:`twophase_tiles_plain`."""
     expects(bn >= BLOCK_N and bn % BLOCK_N == 0,
             "twophase_tiles: bn=%d is not a multiple of %d", bn, BLOCK_N)
+    products(precision)
+    index = as_float32(index, "twophase_tiles")
+    queries = as_float32(queries, "twophase_tiles")
     if index.device.type == "cpu":
-        return twophase_tiles_plain(index, queries, bn)
+        return twophase_tiles_plain(index, queries, bn, precision)
     fn = _twophase_entry()
     dev = index.device
     n, d = index.shape
@@ -283,11 +319,11 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, index.shape[1], bn, part_d.data_ptr(),
-                  part_i.data_ptr(), stream)
+                  xn.data_ptr(), nq, n, index.shape[1], bn, int(precision == "default"),
+                  part_d.data_ptr(), part_i.data_ptr(), stream)
     _build.check(code, "twophase_tiles")
     twophase_tiles.launches += 1
-    inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn), lambda: (
+    inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn, precision), lambda: (
         *cost.knn_cost(nq, n, d, width),
         inventory.footprint((queries, index, qn, xn), (part_d, part_i),
                             smem_bytes(index.shape[1], TWOPHASE_PAD))))
@@ -305,33 +341,33 @@ def _check_twophase(index, queries, k, precision, merge_select_impl):
     expects(0 < k <= n, "fused_knn_twophase: k=%d out of range for n=%d", k, n)
     expects(k <= TWOPHASE_PAD,
             "fused_knn_twophase: k <= %d (got %d)", TWOPHASE_PAD, k)
-    expects(index.dtype == torch.float32 and queries.dtype == torch.float32,
-            "fused_knn_twophase: float32 inputs required, got %s and %s",
-            index.dtype, queries.dtype)
+    for t in (index, queries):
+        expects(t.dtype == torch.float32 or t.dtype in _NARROW,
+                "fused_knn_twophase: float32, float16 or bfloat16 inputs required, got %s",
+                t.dtype)
     expects(index.device == queries.device,
             "fused_knn_twophase: index and queries on different devices")
-    expects(precision == "highest",
-            "fused_knn_twophase: precision=%r is not ported (the kernel "
-            "computes float32-faithful products in 3xTF32, 'highest')", precision)
-    expects(merge_select_impl == "topk",
-            "fused_knn_twophase: merge_select_impl=%r is not ported; the "
-            "merge is the exact select ('topk')", merge_select_impl)
+    products(precision)
+    expects(merge_select_impl in MERGE_SELECTS,
+            "fused_knn_twophase: merge_select_impl=%r is not ported; the merge is the "
+            "exact select ('topk') or the approximate one ('approx95')", merge_select_impl)
 
 
-def _twophase_merge(part_d, part_i, k, n, select=select_tile):
+def _twophase_merge(part_d, part_i, k, n, select):
     out_d, pos = select(part_d, k)
     out_i = torch.gather(part_i, 1, pos.long())
     return out_d, torch.clamp(out_i, 0, n - 1)
 
 
 def knn_twophase_plain(index: torch.Tensor, queries: torch.Tensor, k: int,
-                       block_n: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`fused_knn_twophase`: the plain
-    phase 1, then the plain select, on any device."""
+                       block_n: int = 1024,
+                       precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_knn_twophase` with the exact
+    merge: the plain phase 1, then the plain select, on any device."""
     n = index.shape[0]
     bn, _ = twophase_geometry(n, block_n)
-    part_d, part_i = twophase_tiles_plain(index, queries, bn)
-    return _twophase_merge(part_d, part_i, k, n, select=select_tile_plain)
+    part_d, part_i = twophase_tiles_plain(index, queries, bn, precision)
+    return _twophase_merge(part_d, part_i, k, n, select_tile_plain)
 
 
 def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
@@ -340,9 +376,10 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest index rows per query under squared L2, in two phases.
 
-    index (n, d) and queries (nq, d) float32, k <= 128; returns (nq, k)
-    float32 ascending and (nq, k) int32.  ``block_n`` resolves through
-    the registry (module doc).
+    index (n, d) and queries (nq, d) float32 (float16 and bfloat16
+    through a copy), k <= 128; returns (nq, k) float32 ascending and
+    (nq, k) int32.  ``block_n`` resolves through the registry,
+    ``precision`` and ``merge_select_impl`` as in the module doc.
     CUDA tensors launch K6 for phase 1 and K2 for the merge; CPU tensors
     take the plain versions.
     """
@@ -352,11 +389,17 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
                                  site="fused_knn_twophase", dtype=index.dtype, n=n, k=k,
                                  d=index.shape[1]))
     bn, _ = twophase_geometry(n, block_n)
-    part_d, part_i = twophase_tiles(index, queries, bn)
-    return _twophase_merge(part_d, part_i, k, n)
+    part_d, part_i = twophase_tiles(index, queries, bn, precision)
+    select = select_tile
+    if merge_select_impl == "approx95":
+        # deferred: spatial/ imports this module
+        from raft_tpu_torch.spatial.select_k import approx95_cols
+
+        select = functools.partial(approx95_cols, select_min=True)
+    return _twophase_merge(part_d, part_i, k, n, select)
 
 
 def _twophase_entry():
     return _build.entry("knn_twophase", "knn_twophase_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
                         ctypes.c_int)

@@ -2,11 +2,13 @@
 
 Port of ``raft_tpu/ops/nn_tile.py:fused_nn_tile``: per row of x, the
 minimum of ``max(xn + yn - 2 x.y, 0)`` over the rows of y and its int32
-index, float32 inputs, distances float32-faithful (the JAX
-``precision="highest"`` contract, met in 3xTF32 on the tensor cores as
-K1 meets it).  Ties resolve to the smaller index; a row with no finite
-distance keeps ``(inf, IDX_SENTINEL)``, and a NaN distance is never
-taken.  An empty y is rejected.  The norms are computed here with torch
+index, float32 inputs (float16 and bfloat16 through a float32 copy),
+distances float32-faithful at ``precision="highest"`` (met in 3xTF32 on
+the tensor cores as K1 meets it) or the TPU's bfloat16 single pass at
+``"default"`` (the kernel's bfloat16 instance; the plain version takes
+:func:`raft_tpu_torch.core.precision.matmul_bf16`).  Ties resolve to the
+smaller index; a row with no finite distance keeps ``(inf,
+IDX_SENTINEL)``, and a NaN distance is never taken.  An empty y is rejected.  The norms are computed here with torch
 ops, as ``pad_with_norms`` computes them outside the Pallas call, and
 :func:`raft_tpu_torch.ops.knn_tile.prepare_operands` pads a copy of x
 and y where the depth is not a multiple of 8.
@@ -25,10 +27,10 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory, precision
+from raft_tpu_torch.core import inventory
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _build, cost
-from raft_tpu_torch.ops.knn_tile import prepare_operands
+from raft_tpu_torch.ops.knn_tile import as_float32, prepare_operands, products
 
 IDX_SENTINEL = 2**31 - 1
 
@@ -36,9 +38,12 @@ IDX_SENTINEL = 2**31 - 1
 _PLAIN_TILE = 4096
 
 
-def nn_tile_plain(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def nn_tile_plain(x: torch.Tensor, y: torch.Tensor,
+                  precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: expanded-form distances one y tile at a time
-    (one matmul each) and a lexicographic (value, index) minimum."""
+    (one matmul each, ``products(precision)``) and a lexicographic (value,
+    index) minimum."""
+    dot = products(precision)
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     m = x.shape[0]
@@ -47,7 +52,7 @@ def nn_tile_plain(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
     best_i = torch.full((m,), IDX_SENTINEL, dtype=torch.int32, device=x.device)
     for j0 in range(0, y.shape[0], _PLAIN_TILE):
         t = y[j0:j0 + _PLAIN_TILE]
-        d = torch.clamp(xn[:, None] + (t * t).sum(dim=1)[None, :] - 2.0 * precision.matmul(x, t.T), min=0.0)
+        d = torch.clamp(xn[:, None] + (t * t).sum(dim=1)[None, :] - 2.0 * dot(x, t.T), min=0.0)
         v, i = torch.min(d, dim=1)          # the first index among equal minima
         i = (i + j0).to(torch.int32)
         take = (v < best_v) | ((v == best_v) & torch.isfinite(v) & (i < best_i))
@@ -56,24 +61,27 @@ def nn_tile_plain(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
     return best_v, best_i
 
 
-def fused_nn_tile(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_nn_tile(x: torch.Tensor, y: torch.Tensor,
+                  precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Per row of x: the minimum squared L2 distance to the rows of y and
     its index.
 
-    x (m, d) and y (n, d) float32, n > 0; returns (m,) float32 and (m,)
-    int32.  A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`nn_tile_plain`.
+    x (m, d) and y (n, d) float32 (float16 and bfloat16 through a copy),
+    n > 0, ``precision`` ``"highest"`` or ``"default"`` (module doc);
+    returns (m,) float32 and (m,) int32.  A CUDA tensor launches the
+    kernel; a CPU tensor takes :func:`nn_tile_plain`.
     """
     expects(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1],
             "fused_nn_tile: shape mismatch")
     m, d = x.shape
     n = y.shape[0]
     expects(n > 0, "fused_nn_tile: empty index")
-    expects(x.dtype == torch.float32 and y.dtype == torch.float32,
-            "fused_nn_tile: float32 inputs required, got %s and %s", x.dtype, y.dtype)
+    products(precision)
+    x = as_float32(x, "fused_nn_tile")
+    y = as_float32(y, "fused_nn_tile")
     expects(x.device == y.device, "fused_nn_tile: x and y on different devices")
     if x.device.type == "cpu":
-        return nn_tile_plain(x, y)
+        return nn_tile_plain(x, y, precision)
     fn = _entry()
     out_v = torch.empty((m,), dtype=torch.float32, device=x.device)
     out_i = torch.empty((m,), dtype=torch.int32, device=x.device)
@@ -84,10 +92,10 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, x.shape[1],
-                  out_v.data_ptr(), out_i.data_ptr(), stream)
+                  int(precision == "default"), out_v.data_ptr(), out_i.data_ptr(), stream)
     _build.check(code, "fused_nn_tile")
     fused_nn_tile.launches += 1
-    inventory.count_launch("nn_tile", (m, n, x.shape[1]), lambda: (
+    inventory.count_launch("nn_tile", (m, n, x.shape[1], precision), lambda: (
         *cost.nn_cost(m, n, d), inventory.footprint((x, y, xn, yn), (out_v, out_i))))
     return out_v, out_i
 
@@ -97,5 +105,5 @@ fused_nn_tile.launches = 0
 
 def _entry():
     return _build.entry("nn_tile", "nn_tile_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
                         ctypes.c_int)

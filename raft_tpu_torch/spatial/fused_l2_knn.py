@@ -5,9 +5,10 @@ fused_l2_knn.cuh:196).  Two implementations with one contract:
 
 - ``impl="kernel"``: K1 (:func:`raft_tpu_torch.ops.knn_tile.fused_knn_tile`),
   the distance tile and the running top-k in one kernel.  Legal for
-  float32 inputs, ``precision="highest"`` and k <= 128; an explicit
-  request outside those limits raises, as the JAX registry's legality
-  rule does.
+  float32, float16 and bfloat16 inputs (the narrower two through a
+  float32 copy), ``precision="highest"`` (3xTF32) or ``"default"`` (its
+  bfloat16 instance) and k <= 128; an explicit request outside those
+  limits raises, as the JAX registry's legality rule does.
 - ``impl="scan"``: the tile scan (:mod:`raft_tpu_torch.spatial.tiled_knn`)
   with an expanded-form matmul distance tile.
 
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core import tuning
+from raft_tpu_torch.core.precision import PRECISIONS
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.pairwise import expanded_sq_dists
@@ -33,6 +35,8 @@ from raft_tpu_torch.ops.knn_tile import MAX_K, fused_knn_tile
 from raft_tpu_torch.spatial.tiled_knn import tiled_knn
 
 IMPLS = tuning.candidates("fused_knn_impl")
+# input types K1 takes (float16 and bfloat16 through a float32 copy)
+KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
 def fused_l2_knn(
@@ -57,7 +61,7 @@ def fused_l2_knn(
         Index rows per step of the tile scan.
     precision:
         ``"highest"`` (float32 products) or ``"default"`` (bfloat16
-        operands, tile scan only).
+        operands, float32 sums: the TPU's single pass).
     impl:
         ``"kernel"``, ``"scan"`` or None (module doc).
 
@@ -74,13 +78,14 @@ def fused_l2_knn(
     impl = tuning.resolve("fused_knn_impl", impl, site="fused_l2_knn", dtype=index.dtype,
                           n=index.shape[0], k=k, precision=precision, device=dev.type)
     if impl is None:
-        legal = (index.dtype == torch.float32 and queries.dtype == torch.float32
-                 and precision == "highest" and k <= MAX_K)
+        legal = (index.dtype in KERNEL_DTYPES and queries.dtype in KERNEL_DTYPES
+                 and precision in PRECISIONS and k <= MAX_K)
         impl = "kernel" if legal and dev.type == "cuda" else "scan"
     if impl == "kernel":
-        expects(queries.dtype == torch.float32,
-                "fused_l2_knn: impl='kernel' needs float32 queries (got %s)", queries.dtype)
-        return fused_knn_tile(index, queries, k)
+        expects(queries.dtype in KERNEL_DTYPES,
+                "fused_l2_knn: impl='kernel' needs float32, float16 or bfloat16 queries "
+                "(got %s)", queries.dtype)
+        return fused_knn_tile(index, queries, k, precision)
     index = index.to(torch.float32)
     queries = queries.to(torch.float32)
     return tiled_knn(index, queries, k,

@@ -149,7 +149,8 @@ def brute_force_knn(
         Index rows per step of the tile scans.
     precision:
         ``"highest"`` (float32 products) or ``"default"`` (bfloat16
-        operands) for the matmul-backed metrics.
+        operands, float32 sums: K1's bfloat16 instance for the L2
+        family on the card) for the matmul-backed metrics.
     rerank_ratio:
         L2 family only.  Above 1, a bfloat16 tile scan keeps
         ``k * rerank_ratio`` candidates per partition and an exact

@@ -7,10 +7,13 @@ through :func:`raft_tpu_torch.spatial.select_k.select_k`, so on the card
 they run on K2.  The running top-k holds smaller ids than the tile and
 sits first in the merge, so ties resolve to the smaller id.
 
-This is the CPU route of ``fused_l2_knn``, the route of
-``precision="default"``, of k > 128 and of the rerank mode's first stage
-(the JAX package pins those to its tile scan too), and of the haversine
-kNN.  The JAX ``tile_merge`` knob and query donation have no counterpart.
+This is the CPU route of ``fused_l2_knn``, the route of k > 128 and of
+the rerank mode's first stage (the JAX package pins that to its tile
+scan too), and of the haversine kNN.  With ``select_impl="approx95"``
+each tile's select is approximate; the merges of 2k columns fold nothing
+(``spatial/select_k.py:approx_bins`` gives r = 0 there), so they stay
+exact, as the JAX scan's merge sort is.  The JAX ``tile_merge`` knob and
+query donation have no counterpart.
 """
 
 from __future__ import annotations

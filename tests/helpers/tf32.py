@@ -1,7 +1,8 @@
 """The arithmetic of the tensor-core distance tile of K1, K3, K4 and K6,
 in numpy: TF32 and bfloat16 rounding, the big/small split, and dot
 products in 3xTF32 or in one TF32 pass (float32 sums of exact products of
-TF32 values), and 3xTF32 with the tensor cores' truncating sums."""
+TF32 values), 3xTF32 with the tensor cores' truncating sums, and the
+bfloat16 single pass of precision="default" with either sum."""
 
 import numpy as np
 
@@ -70,6 +71,25 @@ def dots_tf32x3(queries, index, acc=None):
 def dots_tf32(queries, index):
     """(nq, n) dot products in one TF32 pass: big*big only."""
     return tf32_round(queries) @ tf32_round(index).T
+
+
+def dots_bf16(queries, index, acc=None):
+    """(nq, n) dot products at the JAX ``precision="default"``: the
+    operands rounded to bfloat16, their exact products summed in float32
+    (``acc=None``: a float32 matmul of the rounded values, what the plain
+    versions compute), or ``acc="one"`` as the kernels' bfloat16 instance
+    sums them: each k8 step's exact sum added into one float32
+    accumulator truncated toward zero (``dots_tf32x3``'s "one" with the
+    small halves zero)."""
+    qb, xb = bf16_round(queries), bf16_round(index)
+    if acc is None:
+        return qb @ xb.T
+    assert acc == "one", acc
+    qb, xb = qb.astype(np.float64), xb.astype(np.float64)
+    out = np.zeros((len(qb), len(xb)), np.float32)
+    for s in range(0, qb.shape[1], 8):
+        out = _toward_zero(out + qb[:, s:s + 8] @ xb[:, s:s + 8].T)
+    return out
 
 
 def knn_from_dots(queries, index, dots, k):

@@ -1,18 +1,20 @@
 """Port parity of K6, the two-phase fused kNN: the port's
 ``fused_knn_twophase`` on CPU tensors (its plain version) against the JAX
 package's ``fused_knn_twophase`` run in interpret mode, and the contract
-around it (the k limit, ties, the intermediate's width, the pinned
-merge)."""
+around it (the k limit, ties, the intermediate's width, the merge and
+the precision it takes)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from helpers.tf32 import bf16_round
 from helpers.torch_parity import assert_knn_close
 from raft_tpu.ops.knn_tile import fused_knn_twophase as jax_twophase
 from raft_tpu.ops.knn_tile import tile_geometry
 from raft_tpu_torch import LogicError
+from raft_tpu_torch.spatial.select_k import select_k
 from raft_tpu_torch.ops.knn_tile import (BLOCK_N_LADDER, TWOPHASE_PAD, fused_knn_twophase,
                                          index_blocks, knn_tile_plain, knn_twophase_plain,
                                          twophase_geometry, twophase_tiles)
@@ -92,14 +94,41 @@ def test_ties_resolve_to_smaller_id():
 
 
 @pytest.mark.parametrize("bad", [
-    {"k": 129}, {"k": 0}, {"block_n": 768}, {"precision": "default"},
-    {"merge_select_impl": "approx95"}, {"merge_select_impl": "pallas"},
+    {"k": 129}, {"k": 0}, {"block_n": 768}, {"precision": "high"},
+    {"merge_select_impl": "chunked"}, {"merge_select_impl": "pallas"},
     {"merge_select_impl": "bogus"}])
 def test_rejects(bad):
     x, q = _data(300, 3, 8, seed=5)
     args = {"k": 5, **bad}
     with pytest.raises(LogicError):
         fused_knn_twophase(torch.from_numpy(x), torch.from_numpy(q), **args)
+
+
+@pytest.mark.parametrize("ported", [{"precision": "default"}, {"merge_select_impl": "approx95"}],
+                         ids=["precision-default", "merge-approx95"])
+def test_accepts_what_was_refused(ported):
+    # precision="default" (the bfloat16 single pass) runs: the same as the
+    # JAX function on inputs that are bfloat16 values, where the single
+    # pass is exact.  The approximate merge runs the approximate select
+    # over phase 1's candidates: each tile's sorted run of 128 lands its
+    # j-th best in bin j (mod 256 here), so runs collide and recall is
+    # the data's; it is held to that select, and each distance to the
+    # JAX distance of its id
+    x, q = _data(700, 6, 16, seed=6)
+    x, q = bf16_round(x), bf16_round(q)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    got_d, got_i = fused_knn_twophase(xt, qt, 5, block_n=256, **ported)
+    if "precision" in ported:
+        ref_d, ref_i = jax_twophase(jnp.asarray(x), jnp.asarray(q), 5, block_n=256,
+                                    interpret=True)
+        assert_knn_close(np.asarray(ref_d), np.asarray(ref_i), got_d.numpy(), got_i.numpy(),
+                         RTOL, ATOL)
+        return
+    part_d, part_i = twophase_tiles(xt, qt, 256)
+    want_d, want_i = select_k(part_d, 5, values=part_i, impl="approx95", device="cpu")
+    assert torch.equal(got_d, want_d) and torch.equal(got_i, want_i)
+    exact = ((q[:, None, :].astype(np.float64) - x[got_i.numpy()]) ** 2).sum(-1)
+    np.testing.assert_allclose(got_d.numpy(), exact, rtol=RTOL, atol=ATOL)
 
 
 def test_unported_merge_is_named():

@@ -87,6 +87,24 @@ def _site_pairwise():
     pairwise_distance(_f32(9, 8), _f32(11, 8, seed=1), D.L2Expanded, device="cpu")
 
 
+def _site_pairwise_default():
+    # precision="default": the bfloat16-rounded operands' float32 product
+    pairwise_distance(_f32(9, 8), _f32(11, 8, seed=1), D.L2Expanded, precision="default",
+                      device="cpu")
+
+
+def _site_knn_tile_plain_default():
+    knn_tile_plain(_f32(300, 8), _f32(7, 8, seed=1), 5, "default")
+
+
+def _site_twophase_plain_default():
+    twophase_tiles_plain(_f32(300, 8), _f32(7, 8, seed=1), 256, "default")
+
+
+def _site_nn_tile_plain_default():
+    nn_tile_plain(_f32(50, 8), _f32(9, 8, seed=1), "default")
+
+
 def _site_kmeans_assign():
     kmeans(_f32(200, 6), 5, max_iter=3, device="cpu")       # k < 256: the matmul route
 
@@ -207,6 +225,10 @@ def _site_connect_scan():
 
 SITES = {
     "distance/pairwise.py matmul": _site_pairwise,
+    "distance/pairwise.py matmul at default": _site_pairwise_default,
+    "ops/knn_tile.py knn_tile_plain at default": _site_knn_tile_plain_default,
+    "ops/knn_tile.py twophase_tiles_plain at default": _site_twophase_plain_default,
+    "ops/nn_tile.py nn_tile_plain at default": _site_nn_tile_plain_default,
     "spectral/kmeans.py _assign": _site_kmeans_assign,
     "spatial/ann.py delta merge": _site_delta_merge,
     "spatial/ann.py scan route": _site_scan_route,

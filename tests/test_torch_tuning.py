@@ -165,7 +165,7 @@ def test_shared_message_shape_matches_jax():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("select_impl", v) for v in ("topk", "approx", "approx95", "chunked", "pallas")] + [
+    ("select_impl", v) for v in ("topk", "approx", "chunked", "pallas")] + [
     ("fused_knn_impl", v) for v in ("xla", "pallas", "xla_fused")] + [
     ("ivf_scan_impl", v) for v in ("xla", "pallas", "pallas_bf16")] + [
     ("fused_nn_impl", "xla"), ("fused_nn_impl", "pallas")])
@@ -177,6 +177,20 @@ def test_jax_names_are_refused_not_mapped(knob, value):
     assert msg.startswith("site: %s=%r is illegal for this cell (legal: %s)"
                           % (knob, value, ", ".join(tuning.candidates(knob))))
     assert "not ported" in msg
+
+
+def test_approx95_is_a_port_candidate_never_swept():
+    # the JAX name is the port's own now: settable, legal on float keys,
+    # refused on integer ones and by the sweep
+    assert "approx95" in jtuning.candidates("select_impl")
+    assert "approx95" in tuning.candidates("select_impl")
+    assert tuning.check("select_impl", "approx95", explicit=True, k=100,
+                        dtype=torch.float32) == "approx95"
+    with pytest.raises(LogicError, match="float keys"):
+        tuning.check("select_impl", "approx95", explicit=True, dtype=torch.int32)
+    sweep = dict(tuning.legal_candidates("select_impl", purpose="sweep", device="cuda", k=10))
+    assert "approximate" in sweep["approx95"]
+    assert dict(tuning.legal_candidates("select_impl", device="cuda", k=10))["approx95"] is None
 
 
 def test_arg_only_rule_matches_jax(monkeypatch):
@@ -215,13 +229,25 @@ def test_kernels_are_not_swept_off_the_card():
     ("select_impl", {"k": 129}, "caps k at 128"),
     ("select_impl", {"k": 10, "dtype": torch.int32}, "stable sort"),
     ("fused_knn_impl", {"k": 129}, "caps k at 128"),
-    ("fused_knn_impl", {"k": 10, "precision": "default"}, "precision"),
+    ("fused_knn_impl", {"k": 10, "precision": "high"}, "precision"),
     ("ivf_scan_impl", {"k": 10, "metric": "ip"}, "L2 family"),
     ("fused_nn_impl", {"masked": True}, "plain float32"),
 ])
 def test_kernel_legality(knob, ctx, frag):
     with pytest.raises(LogicError, match=frag):
         tuning.check(knob, "kernel", explicit=True, **ctx)
+
+
+@pytest.mark.parametrize("knob", ["fused_knn_impl", "fused_nn_impl"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_kernel_takes_default_precision_and_narrow_inputs(knob, dtype):
+    # K1 and K4 have a bfloat16 instance for precision="default", and take
+    # float16 and bfloat16 inputs through a float32 copy
+    for prec in ("highest", "default"):
+        assert tuning.check(knob, "kernel", explicit=True, k=10, precision=prec, dtype=dtype,
+                            device="cuda") == "kernel"
+    with pytest.raises(LogicError):
+        tuning.check(knob, "kernel", explicit=True, k=10, dtype=torch.float64)
 
 
 def test_every_choices_knob_is_registered():
@@ -598,10 +624,11 @@ def test_ann_service_select_impl_routes_serve_alike(ivf_data):
                          a[1].numpy(), RTOL, ATOL)
 
 
-@pytest.mark.parametrize("bad,frag", [("approx95", "not ported"), ("bogus", "unknown impl")])
+@pytest.mark.parametrize("bad,frag", [("chunked", "not ported"), ("bogus", "unknown impl")])
 def test_ann_service_refuses_select_impl_at_construction(ivf_data, bad, frag):
     with pytest.raises(LogicError, match="ANNService: select_impl=%r is illegal for this cell "
-                                         r"\(legal: kernel, sort\) — .*%s" % (bad, frag)):
+                                         r"\(legal: kernel, sort, approx95\) — .*%s"
+                                         % (bad, frag)):
         ANNService(ivf_data[3], K, start=False, device=CPU, select_impl=bad)
 
 
