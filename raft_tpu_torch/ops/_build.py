@@ -13,6 +13,14 @@ Each compile runs with ``-Xptxas -v``; what the compiler printed (each
 kernel's registers, spills and shared memory) is kept beside the
 library, and :func:`ptxas_log` returns it.
 
+``phases=True`` (the functions below take it) names the phase-timed
+build of a tile kernel's source (:data:`PHASE_KERNELS`): the same
+sources compiled with ``-DRAFT_TPU_KERNEL_PHASES`` into a library of its
+own (``<name>-phases-<hash>.so``), whose entry points take the counter
+buffer as their last argument (``csrc/knn_tile.cuh``,
+:func:`raft_tpu_torch.core.tracing.kernel_phases`).  It is built at its
+first use, like any other.
+
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on
 a code other than 0.  :func:`entry` binds an entry point once per
@@ -52,7 +60,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
               "-split-compile=0")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+# the sources that hold the fused tile kernel, and the define of its
+# phase-timed build
+PHASE_KERNELS = ("knn_tile", "ivf_tile", "nn_tile", "knn_twophase")
+PHASE_DEFINE = "-DRAFT_TPU_KERNEL_PHASES"
+
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}
 _load_lock = threading.Lock()
 _stats = {"builds": 0, "loads": 0}
@@ -69,17 +82,28 @@ def _nvcc() -> str:
                     collect_stack=False)
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(name: str, phases: bool) -> tuple:
+    if not phases:
+        return NVCC_FLAGS
+    if name not in PHASE_KERNELS:
+        raise RaftError("%s has no phase-timed build (only %s)" % (name, ", ".join(PHASE_KERNELS)),
+                        collect_stack=False)
+    return NVCC_FLAGS + (PHASE_DEFINE,)
+
+
+def library_path(name: str, phases: bool = False) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives (its
+    phase-timed build with ``phases``)."""
+    h = hashlib.sha256(" ".join(_flags(name, phases)).encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}{'-phases' if phases else ''}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile the named kernels that are not built yet, in parallel.
+def build(names: Iterable[str] = KERNELS, phases: bool = False) -> Dict[str, float]:
+    """Compile the named kernels that are not built yet, in parallel
+    (their phase-timed builds with ``phases``).
 
     Returns the seconds each compile took (0 for one already built).
     Raises :class:`RaftError` with the compiler's output if any fails;
@@ -90,12 +114,12 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     seconds = {}
     try:
         for name in names:
-            out = library_path(name)
+            out = library_path(name, phases)
             if out.exists():
                 seconds[name] = 0.0
                 continue
             tmp = out.with_suffix(".%d.tmp" % os.getpid())
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *_flags(name, phases), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT),
                            tmp, out, time.perf_counter())
@@ -117,43 +141,48 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, phases: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (its phase-timed build
+    with ``phases``), built first if needed."""
+    lib = _loaded.get((name, phases))
     if lib is None:
         with _load_lock:
-            lib = _loaded.get(name)
+            lib = _loaded.get((name, phases))
             if lib is None:
-                build([name])
-                lib = ctypes.CDLL(str(library_path(name)))
-                _loaded[name] = lib
+                build([name], phases)
+                lib = ctypes.CDLL(str(library_path(name, phases)))
+                _loaded[(name, phases)] = lib
                 _stats["loads"] += 1
     return lib
 
 
-def entry(name: str, symbol: str, argtypes: Sequence, restype):
+def entry(name: str, symbol: str, argtypes: Sequence, restype, phases: bool = False):
     """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
     and result types set, bound once per process (the library is built
-    and loaded first if needed)."""
-    fn = _entries.get((name, symbol))
+    and loaded first if needed).  With ``phases``, the function of the
+    phase-timed build, which takes one more pointer, the counter buffer,
+    after ``argtypes``."""
+    key = (name, symbol, phases)
+    fn = _entries.get(key)
     if fn is None:
-        lib = load(name)
+        lib = load(name, phases)
         with _load_lock:
-            fn = _entries.get((name, symbol))
+            fn = _entries.get(key)
             if fn is None:
                 fn = getattr(lib, symbol)
-                fn.argtypes = list(argtypes)
+                fn.argtypes = list(argtypes) + ([ctypes.c_void_p] if phases else [])
                 fn.restype = restype
-                _entries[(name, symbol)] = fn
+                _entries[key] = fn
     return fn
 
 
-def ptxas_log(name: str) -> str:
-    """What the compiler printed when it built ``csrc/<name>.cu`` (built
-    first if needed): ``ptxas info`` lines with each kernel's registers,
-    spill stores and loads, and shared memory, and any warnings."""
-    build([name])
-    return library_path(name).with_suffix(".log").read_text()
+def ptxas_log(name: str, phases: bool = False) -> str:
+    """What the compiler printed when it built ``csrc/<name>.cu`` (its
+    phase-timed build with ``phases``; built first if needed): ``ptxas
+    info`` lines with each kernel's registers, spill stores and loads,
+    and shared memory, and any warnings."""
+    build([name], phases)
+    return library_path(name, phases).with_suffix(".log").read_text()
 
 
 def stats() -> Dict[str, int]:

@@ -65,7 +65,7 @@ extern "C" int ivf_tile_launch(const void* Q, const void* qn, const void* X, con
                                const void* ids, const void* items, const void* n_items,
                                const void* out_rows, int nq, int steps, int n_rows, int d,
                                int cap, int max_items, int n_q, int k, int accum_bf16,
-                               void* out_d, void* out_i, void* stream) {
+                               void* out_d, void* out_i, void* stream RAFT_TPU_PHASES_PARAM) {
   using namespace raft_tpu_torch;
   if (cap < 1 || n_rows < cap || max_items < 1 || d < 8 || steps < 1) {
     return (int)cudaErrorInvalidValue;
@@ -77,6 +77,7 @@ extern "C" int ivf_tile_launch(const void* Q, const void* qn, const void* X, con
                     (const int*)ids, cap};
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n_rows, d, k, 0, 0, 0, (float*)out_d, (int*)out_i, wl};
+  RAFT_TPU_SET_PHASES(a);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(accum_bf16 ? launch<kIvfItems, true>(blocks, s, a, n_q)
                           : launch<kIvfItems, false>(blocks, s, a, n_q));

@@ -43,12 +43,13 @@
 extern "C" int knn_tile_launch(const void* Q, const void* X, const void* qn,
                                const void* xn, int nq, int n, int d, int k,
                                int rows_per_split, int bf16, void* out_d, void* out_i,
-                               void* stream) {
+                               void* stream RAFT_TPU_PHASES_PARAM) {
   using namespace raft_tpu_torch;
   if (rows_per_split < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int n_splits = (n + rows_per_split - 1) / rows_per_split;
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n, d, k, rows_per_split, 1, n_splits, (float*)out_d, (int*)out_i, {}};
+  RAFT_TPU_SET_PHASES(a);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(bf16 ? launch<kSplits, true>(n_splits, s, a)
                     : launch<kSplits, false>(n_splits, s, a));

@@ -216,6 +216,100 @@ struct WorkList {
   int steps;            // K3: the scan steps of a query
   const int* ids;       // K3: the global id of each index row, -1 vacant
   int rows_per_item;    // index rows of an item: the slot's cap (K3), n (K4)
+#ifdef RAFT_TPU_KERNEL_PHASES
+  unsigned long long* phases;  // every mode: the launch's phase counters (below)
+#endif
+};
+
+// ---- phase counters: the timed build -----------------------------------
+// Built with RAFT_TPU_KERNEL_PHASES (a library of its own, ops/_build.py),
+// every instance counts %clock64 cycles by role and phase.  Each thread
+// keeps its role's counts in registers (a warp's lanes count alike), and
+// lane 0 of each warp adds them, one atomicAdd a counter, into the launch's
+// int64 buffer when the role exits.  A role's total runs from its start
+// (after setmaxnreg) to its exit; what its phases leave is its issue work.
+// raft_tpu_torch/core/tracing.py:PHASES reads the buffer.  Without the
+// define every PhaseClock method but wait() is empty, wait() is bar_wait,
+// and the kernel compiles as it would without them.  The timed build's C
+// entry points take the buffer last, after the stream.
+#ifdef RAFT_TPU_KERNEL_PHASES
+constexpr bool kPhases = true;
+#define RAFT_TPU_PHASES_PARAM , void* phases
+#define RAFT_TPU_SET_PHASES(args) ((args).wl.phases = static_cast<unsigned long long*>(phases))
+__device__ __forceinline__ unsigned long long* phase_buffer(const WorkList& wl) {
+  return wl.phases;
+}
+#else
+constexpr bool kPhases = false;
+#define RAFT_TPU_PHASES_PARAM
+#define RAFT_TPU_SET_PHASES(args) ((void)0)
+__device__ __forceinline__ unsigned long long* phase_buffer(const WorkList&) { return nullptr; }
+#endif
+
+// The buffer's words: the blocks, each role's total and then its phases,
+// and the instance (N | NR << 8 | mode << 16 | bf16 << 24).
+constexpr int kPhBlocks = 0;
+constexpr int kPhMma = 1;
+constexpr int kPhSelect = 7;
+constexpr int kPhProducer = 12;
+constexpr int kPhInstance = 14;
+constexpr int kPhWords = 15;
+enum MmaPhase { kWaitLoad, kWaitTensor, kFill, kWaitSelect, kEpilogue, kMmaPhases };
+enum SelectPhase { kWaitTile, kGate, kMerge, kWrite, kSelectPhases };
+enum ProducerPhase { kWaitSlot, kProducerPhases };
+static_assert(kPhMma + 1 + kMmaPhases == kPhSelect &&
+                  kPhSelect + 1 + kSelectPhases == kPhProducer &&
+                  kPhProducer + 1 + kProducerPhases == kPhInstance && kPhInstance + 1 == kPhWords,
+              "the roles' counters follow each other");
+
+template <int kN>
+struct PhaseClock {
+  uint64_t start = 0;
+  uint64_t n[kN] = {};
+
+  __device__ __forceinline__ PhaseClock() {
+    if constexpr (kPhases) start = sm90::clock_now();
+  }
+  // now, in the timed build (0 otherwise)
+  __device__ __forceinline__ uint64_t mark() const {
+    if constexpr (kPhases) {
+      return sm90::clock_now();
+    } else {
+      return 0;
+    }
+  }
+  // add the cycles since `t` (less `skip`) to phase i, and return now
+  __device__ __forceinline__ uint64_t lap(int i, uint64_t t, uint64_t skip = 0) {
+    if constexpr (kPhases) {
+      const uint64_t now = sm90::clock_now();
+      n[i] += now - t - skip;
+      return now;
+    } else {
+      return 0;
+    }
+  }
+  // bar_wait; its cycles go to phase i and are returned (0 untimed)
+  __device__ __forceinline__ uint64_t wait(int i, uint64_t* bar, uint32_t parity) {
+    if constexpr (kPhases) {
+      const uint64_t c = sm90::bar_wait_cycles(bar, parity);
+      n[i] += c;
+      return c;
+    } else {
+      sm90::bar_wait(bar, parity);
+      return 0;
+    }
+  }
+  // at the role's exit: lane 0 adds the total and the phases at word `base`
+  __device__ __forceinline__ void flush(const WorkList& wl, int base, bool lead) const {
+    if constexpr (kPhases) {
+      if (lead) {
+        unsigned long long* buf = phase_buffer(wl) + base;
+        atomicAdd(buf, (unsigned long long)(sm90::clock_now() - start));
+#pragma unroll
+        for (int i = 0; i < kN; ++i) atomicAdd(buf + 1 + i, (unsigned long long)n[i]);
+      }
+    }
+  }
 };
 
 // One stretch of a block's work: query rows [q0, q0 + q_cnt) (entries of
@@ -382,6 +476,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
   if (warp < 4) {
     // ---- multiply: one warpgroup -----------------------------------
     setmaxnreg_inc<kWideRegs ? kMmaRegsWide : kMmaRegs>();
+    PhaseClock<kMmaPhases> pc;
     const int g8 = lane >> 2;  // fragment row (and row + 8); the row's swizzle
     const int t4 = lane & 3;
     // core matrices 128 bytes apart along K, 8-row groups 256 bytes apart
@@ -399,11 +494,13 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
       const Segment sg = segment<N, kMode>(it, wl, nq, n, rows_per_part, parts_per_block);
       if constexpr (kWork) {
         // the item's queries replace the last item's, whose wgmmas are done
+        const uint64_t t = pc.mark();
         mma_bar_sync();
         fill_queries<N, kGather, kBF16>(q_big, q_small, Q, d, wl, sg.q0, sg.q_cnt, 0, held,
                                         tid, kMmaThreads);
         fence_proxy_async();
         mma_bar_sync();
+        pc.lap(kFill, t);
       }
       float qn_r[N / 4];  // qn of tile columns 8j + 2 t4 + {0, 1}
 #pragma unroll
@@ -438,12 +535,15 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
         // wgmmas that read those are done, and the accumulator carries over.
         for (int c0 = 0; c0 < n_boxes; c0 += held) {
           if (held < n_boxes && (t > 0 || c0 > 0)) {
+            uint64_t tp = pc.mark();
             wgmma_wait<0>();
+            tp = pc.lap(kWaitTensor, tp);
             mma_bar_sync();
             fill_queries<N, kGather, kBF16>(q_big, q_small, Q, d, wl, sg.q0, sg.q_cnt, c0,
                                             min(held, n_boxes - c0), tid, kMmaThreads);
             fence_proxy_async();
             mma_bar_sync();
+            pc.lap(kFill, tp);
           }
           const int c_end = min(n_boxes, c0 + held);
           for (int c = c0; c < c_end; c += 2) {
@@ -451,7 +551,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
             for (int S = 0; S < 2; ++S) {
               const int g = tt * n_boxes + c + S;
               const int slot = g % kStages;
-              bar_wait(&full[slot], (g / kStages) & 1);
+              pc.wait(kWaitLoad, &full[slot], (g / kStages) & 1);
               const float* b = ring + slot * (kBN * kBox);
 #pragma unroll
               for (int L = 0; L < 2; ++L) {
@@ -512,11 +612,15 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
                 }
               }
               wgmma_commit();
+              const uint64_t tw = pc.mark();
               wgmma_wait<1>();  // the previous box's group: its register set is free
+              pc.lap(kWaitTensor, tw);
             }
           }
         }
+        uint64_t te = pc.mark();
         wgmma_wait<0>();
+        te = pc.lap(kWaitTensor, te);
 #pragma unroll
         for (int i = 0; i < N / 2; ++i) {
           fence_operand(acc[i]);
@@ -528,7 +632,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
         // epilogue: accumulator (row 16 warp + g8 (+8), column 8j + 2 t4
         // (+1)) to the query-major distance tile
         const int buf = tt & 1;
-        bar_wait(&dist_empty[buf], ((tt >> 1) & 1) ^ 1);
+        const uint64_t ws = pc.wait(kWaitSelect, &dist_empty[buf], ((tt >> 1) & 1) ^ 1);
         float* dt = dist + buf * N * kDistStride + warp * 16 + g8;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j) {
@@ -541,11 +645,21 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
         }
         __syncwarp();
         bar_arrive_if(&dist_full[buf], lane == 0);
+        pc.lap(kEpilogue, te, ws);
+      }
+    }
+    pc.flush(wl, kPhMma, lane == 0);
+    if constexpr (kPhases) {
+      if (tid == 0) {
+        unsigned long long* ph = phase_buffer(wl);
+        atomicAdd(ph + kPhBlocks, 1ull);
+        ph[kPhInstance] = N | NR << 8 | kMode << 16 | (int)kBF16 << 24;
       }
     }
   } else if (warp < 4 + kSelWarps) {
     // ---- select: kSelWarps warps, kRowsPerWarp query rows each ------
     setmaxnreg_dec<kWideRegs ? kSelRegsWide : kSelRegs>();
+    PhaseClock<kSelectPhases> pc;
     const int r0 = (warp - 4) * kRowsPerWarp;
     int tt = 0;
     for (int it = seg_first; it < n_segs; it += seg_stride) {
@@ -589,7 +703,8 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
         const int id0 = ok0 ? row0 + lane : INT_MAX;
         const int id1 = ok1 ? row0 + 32 + lane : INT_MAX;
         const int buf = tt & 1;
-        bar_wait(&dist_full[buf], (tt >> 1) & 1);
+        pc.wait(kWaitTile, &dist_full[buf], (tt >> 1) & 1);
+        uint64_t tp = pc.mark();
         const float* dt = dist + buf * N * kDistStride;
         // the gate, every row at once: which rows have a candidate that
         // beats their k-th best
@@ -605,6 +720,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
           if (__any_sync(kFullMask, p)) pass |= 1u << qq;
         }
         pass &= live;
+        tp = pc.lap(kGate, tp);
         // stage and merge, one row at a time, its state from shared memory
 #pragma unroll 1
         while (pass != 0) {
@@ -627,10 +743,12 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
             th_i[r] = ti;
           }
         }
+        pc.lap(kMerge, tp);
         __syncwarp();
         bar_arrive_if(&dist_empty[buf], lane == 0);
         if (row0 + kBN < part_end) continue;
         // the part's last tile: write each row's k smallest, sorted
+        tp = pc.mark();
 #pragma unroll 1
         for (int qq = 0; qq < n_live; ++qq) {
           const int r = r0 + qq;
@@ -664,15 +782,18 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
           }
         }
         __syncwarp();
+        pc.lap(kWrite, tp);
         fresh = true;
         ++part;
         part_end = (int)min((long long)n, (long long)part_end + rows_per_part);
       }
     }
+    pc.flush(wl, kPhSelect, lane == 0);
   } else {
     // ---- produce: one thread ---------------------------------------
     setmaxnreg_dec<kProducerRegs>();
     if (warp != 4 + kSelWarps || lane != 0) return;
+    PhaseClock<kProducerPhases> pc;
     int g = 0;
     for (int it = seg_first; it < n_segs; it += seg_stride) {
       const Segment sg = segment<N, kMode>(it, wl, nq, n, rows_per_part, parts_per_block);
@@ -680,13 +801,14 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restri
       for (int t = 0; t < n_tiles; ++t) {
         for (int c = 0; c < n_boxes; ++c, ++g) {
           const int slot = g % kStages;
-          bar_wait(&empty[slot], ((g / kStages) & 1) ^ 1);
+          pc.wait(kWaitSlot, &empty[slot], ((g / kStages) & 1) ^ 1);
           bar_arrive_tx(&full[slot], kBoxBytes);
           tma_load_2d(ring + slot * (kBN * kBox), &x_map, c * kBox, sg.row_begin + t * kBN,
                       &full[slot]);
         }
       }
     }
+    pc.flush(wl, kPhProducer, true);
   }
 }
 

@@ -54,7 +54,8 @@ void index_blocks(int q_tiles, int units, int sms, int* per_block, int* blocks) 
 // precision="default", knn_tile.cuh).  Returns cudaGetLastError().
 extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
                                    const void* xn, int nq, int n, int d, int bn, int bf16,
-                                   void* out_d, void* out_i, void* stream) {
+                                   void* out_d, void* out_i,
+                                   void* stream RAFT_TPU_PHASES_PARAM) {
   using namespace raft_tpu_torch;
   constexpr int kPad = 128;  // the JAX kpad: every tile keeps 128
   const int n_q = block_q(d);
@@ -68,6 +69,7 @@ extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
   index_blocks((nq + n_q - 1) / n_q, n_tiles, sms, &per_block, &blocks);
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i, {}};
+  RAFT_TPU_SET_PHASES(a);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(bf16 ? launch<kTileParts, true>(blocks, s, a)
                     : launch<kTileParts, false>(blocks, s, a));

@@ -41,7 +41,7 @@
 // knn_tile.cuh).  Returns cudaGetLastError().
 extern "C" int nn_tile_launch(const void* X, const void* Y, const void* xn, const void* yn,
                               int m, int n, int d, int bf16, void* out_v, void* out_i,
-                              void* stream) {
+                              void* stream RAFT_TPU_PHASES_PARAM) {
   using namespace raft_tpu_torch;
   if (m < 1 || n < 1 || d < 8) return (int)cudaErrorInvalidValue;
   const int n_q = block_q(d);
@@ -51,6 +51,7 @@ extern "C" int nn_tile_launch(const void* X, const void* Y, const void* xn, cons
   const WorkList wl{nullptr, nullptr, nullptr, 1, nullptr, n};
   KnnArgs a{(const float*)X, (const float*)Y, (const float*)xn, (const float*)yn,
             m, n, d, 1, 0, 0, 0, (float*)out_v, (int*)out_i, wl};
+  RAFT_TPU_SET_PHASES(a);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(bf16 ? launch<kNnItems, true>(blocks, s, a, n_q)
                     : launch<kNnItems, false>(blocks, s, a, n_q));

@@ -2,7 +2,8 @@
 // mbarriers, 2-D tensor copies (cp.async.bulk.tensor, TMA), warpgroup matrix
 // multiplies in TF32 with A from registers and B from shared memory
 // (wgmma.mma_async m64nNk8), the TF32 big/small split of a float32, and
-// register reallocation between warpgroups (setmaxnreg).  Raw PTX, no
+// register reallocation between warpgroups (setmaxnreg), and the SM's cycle
+// counter for the phase-timed build.  Raw PTX, no
 // CUTLASS, so that the plain-C build stays at seconds.
 #pragma once
 
@@ -70,6 +71,36 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       "LAB_DONE:\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// The SM's cycle counter.  The memory clobber keeps the read in its place
+// among the loads and stores around it.
+__device__ __forceinline__ uint64_t clock_now() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+// bar_wait that returns the cycles it took, from its first try to the
+// completed one.
+__device__ __forceinline__ uint64_t bar_wait_cycles(uint64_t* bar, uint32_t parity) {
+  uint64_t waited;
+  asm volatile(
+      "{\n.reg .pred p_done, p_stuck;\n.reg .u64 r_t0, r_t1;\n"
+      "mov.u64 r_t0, %%clock64;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p_done, [%1], %2, 1000000;\n"
+      "mov.u64 r_t1, %%clock64;\n"
+      "sub.u64 %0, r_t1, r_t0;\n"
+      "@p_done bra LAB_DONE;\n"
+      "setp.gt.u64 p_stuck, %0, 4294967296;\n"
+      "@p_stuck trap;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n}\n"
+      : "=l"(waited)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return waited;
 }
 
 // Wait for the 128 threads of warps 0-3, the multiplying warpgroup, on

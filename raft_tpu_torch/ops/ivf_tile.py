@@ -60,9 +60,8 @@ import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
-from torch.profiler import record_function
 
-from raft_tpu_torch.core import inventory
+from raft_tpu_torch.core import inventory, tracing
 from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
@@ -203,11 +202,13 @@ def ivf_items(queries: torch.Tensor, store: torch.Tensor, norms: torch.Tensor,
     args = [t.contiguous() for t in (norms, ids, work.items, work.n_items, work.out_rows)]
     out_d = torch.full((n_out, k), float("inf"), dtype=torch.float32, device=dev)
     out_i = torch.full((n_out, k), -1, dtype=torch.int32, device=dev)
+    timed = tracing.phase_launch(dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), qn.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in args],
+        launch = (q.data_ptr(), qn.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in args],
                   q.shape[0], work.n_steps, x.shape[0], dp, cap, work.items.shape[0], work.n_q, k,
-                  int(bool(accum_bf16)), out_d.data_ptr(), out_i.data_ptr(), stream)
+                  int(bool(accum_bf16)), out_d.data_ptr(), out_i.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
+        code = fn(*launch) if timed is None else timed.run(_entry(phases=True), *launch)
     _build.check(code, "ivf_items")
     ivf_items.launches += 1
     inventory.count_launch(
@@ -312,16 +313,16 @@ def _scan_chunk(queries, store, slots, cap, k, n_q, accum_bf16):
     """The three steps of :func:`fused_ivf_scan` for one chunk of queries."""
     nq, n_steps = slots.shape
     # one profiler range a step, so that a trace splits the function's time
-    with record_function("fused_ivf_scan.work_list"):
+    with tracing.annotate("fused_ivf_scan.work_list"):
         work = scan_work_list(slots, store[0].shape[0] // cap, cap, n_q)
-    with record_function("fused_ivf_scan.kernel"):
+    with tracing.annotate("fused_ivf_scan.kernel"):
         part_d, part_i = ivf_items(queries, *store, work, cap, k, nq * n_steps, accum_bf16)
-    with record_function("fused_ivf_scan.merge"):
+    with tracing.annotate("fused_ivf_scan.merge"):
         out_d, pos = select_tile(part_d.view(nq, n_steps * k), k)
         return out_d, torch.gather(part_i.view(nq, n_steps * k), 1, pos.long())
 
 
-def _entry():
+def _entry(phases: bool = False):
     return _build.entry("ivf_tile", "ivf_tile_launch",
                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int)
+                        ctypes.c_int, phases)

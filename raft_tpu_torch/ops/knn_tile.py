@@ -59,7 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory, tuning
+from raft_tpu_torch.core import inventory, tracing, tuning
 from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
@@ -203,11 +203,12 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
     splits = ceildiv(n, rows)
     part_d = torch.empty((nq, splits * k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, splits * k), dtype=torch.int32, device=dev)
+    timed = tracing.phase_launch(dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, dp, k, rows, int(precision == "default"),
-                  part_d.data_ptr(), part_i.data_ptr(), stream)
+        args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n, dp,
+                k, rows, int(precision == "default"), part_d.data_ptr(), part_i.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        code = fn(*args) if timed is None else timed.run(_entry(phases=True), *args)
     _build.check(code, "fused_knn_tile")
     fused_knn_tile.launches += 1
     inventory.count_launch("knn_tile", (nq, n, dp, k, precision), lambda: (
@@ -222,10 +223,10 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
 fused_knn_tile.launches = 0
 
 
-def _entry():
+def _entry(phases: bool = False):
     return _build.entry("knn_tile", "knn_tile_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int)
+                        ctypes.c_int, phases)
 
 
 def block_q(d: int) -> int:
@@ -316,11 +317,12 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor, bn: int,
         return part_d, part_i
     expects(d > 0, "twophase_tiles: zero depth")
     index, queries, qn, xn = prepare_operands(index, queries)
+    timed = tracing.phase_launch(dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(queries.data_ptr(), index.data_ptr(), qn.data_ptr(),
-                  xn.data_ptr(), nq, n, index.shape[1], bn, int(precision == "default"),
-                  part_d.data_ptr(), part_i.data_ptr(), stream)
+        args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n,
+                index.shape[1], bn, int(precision == "default"), part_d.data_ptr(),
+                part_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        code = fn(*args) if timed is None else timed.run(_twophase_entry(phases=True), *args)
     _build.check(code, "twophase_tiles")
     twophase_tiles.launches += 1
     inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn, precision), lambda: (
@@ -399,7 +401,7 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
     return _twophase_merge(part_d, part_i, k, n, select)
 
 
-def _twophase_entry():
+def _twophase_entry(phases: bool = False):
     return _build.entry("knn_twophase", "knn_twophase_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int)
+                        ctypes.c_int, phases)

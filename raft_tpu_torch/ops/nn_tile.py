@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory
+from raft_tpu_torch.core import inventory, tracing
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _build, cost
 from raft_tpu_torch.ops.knn_tile import as_float32, prepare_operands, products
@@ -89,10 +89,12 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor,
         return out_v, out_i
     expects(d > 0, "fused_nn_tile: zero depth")
     y, x, xn, yn = prepare_operands(y, x)
+    timed = tracing.phase_launch(x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, x.shape[1],
-                  int(precision == "default"), out_v.data_ptr(), out_i.data_ptr(), stream)
+        args = (x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, x.shape[1],
+                int(precision == "default"), out_v.data_ptr(), out_i.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        code = fn(*args) if timed is None else timed.run(_entry(phases=True), *args)
     _build.check(code, "fused_nn_tile")
     fused_nn_tile.launches += 1
     inventory.count_launch("nn_tile", (m, n, x.shape[1], precision), lambda: (
@@ -103,7 +105,7 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor,
 fused_nn_tile.launches = 0
 
 
-def _entry():
+def _entry(phases: bool = False):
     return _build.entry("nn_tile", "nn_tile_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int)
+                        ctypes.c_int, phases)

@@ -93,9 +93,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from raft_tpu_torch.core import native, precision, tuning
+from raft_tpu_torch.core import native, precision, tracing, tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import StageTimer, round_up_safe
@@ -197,11 +196,11 @@ def _coarse_assign(X: torch.Tensor, nlist: int, seed: int,
     if train_rows is not None and train_rows < m:
         expects(train_rows >= nlist, "_coarse_assign: train_rows=%d < nlist=%d",
                 train_rows, nlist)
-        with record_function("ivf_flat_build.subsample"):
+        with tracing.annotate("ivf_flat_build.subsample"):
             rows = np.sort(np.random.default_rng(seed).choice(m, train_rows, replace=False))
             sample = X[torch.from_numpy(rows).to(X.device)]
         res = kmeans(sample, nlist, seed=seed, max_iter=25, device=X.device)
-        with record_function("ivf_flat_build.assign_all_rows"):
+        with tracing.annotate("ivf_flat_build.assign_all_rows"):
             return res.centroids, _assign_labels(X, res.centroids)
     res = kmeans(X, nlist, seed=seed, max_iter=25, device=X.device)
     return res.centroids, res.labels
@@ -436,10 +435,10 @@ def ivf_flat_build(X, params: IVFFlatParams, metric: DistanceType = D.L2Expanded
     expects(params.nlist <= X.shape[0], "ivf_flat_build: nlist > n_vectors")
     _check_metric("ivf_flat_build", metric)
     centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
-    with record_function("ivf_flat_build.host_packing"):
+    with tracing.annotate("ivf_flat_build.host_packing"):
         slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
                                                                    params.nlist)
-    with record_function("ivf_flat_build.gather_slots"):
+    with tracing.annotate("ivf_flat_build.gather_slots"):
         slot_vecs, slot_ids, slot_norms = _gather_slots(X, slot_rows)
         return IVFFlatIndex(centroids, slot_vecs, slot_ids,
                             torch.from_numpy(slot_cent).to(dev),
@@ -476,7 +475,7 @@ def _ivf_flat_search_impl(centroids, slot_vecs, slot_norms, slot_ids, cent_slots
                                   store_dtype=slot_vecs.dtype,
                                   n=slot_vecs.shape[0] * slot_vecs.shape[1], k=k, metric=metric)
     if scan_impl != "scan":
-        with record_function("ivf_flat_search.probe"):
+        with tracing.annotate("ivf_flat_search.probe"):
             slots, _ = _probe_compact(q, centroids, cent_slots, nprobe,
                                       select_impl=select_impl)
         dist, ids = fused_ivf_scan(q, slot_vecs, slot_norms.to(torch.float32), slot_ids,
@@ -619,7 +618,7 @@ def ivf_pq_build(X, params: IVFPQParams, metric: DistanceType = D.L2Expanded,
     timer = StageTimer(stages, dev)
     centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
     timer.done("coarse")
-    with record_function("ivf_pq_build.codebooks"):
+    with tracing.annotate("ivf_pq_build.codebooks"):
         resid = X - centroids[labels.long()]
         kk = min(ksub, m)
         books, codes = [], []
@@ -634,7 +633,7 @@ def ivf_pq_build(X, params: IVFPQParams, metric: DistanceType = D.L2Expanded,
             codes.append(res.labels)
         del resid
     timer.done("codebooks")
-    with record_function("ivf_pq_build.host_packing"):
+    with tracing.annotate("ivf_pq_build.host_packing"):
         slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
                                                                    params.nlist)
         rows, slot_codes = _slot_gather(torch.stack(codes, dim=1), slot_rows)
@@ -663,7 +662,7 @@ def _pq_tables(q, centroids, codebooks, probes):
 def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, q, k, nprobe,
                         metric, select_impl=None):
     nq = q.shape[0]
-    with record_function("ivf_pq_search.tables"):
+    with tracing.annotate("ivf_pq_search.tables"):
         _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, centroids.shape[0]),
                              select_min=True, impl=select_impl, device=q.device)
         lut_all = _pq_tables(q, centroids, codebooks, probes)
@@ -714,7 +713,7 @@ def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = No
     out = _ivf_pq_search_impl(*arrays, q, k * ratio if refine else k, nprobe, metric,
                               select_impl)
     if refine:
-        with record_function("ivf_pq_search.refine"):
+        with tracing.annotate("ivf_pq_search.refine"):
             out = _refine_impl(as_tensor(index.vectors, dev), q, out[1], k,
                                metric in _SQRT_METRICS, select_impl)
     if delta is not None:
@@ -739,7 +738,7 @@ def ivf_sq_build(X, params: IVFSQParams, metric: DistanceType = D.L2Expanded,
     expects(X.ndim == 2, "ivf_sq_build: 2-D vectors required")
     expects(params.nlist <= X.shape[0], "ivf_sq_build: nlist > n_vectors")
     centroids, labels = _coarse_assign(X, params.nlist, seed, train_rows)
-    with record_function("ivf_sq_build.quantize"):
+    with tracing.annotate("ivf_sq_build.quantize"):
         resid = X - centroids[labels.long()] if params.encode_residual else X
         lo, hi = resid.min(dim=0).values, resid.max(dim=0).values
         if params.qtype == "QT_8bit_uniform":
@@ -748,7 +747,7 @@ def ivf_sq_build(X, params: IVFSQParams, metric: DistanceType = D.L2Expanded,
         scale = torch.where(scale == 0, 1.0, scale)
         codes = torch.clamp(torch.round((resid - lo) / scale), 0, 255).to(torch.uint8)
         del resid
-    with record_function("ivf_sq_build.host_packing"):
+    with tracing.annotate("ivf_sq_build.host_packing"):
         slot_rows, slot_cent, cent_slots, _, counts = _build_slots(labels.cpu().numpy(),
                                                                    params.nlist)
         rows, slot_q = _slot_gather(codes, slot_rows)

@@ -39,9 +39,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from raft_tpu_torch.core import precision
+from raft_tpu_torch.core import precision, tracing
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
@@ -145,9 +144,9 @@ def kmeans(X, k: int, tol: float = 1e-4, max_iter: int = 300,
     expects(n_init >= 1, "kmeans: n_init must be >= 1, got %d", n_init)
     best = None
     for t in range(n_init):
-        with record_function("kmeans.init_plus_plus"):
+        with tracing.annotate("kmeans.init_plus_plus"):
             C0 = init_plus_plus(X, k, restart_generator(seed, t))
-        with record_function("kmeans.lloyd"):
+        with tracing.annotate("kmeans.lloyd"):
             run = KmeansResult(*_lloyd(X, C0, tol, max_iter))
         r = float(run.residual)
         br = math.inf if best is None else float(best.residual)

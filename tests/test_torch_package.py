@@ -356,7 +356,7 @@ def test_first_load_builds_and_loads_once(monkeypatch, tmp_path):
     calls = {"build": 0, "cdll": 0}
     entered = threading.Barrier(2)
 
-    def fake_build(names):
+    def fake_build(names, phases=False):
         calls["build"] += 1
         _build._stats["builds"] += 1
         threading.Event().wait(0.2)     # a slow nvcc widens the race
