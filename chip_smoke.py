@@ -9,7 +9,9 @@ paths through the public entry points with ``device="cuda"``:
 
 - exact brute-force kNN, 1M x 128 float32, 1024 queries, k=100
   (``brute_force_knn``), in one partition and in four, and the L1 path
-  (pairwise K5 + select K2) at 100k x 128;
+  (pairwise K5 + select K2) at 100k x 128; K1 also at the benchmark's
+  batch of 10,000 queries, k 100 and 10, against its plain version, with
+  K2's merge of its index splits bit for bit and K6 beside it;
 - the two-phase fused kNN (``fused_knn_twophase``, K6 then K2) on the
   same index and queries at ``block_n`` 2048, held against K1's result;
 - the kNN's reduced-precision and approximate modes on the same data
@@ -316,6 +318,7 @@ SEED = 0
 N_INDEX, N_QUERIES, DIM, K = 1_000_000, 1024, 128, 100
 N_L1 = 100_000
 N_CHECK = 128              # main-path queries held against the plain version
+N_BATCH = 10_000           # queries a call of the benchmark's brute-force cells (k 100 and 10)
 # IVF-Flat: bench.py serve_ann_1m (nlist 1024, train_rows 131,072), the
 # nprobe of its _bench_ivf, and the Gaussian mixture of its make_blobs
 # (256 blobs, spread 0.35)
@@ -3422,8 +3425,9 @@ def main():
     from raft_tpu_torch.ops import _build, cost, ivf_tile
     from raft_tpu_torch.ops.ivf_tile import (fused_ivf_scan, fused_ivf_scan_plain, item_queries,
                                              ivf_items, ivf_items_plain, scan_work_list)
-    from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
-                                             knn_twophase_plain, twophase_geometry,
+    from raft_tpu_torch.ops.knn_tile import (block_q, fused_knn_tile, fused_knn_twophase,
+                                             knn_tile_plain, knn_twophase_plain, prepare_operands,
+                                             split_partials, split_rows, twophase_geometry,
                                              twophase_tiles, twophase_tiles_plain)
     from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
     from raft_tpu_torch.ops.pairwise_tile import (METRICS, pairwise_tile,
@@ -4757,6 +4761,40 @@ def main():
                              lambda: knn_tile_plain(index, queries, K, "default"), knn_ops,
                              knn_bytes, bf16_l2_topk, errs_bf16["knn_tile"],
                              "torch.mm(out_dtype=float32) of bfloat16 operands + torch.topk"))
+
+    # K1 at the benchmark's batch (N_BATCH queries, k 100 and 10), where
+    # the index splits fill whole waves: every query against the plain
+    # version, and K2's merge of the splits bit for bit on K1's own
+    # partials; K6 at the same queries against K1
+    q_batch = randn(N_BATCH, DIM)
+    batch_atol = l2_atol(q_batch, index)
+    batch = {}
+    for k in (K, 10):
+        got = fused_knn_tile(index, q_batch, k)
+        torch.cuda.synchronize()
+        err = check_knn("knn_tile 1M nq=%d k=%d" % (N_BATCH, k), *got,
+                        *knn_tile_plain(index, q_batch, k), batch_atol)
+        errs["knn_tile"] = max(errs["knn_tile"], err)
+        split = split_rows(N_BATCH, N_INDEX, n_sms, block_q(DIM), k)
+        part_d, _ = split_partials(*prepare_operands(index, q_batch), k, split)
+        check_select("K1 splits", part_d, k)
+        batch["k%d" % k] = {"splits": -(-N_INDEX // split), "merge_w": part_d.shape[1],
+                            "max_abs_err": err, "ms": time_ms(lambda: fused_knn_tile(
+                                index, q_batch, k), reps=5)}
+        del got, part_d
+        print("check knn_tile 1M nq=%d k=%d: %s (atol %.3g), K2's merge exact"
+              % (N_BATCH, k, json.dumps(batch["k%d" % k]), batch_atol), flush=True)
+    tp = fused_knn_twophase(index, q_batch, K, block_n=TWOPHASE_BLOCK_N)
+    torch.cuda.synchronize()
+    batch["knn_twophase_k%d" % K] = {
+        "block_n": TWOPHASE_BLOCK_N,
+        "max_abs_err_vs_k1": check_knn("knn_twophase 1M nq=%d vs K1" % N_BATCH, *tp,
+                                       *fused_knn_tile(index, q_batch, K), batch_atol),
+        "ms": time_ms(lambda: fused_knn_twophase(index, q_batch, K, block_n=TWOPHASE_BLOCK_N),
+                      reps=3)}
+    del tp, q_batch
+    rows[-1]["batch_%d" % N_BATCH] = batch
+    print("knn_tile at nq=%d: %s" % (N_BATCH, json.dumps(batch)), flush=True)
 
     keys = pairwise_tile(queries, index_l1, D.L1)
     got, ref = select_tile(keys, K), select_tile_plain(keys, K)

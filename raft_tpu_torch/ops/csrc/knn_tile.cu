@@ -18,14 +18,19 @@
 //     the wgmmas on index tiles that a producer warp brings in by TMA
 //     copies, and sixteen warps of their own fold the distance tiles into
 //     the running top-k (warp_select.cuh).
-//   * One block per SM (some 220 KB of shared memory each); 1024 queries
-//     are 16 query tiles, so the index is also split across blocks
-//     (grid.y, rows_per_split from ops/knn_tile.py:split_rows, 8 splits
-//     at 1M on 132 SMs, from the query tile that knn_block_q below
-//     reports).  Each split writes its own top-k and
-//     select_tile.cu (K2) merges the partials: the twophase pattern of
-//     raft_tpu/ops/knn_tile.py:474, which keeps this kernel free of any
-//     state shared between blocks.
+//   * One block per SM (some 220 KB of shared memory each), so the grid
+//     runs in waves of 132 blocks; the index is also split across blocks
+//     (grid.y, rows_per_split from ops/knn_tile.py:split_rows), as many
+//     splits as give the grid the least predicted time in whole waves
+//     beside the query tiles (from the query tile that knn_block_q below
+//     reports): 8 splits at 1M with 1024 queries, 16 query tiles in one
+//     wave; 5 with 10,000 queries, 157 query tiles in six waves 99% full.
+//     Each
+//     split writes its own top-k and select_tile.cu (K2) merges the
+//     partials: the twophase pattern of raft_tpu/ops/knn_tile.py:474,
+//     which keeps this kernel free of any state shared between blocks.
+//     grid.x, the query tiles, runs fastest, so the blocks resident at
+//     once read one or two splits of the index, which L2 keeps.
 //
 // The norms qn and xn come from the wrapper, as pad_with_norms computes
 // them outside the Pallas call.

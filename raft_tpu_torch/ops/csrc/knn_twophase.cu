@@ -24,49 +24,29 @@
 // tensor cores, with the JAX tiles as its parts: a block owns a query tile
 // and a run of whole JAX tiles, writes each tile's sorted top-128 to the
 // part buffers when its last 64-row sub-tile has passed, and starts the
-// next tile with cold buffers.  The grid is sized to the card (one block
-// per SM: 16 query tiles x 8 runs of 62 tiles at the 1M, bn = 2048 shape),
-// not one block per JAX tile, so that a block's pipeline fills once.
+// next tile with cold buffers.  The runs are sized to the card by the
+// wrapper (ops/knn_tile.py:index_blocks, the grid of least predicted time
+// in whole waves: 16 query tiles x 8 runs of 62 tiles at the 1M, bn = 2048
+// shape), not one block per JAX tile, so that a block's pipeline fills
+// once.  How the tiles are grouped into runs changes no answer: each
+// tile's top-128 is written to its own place.
 #include "knn_tile.cuh"
-
-namespace raft_tpu_torch {
-namespace {
-
-constexpr int kBlocksPerSm = 1;
-
-// Blocks along the index for `units` tiles when `q_tiles` query tiles
-// share `sms` SMs: (tiles per block, blocks).  ops/knn_tile.py:index_blocks
-// mirrors it.
-void index_blocks(int q_tiles, int units, int sms, int* per_block, int* blocks) {
-  int want = kBlocksPerSm * sms / q_tiles;
-  want = want < 1 ? 1 : want > units ? units : want;
-  *per_block = (units + want - 1) / want;
-  *blocks = (units + *per_block - 1) / *per_block;
-}
-
-}  // namespace
-}  // namespace raft_tpu_torch
 
 // Q (nq, d), X (n, d), qn (nq,), xn (n,): float32, row-major, contiguous,
 // 16-byte aligned, d a multiple of 8.  out_d / out_i: (nq, n_tiles, 128),
-// n_tiles = ceil(n / bn), bn a multiple of 64.  bf16: 0 for 3xTF32
-// products, 1 for products of the operands rounded to bfloat16 (the JAX
-// precision="default", knn_tile.cuh).  Returns cudaGetLastError().
+// n_tiles = ceil(n / bn), bn a multiple of 64; a block takes per_block
+// tiles of a query tile.  bf16: 0 for 3xTF32 products, 1 for products of
+// the operands rounded to bfloat16 (the JAX precision="default",
+// knn_tile.cuh).  Returns cudaGetLastError().
 extern "C" int knn_twophase_launch(const void* Q, const void* X, const void* qn,
-                                   const void* xn, int nq, int n, int d, int bn, int bf16,
-                                   void* out_d, void* out_i,
+                                   const void* xn, int nq, int n, int d, int bn, int per_block,
+                                   int bf16, void* out_d, void* out_i,
                                    void* stream RAFT_TPU_PHASES_PARAM) {
   using namespace raft_tpu_torch;
   constexpr int kPad = 128;  // the JAX kpad: every tile keeps 128
-  const int n_q = block_q(d);
-  if (bn < kBN || n < 1 || nq < 1) return (int)cudaErrorInvalidValue;
-  int dev, sms;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  if (bn < kBN || n < 1 || nq < 1 || per_block < 1) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + bn - 1) / bn;
-  int per_block, blocks;
-  index_blocks((nq + n_q - 1) / n_q, n_tiles, sms, &per_block, &blocks);
+  const int blocks = (n_tiles + per_block - 1) / per_block;
   KnnArgs a{(const float*)Q, (const float*)X, (const float*)qn, (const float*)xn,
             nq, n, d, kPad, bn, per_block, n_tiles, (float*)out_d, (int*)out_i, {}};
   RAFT_TPU_SET_PHASES(a);

@@ -16,9 +16,11 @@ in float32 (:func:`raft_tpu_torch.core.precision.matmul_bf16`, which the
 plain versions take).  The norms stay float32 either way.
 
 The kernel splits the index across blocks as well as the queries, so
-that a thousand queries fill the card; each split writes its own top-k
-and the select kernel (:mod:`raft_tpu_torch.ops.select_tile`) merges the
-partials.  Because the partials are laid out split by split, a tie on
+that the grid fills whole waves of blocks on the card (:func:`index_blocks`:
+a thousand queries take 8 splits of a million rows, ten thousand take 5);
+each split writes its own top-k and the select kernel
+(:mod:`raft_tpu_torch.ops.select_tile`) merges the partials.  Because
+the partials are laid out split by split, a tie on
 distance between splits resolves to the smaller split, which holds the
 smaller ids: the merged result is the same as one pass.  The norms are
 computed here with torch ops, as ``pad_with_norms`` computes them
@@ -71,6 +73,25 @@ BLOCK_Q = 64       # queries per block at the main path's depth, 128 (knn_block_
 BLOCK_N = 64       # index rows per tile: wgmma's M (csrc/knn_tile.cuh kBN)
 BLOCKS_PER_SM = 1  # blocks resident on an SM (some 220 KB of shared memory each)
 DEPTH_UNIT = 8     # the kernels take a depth that is a multiple of wgmma's k8
+# The grid's cost model (grid_time), fitted by least squares to K1 alone
+# at 10,000 x 1M x 128 over 1 to 8 and 16 index splits
+# (tools/torch_knn_sweep.py --splits; H100 80GB HBM3 at 700 W): a block's
+# seconds a BLOCK_N-row tile of the index, and once besides (its start,
+# the selection's cold top-k, its end), which grows with k: 6.8e-5 at
+# k 10 and 4.9e-4 at k 100, taken as linear in k between the two; and
+# K2's merge with the gather of the ids, a column of a query (64 merges
+# of 2 to 16 splits, 1,024 to 10,000 queries)
+TILE_S = 1.96e-6
+BLOCK_S = 2.11e-5
+BLOCK_K_S = 4.69e-6
+MERGE_COLUMN_S = 2.8e-11
+# the most blocks along the index, beyond one wave's worth beside the query
+# tiles: K2 merges up to MAX_SPLITS * k columns a query in one block
+MAX_SPLITS = 8
+# K1's and K6's counters of the blocks launched and of the block slots of
+# the waves they take: the grid fills blocks / wave slots of the card
+WAVE_COUNTERS = ("knn_tile.blocks", "knn_tile.wave_slots")
+TWOPHASE_WAVE_COUNTERS = ("knn_twophase.blocks", "knn_twophase.wave_slots")
 
 # index rows per tile of the plain version
 _PLAIN_TILE = 8192
@@ -121,22 +142,65 @@ def knn_tile_plain(index: torch.Tensor, queries: torch.Tensor, k: int,
     return best_d.contiguous(), best_i.to(torch.int32)
 
 
-def index_blocks(q_tiles: int, units: int, n_sms: int) -> Tuple[int, int]:
-    """``(units per block, blocks)`` along the index: ``units`` whole
-    tiles shared by as many blocks as fit beside ``q_tiles`` query tiles
-    in one wave of ``BLOCKS_PER_SM`` blocks on ``n_sms`` SMs (at least
-    one).  ``csrc/knn_twophase.cu:index_blocks`` mirrors it."""
-    want = min(units, max(1, BLOCKS_PER_SM * n_sms // q_tiles))
+def block_seconds(k: int) -> float:
+    """A block's predicted seconds besides its index tiles, at top-``k``."""
+    return BLOCK_S + k * BLOCK_K_S
+
+
+def grid_time(q_tiles: int, units: int, want: int, slots: int, k: int, unit_tiles: int = 1,
+              merge_s: float = 0.0) -> Tuple[float, int, int]:
+    """``(predicted seconds, units per block, blocks)`` along the index
+    when ``units`` runs of ``unit_tiles`` whole ``BLOCK_N`` tiles are
+    shared by ``want`` blocks beside ``q_tiles`` query tiles: whole waves
+    of ``slots`` blocks on the card, each block ``TILE_S`` a tile and
+    :func:`block_seconds` of ``k`` besides, and ``merge_s`` a block along
+    the index to merge their partials where there are two or more."""
     per = ceildiv(units, want)
-    return per, ceildiv(units, per)
+    blocks = ceildiv(units, per)
+    waves = ceildiv(q_tiles * blocks, slots)
+    seconds = waves * (per * unit_tiles * TILE_S + block_seconds(k))
+    return seconds + (blocks * merge_s if blocks > 1 else 0.0), per, blocks
 
 
-def split_rows(nq: int, n: int, n_sms: int, n_q: int = BLOCK_Q) -> int:
+def index_blocks(q_tiles: int, units: int, n_sms: int, k: int, unit_tiles: int = 1,
+                 merge_s: float = 0.0) -> Tuple[int, int]:
+    """``(units per block, blocks)`` along the index: of the ways to share
+    ``units`` among blocks of top-``k`` (:func:`grid_time`, in waves of
+    ``BLOCKS_PER_SM`` blocks on each of ``n_sms`` SMs), the one of least
+    predicted time, the fewer blocks on a tie.  Up to one wave's worth of
+    blocks beside the query tiles is tried, or ``MAX_SPLITS`` where that
+    is more, so that a call of many queries fills whole waves and one of
+    a few queries spreads the index over the card."""
+    return _best_grid(q_tiles, units, BLOCKS_PER_SM * n_sms, k, unit_tiles, merge_s)
+
+
+@functools.lru_cache(maxsize=1024)
+def _best_grid(q_tiles, units, slots, k, unit_tiles, merge_s):
+    cap = min(units, max(MAX_SPLITS, slots // q_tiles))
+    _, per, blocks = min((grid_time(q_tiles, units, s, slots, k, unit_tiles, merge_s)
+                          for s in range(1, cap + 1)), key=lambda t: t[0])
+    return per, blocks
+
+
+def split_rows(nq: int, n: int, n_sms: int, n_q: int = BLOCK_Q, k: int = MAX_K) -> int:
     """K1's index rows per split, a whole number of ``BLOCK_N`` tiles:
-    the index shared by as many splits as fill the card beside the
-    ``ceil(nq / n_q)`` query tiles."""
-    per, _ = index_blocks(ceildiv(nq, n_q), ceildiv(n, BLOCK_N), n_sms)
+    :func:`index_blocks` over the ``ceil(nq / n_q)`` query tiles, each
+    split past the first costing K2 the merge of k columns a query."""
+    per, _ = index_blocks(ceildiv(nq, n_q), ceildiv(n, BLOCK_N), n_sms, k,
+                          merge_s=nq * k * MERGE_COLUMN_S)
     return per * BLOCK_N
+
+
+def count_waves(names: Tuple[str, str], blocks: int, n_sms: int) -> None:
+    """Add a launch's ``blocks`` and the slots of the whole waves they
+    take to the counters ``names``."""
+    slots = BLOCKS_PER_SM * n_sms
+    tracing.counter_inc(names[0], blocks)
+    tracing.counter_inc(names[1], ceildiv(blocks, slots) * slots)
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def prepare_operands(index: torch.Tensor, queries: torch.Tensor
@@ -190,16 +254,33 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
             "fused_knn_tile: index and queries on different devices")
     if index.device.type == "cpu":
         return knn_tile_plain(index, queries, k, precision)
-    fn = _entry()
+    _entry()    # the kernel's library, built or loaded before any work on the device
     dev = index.device
     if nq == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
     expects(d > 0, "fused_knn_tile: zero depth")
     index, queries, qn, xn = prepare_operands(index, queries)
-    dp = index.shape[1]
-    rows = split_rows(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count,
-                      block_q(dp))
+    rows = split_rows(nq, n, _sms(dev), block_q(index.shape[1]), k)
+    part_d, part_i = split_partials(index, queries, qn, xn, k, rows, precision)
+    inventory.count_launch("knn_tile", (nq, n, index.shape[1], k, precision), lambda: (
+        *cost.knn_cost(nq, n, d, k),
+        inventory.footprint((queries, index, qn, xn), (part_d, part_i),
+                            smem_bytes(index.shape[1], k))))
+    if part_d.shape[1] == k:
+        return part_d, part_i
+    out_d, pos = select_tile(part_d, k)
+    return out_d, torch.gather(part_i, 1, pos.long())
+
+
+def split_partials(index: torch.Tensor, queries: torch.Tensor, qn: torch.Tensor,
+                   xn: torch.Tensor, k: int, rows: int, precision: str = "highest"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K1 on operands as :func:`prepare_operands` gives
+    them, ``rows`` index rows a split (a multiple of ``BLOCK_N``): each
+    split's top-k, (nq, splits * k) float32 and int32, split by split."""
+    n, dp = index.shape
+    nq, dev = queries.shape[0], index.device
     splits = ceildiv(n, rows)
     part_d = torch.empty((nq, splits * k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, splits * k), dtype=torch.int32, device=dev)
@@ -208,16 +289,11 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
         args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n, dp,
                 k, rows, int(precision == "default"), part_d.data_ptr(), part_i.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
-        code = fn(*args) if timed is None else timed.run(_entry(phases=True), *args)
+        code = _entry()(*args) if timed is None else timed.run(_entry(phases=True), *args)
     _build.check(code, "fused_knn_tile")
     fused_knn_tile.launches += 1
-    inventory.count_launch("knn_tile", (nq, n, dp, k, precision), lambda: (
-        *cost.knn_cost(nq, n, d, k),
-        inventory.footprint((queries, index, qn, xn), (part_d, part_i), smem_bytes(dp, k))))
-    if splits == 1:
-        return part_d, part_i
-    out_d, pos = select_tile(part_d, k)
-    return out_d, torch.gather(part_i, 1, pos.long())
+    count_waves(WAVE_COUNTERS, ceildiv(nq, block_q(dp)) * splits, _sms(dev))
+    return part_d, part_i
 
 
 fused_knn_tile.launches = 0
@@ -317,14 +393,18 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor, bn: int,
         return part_d, part_i
     expects(d > 0, "twophase_tiles: zero depth")
     index, queries, qn, xn = prepare_operands(index, queries)
+    q_tiles, sms = ceildiv(nq, block_q(index.shape[1])), _sms(dev)
+    per, blocks = index_blocks(q_tiles, ceildiv(n, bn), sms, TWOPHASE_PAD,
+                               bn // BLOCK_N)
     timed = tracing.phase_launch(dev)
     with torch.cuda.device(dev):
         args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n,
-                index.shape[1], bn, int(precision == "default"), part_d.data_ptr(),
+                index.shape[1], bn, per, int(precision == "default"), part_d.data_ptr(),
                 part_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
         code = fn(*args) if timed is None else timed.run(_twophase_entry(phases=True), *args)
     _build.check(code, "twophase_tiles")
     twophase_tiles.launches += 1
+    count_waves(TWOPHASE_WAVE_COUNTERS, q_tiles * blocks, sms)
     inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn, precision), lambda: (
         *cost.knn_cost(nq, n, d, width),
         inventory.footprint((queries, index, qn, xn), (part_d, part_i),
@@ -403,5 +483,5 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
 
 def _twophase_entry(phases: bool = False):
     return _build.entry("knn_twophase", "knn_twophase_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
                         ctypes.c_int, phases)

@@ -81,16 +81,96 @@ def test_wrapper_limits():
         fused_knn_tile(xt.double(), qt.double(), 5)
 
 
+def _rule(nq, n, n_q=knn_tile.BLOCK_Q, sms=132, k=100):
+    """The split rule's contract at one shape; returns (splits, the share
+    of the waves' block slots the grid fills)."""
+    rows = split_rows(nq, n, sms, n_q, k)
+    splits = -(-n // rows)
+    # whole BLOCK_N tiles, covering the index, no split left empty
+    assert rows % knn_tile.BLOCK_N == 0 and (splits - 1) * rows < n <= splits * rows
+    q_tiles, units = -(-nq // n_q), -(-n // knn_tile.BLOCK_N)
+    slots = knn_tile.BLOCKS_PER_SM * sms
+    assert splits <= max(knn_tile.MAX_SPLITS, slots // q_tiles)
+    # no worse, as predicted, than one split
+    merge = nq * k * knn_tile.MERGE_COLUMN_S
+    predicted = knn_tile.grid_time(q_tiles, units, splits, slots, k, merge_s=merge)
+    assert predicted[1:] == (-(-units // splits), splits)
+    assert predicted[0] <= knn_tile.grid_time(q_tiles, units, 1, slots, k, merge_s=merge)[0]
+    blocks = q_tiles * splits
+    return splits, blocks / (-(-blocks // slots) * slots)
+
+
+def _spare(nq, n, n_q, sms, k=100):
+    # the index has tiles to spare: at the most splits the rule tries,
+    # each split still holds four times a block's fixed cost in tiles
+    cap = max(knn_tile.MAX_SPLITS, knn_tile.BLOCKS_PER_SM * sms // -(-nq // n_q))
+    return -(-n // knn_tile.BLOCK_N) >= 4 * cap * knn_tile.block_seconds(k) / knn_tile.TILE_S
+
+
 @pytest.mark.parametrize("nq,n", [(1024, 1_000_000), (5, 1000), (64, 128), (10_000, 10**6)])
 def test_split_rows_cover_the_index(nq, n):
-    rows = split_rows(nq, n, n_sms=132)
-    assert rows % knn_tile.BLOCK_N == 0
-    splits = -(-n // rows)
-    assert (splits - 1) * rows < n <= splits * rows
-    q_tiles = -(-nq // knn_tile.BLOCK_Q)
-    # the split fills the card unless the index runs out of tiles first
-    assert q_tiles * splits >= min(knn_tile.BLOCKS_PER_SM * 132,
-                                   q_tiles * -(-n // knn_tile.BLOCK_N)) * 0.5
+    splits, fill = _rule(nq, n)
+    if nq == 1024:
+        assert splits == 8                      # 16 query tiles x 8: one wave
+    elif nq == 10_000:
+        assert splits > 1 and fill >= 0.95      # whole waves, where one split filled 59.5%
+    else:                                       # one query tile over every tile there is
+        assert splits == -(-n // knn_tile.BLOCK_N)
+
+
+@pytest.mark.parametrize("k", [100, 10])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n_q", [64, 32, 16])
+@pytest.mark.parametrize("n", [128, 5000, 250_000, 1_000_000])
+@pytest.mark.parametrize("nq", [1, 5, 64, 1024, 5000, 8448, 10_000, 20_000])
+def test_split_rule(nq, n, n_q, sms, k):
+    _, fill = _rule(nq, n, n_q, sms, k)
+    if _spare(nq, n, n_q, sms, k):
+        assert fill >= 0.9
+
+
+@pytest.mark.parametrize("k,want", [(10, 5), (100, 4)])
+def test_split_count_follows_k(k, want):
+    # a 250,000-row shard of the sharded search at 10,000 queries: a
+    # block's fixed cost grows with k, so k 10 takes 5 splits (9.63 ms on
+    # the card against 10.02 at 4) and k 100 takes 4 (12.05 against 12.12)
+    splits, _ = _rule(10_000, 250_000, k=k)
+    assert splits == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("nq", [1, 8, 64])
+def test_one_query_tile_spreads_the_index_over_the_card(nq, sms):
+    # the services' batches: one block on every SM
+    splits, fill = _rule(nq, 1_000_000, sms=sms)
+    assert splits == sms and fill == 1.0
+
+
+def test_counters_count_a_launch_blocks_and_wave_slots(monkeypatch):
+    # K1 at 10,000 x 1M on 132 SMs, the launch mocked: the counters advance
+    # by the grid's blocks and the slots of the waves they take
+    import contextlib
+    import types
+
+    from raft_tpu_torch.core import tracing
+    launched = []
+    monkeypatch.setattr(knn_tile, "_entry", lambda phases=False: lambda *a: launched.append(a) or 0)
+    monkeypatch.setattr(knn_tile, "block_q", lambda d: 64)
+    monkeypatch.setattr(knn_tile, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros(1, 128).expand(1_000_000, 128)     # shapes only: no launch reads them
+    q = torch.zeros(1, 128).expand(10_000, 128)
+    rows = split_rows(10_000, 1_000_000, 132, 64, 100)
+    before = [tracing.get_counter(c) for c in knn_tile.WAVE_COUNTERS]
+    part_d, _ = knn_tile.split_partials(x, q, q[:, 0], x[:, 0], 100, rows)
+    after = [tracing.get_counter(c) for c in knn_tile.WAVE_COUNTERS]
+    splits = -(-1_000_000 // rows)
+    assert part_d.shape == (10_000, splits * 100) and launched[0][8] == rows
+    blocks = 157 * splits
+    assert [a - b for a, b in zip(after, before)] == [blocks, -(-blocks // 132) * 132]
+    knn_tile.count_waves(knn_tile.TWOPHASE_WAVE_COUNTERS, 200, 132)
+    assert [tracing.get_counter(c) for c in knn_tile.WAVE_COUNTERS] == after
 
 
 def _misaligned(n, d, seed):
@@ -151,9 +231,10 @@ def test_prepared_operands_leave_the_plain_result(name):
 
 
 def test_grid_constants_match_the_kernel_source():
-    # the wrapper sizes K1's splits, and the kernels their grids, from the
-    # same tile rows and blocks per SM (csrc/knn_tile.cuh,
-    # csrc/knn_twophase.cu); the query tile comes from the kernel itself
+    # the wrapper sizes K1's splits and K6's runs of tiles, from the tile
+    # rows and the blocks an SM of the kernel (csrc/knn_tile.cuh); K6's
+    # launcher takes its runs from the wrapper and keeps no rule of its
+    # own; the query tile comes from the kernel itself
     csrc = Path(knn_tile.__file__).parent / "csrc"
 
     def const(name, src):
@@ -161,17 +242,23 @@ def test_grid_constants_match_the_kernel_source():
                              (csrc / src).read_text()).group(1))
 
     assert const("kBN", "knn_tile.cuh") == knn_tile.BLOCK_N
-    assert const("kBlocksPerSm", "knn_twophase.cu") == knn_tile.BLOCKS_PER_SM
+    bounds = re.search(r"__launch_bounds__\(kThreads, (\d+)\)\s*knn_tile_kernel",
+                       (csrc / "knn_tile.cuh").read_text())
+    assert int(bounds.group(1)) == knn_tile.BLOCKS_PER_SM
+    twophase = (csrc / "knn_twophase.cu").read_text()
+    assert "int per_block," in twophase
+    assert not re.search(r"^[^/]*\bindex_blocks\(", twophase, re.M)
 
 
 @pytest.mark.parametrize("nq,n,n_q", [(1024, 1_000_000, 32), (7, 5000, 16)])
 def test_split_rows_at_other_depths(nq, n, n_q):
     # the query tiles of 32 (depths 136 to 512, and past 1216 in slabs)
     # and 16 (depths 520 to 1216)
-    rows = split_rows(nq, n, 132, n_q)
-    splits = -(-n // rows)
-    assert rows % knn_tile.BLOCK_N == 0 and (splits - 1) * rows < n <= splits * rows
-    assert -(-nq // n_q) * splits <= max(132, -(-nq // n_q))   # one wave
+    splits, fill = _rule(nq, n, n_q)
+    if nq == 1024:
+        assert splits == 4 and fill >= 0.95     # 32 query tiles x 4: one wave
+    else:
+        assert splits == -(-n // knn_tile.BLOCK_N)
 
 
 def test_kernel_route_takes_any_depth():

@@ -15,7 +15,7 @@ from raft_tpu.ops.knn_tile import fused_knn_twophase as jax_twophase
 from raft_tpu.ops.knn_tile import tile_geometry
 from raft_tpu_torch import LogicError
 from raft_tpu_torch.spatial.select_k import select_k
-from raft_tpu_torch.ops.knn_tile import (BLOCK_N_LADDER, TWOPHASE_PAD, fused_knn_twophase,
+from raft_tpu_torch.ops.knn_tile import (BLOCK_N, BLOCK_N_LADDER, TWOPHASE_PAD, fused_knn_twophase,
                                          index_blocks, knn_tile_plain, knn_twophase_plain,
                                          twophase_geometry, twophase_tiles)
 
@@ -140,18 +140,30 @@ def test_unported_merge_is_named():
 
 @pytest.mark.parametrize("block_n", BLOCK_N_LADDER)
 def test_block_ranges_cover_the_jax_tiles(block_n):
-    # K6's grid along the index (index_blocks, as csrc/knn_twophase.cu
-    # sizes it over the JAX tiles): each block owns a run of whole JAX
-    # tiles, the runs cover every tile of twophase_geometry once, and the
-    # grid is one wave of blocks on 132 SMs unless the query tiles alone
-    # exceed it; query tiles of 64, 32 and 16 (depths 128, 300, 2000)
+    # K6's grid along the index (index_blocks over the JAX tiles, as
+    # twophase_tiles hands it to csrc/knn_twophase.cu): each block owns a
+    # run of whole JAX tiles, the runs cover every tile of
+    # twophase_geometry once, and at these few query tiles the grid is
+    # one wave of blocks on 132 SMs; query tiles of 64, 32 and 16 (depths
+    # 128, 300, 2000)
     for n, nq, n_q in [(1_000_000, 1024, 64), (5000, 5, 64), (300, 64, 32), (70_001, 3, 16)]:
         bn, n_tiles = twophase_geometry(n, block_n)
         q_tiles = -(-nq // n_q)
-        per, blocks = index_blocks(q_tiles, n_tiles, 132)
+        per, blocks = index_blocks(q_tiles, n_tiles, 132, TWOPHASE_PAD, bn // BLOCK_N)
         runs = [range(b * per, min((b + 1) * per, n_tiles)) for b in range(blocks)]
         assert all(len(r) > 0 for r in runs)
         assert [t for r in runs for t in r] == list(range(n_tiles))
         assert q_tiles * blocks <= max(132, q_tiles)
         # a block's rows are whole tiles: its range starts on a tile edge
         assert all(r.start * bn < n for r in runs)
+
+
+@pytest.mark.parametrize("block_n", BLOCK_N_LADDER)
+def test_runs_fill_whole_waves_at_ten_thousand_queries(block_n):
+    # 157 query tiles at 10,000 queries: the runs of tiles make whole waves
+    # on 132 SMs, where one run a query tile filled 59.5% of two
+    bn, n_tiles = twophase_geometry(1_000_000, block_n)
+    per, blocks = index_blocks(157, n_tiles, 132, TWOPHASE_PAD, bn // BLOCK_N)
+    assert blocks == -(-n_tiles // per) and (blocks - 1) * per < n_tiles <= blocks * per
+    waves = -(-157 * blocks // 132)
+    assert 157 * blocks / (waves * 132) >= 0.9
