@@ -1,0 +1,10 @@
+"""pq.tables_pct: device time of the operations launched inside the
+``ivf_pq_search.tables`` range (``raft_tpu_torch/spatial/ann.py``:
+building each chunk's ADC lookup tables) as a share of the device's busy
+time in the window.  None where the range ran nothing in the window."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.busy_pct(ctx.trace, "ivf_pq_search.tables")

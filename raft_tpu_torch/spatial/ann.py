@@ -73,7 +73,15 @@ once per probed list, before the scan, with one batched product, and
 each step reads one query's table of the slot's probe by its rank and
 gathers it by the slot's codes, summed over M (the JAX package's
 ``"gather"`` ADC; its one-hot formulation suits the TPU's MXU, not the
-card).  IVF-SQ dequantises the one slot of each query per step.
+card).  The tables of a call are ``nprobe * M * 2 ** n_bits`` floats a
+query (3.3 MB at nprobe 50, M 64, 8 bits), so after one probe of the
+whole call the queries go through in chunks: a chunk's tables, their
+temporaries and its step transients (:func:`pq_query_bytes`) stay under
+:data:`PQ_BUDGET_BYTES`, only one chunk's tables live at a time, and a
+chunk runs as many steps as its own busiest query needs.  The ranges
+``ivf_pq_search.probe``, ``.tables``, ``.scan`` and ``.refine`` and the
+counters :data:`PQ_COUNTERS` trace it.  IVF-SQ dequantises the one slot
+of each query per step.
 
 Results are (distances, int32 ids) best-first, square-rooted for the
 L2Sqrt metrics, with (+inf, -1) where fewer than k rows were scanned.
@@ -97,7 +105,7 @@ import torch
 from raft_tpu_torch.core import native, precision, tracing, tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.utils import StageTimer, round_up_safe
+from raft_tpu_torch.core.utils import StageTimer, ceildiv, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.distance.pairwise import expanded_sq_dists
 from raft_tpu_torch.ops.ivf_tile import MAX_K, fused_ivf_scan
@@ -108,6 +116,13 @@ D = DistanceType
 
 SCAN_IMPLS = tuning.candidates("ivf_scan_impl")
 SQ_QTYPES = ("QT_8bit", "QT_8bit_uniform")
+# device bytes a chunk of an IVF-PQ search may hold besides the index and
+# the call's own probes and answers (pq_query_bytes; PERF.md has the card
+# sweep it was taken from)
+PQ_BUDGET_BYTES = 8 << 30
+# counters of the IVF-PQ search (core.tracing): chunks searched, scan
+# steps launched, bytes of lookup tables built
+PQ_COUNTERS = ("ivf_pq_search.chunks", "ivf_pq_search.steps", "ivf_pq_search.table_bytes")
 
 
 @dataclass
@@ -362,13 +377,22 @@ def _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric, p
     ``pjx`` it belongs to (so that per-probe tables are read, not
     rebuilt); ``probes`` as in :func:`_probe_compact`.  The loop runs as
     many steps as the query with the most valid slots has."""
-    nq = q.shape[0]
     slots, prank, n_live = _probe_compact(q, centroids, cent_slots, nprobe, probes, ranks=True,
                                           select_impl=select_impl)
+    return _scan_steps(q, slots, prank, int(n_live), step_dist, k, metric, select_impl)
+
+
+def _scan_steps(q, slots, prank, n_live, step_dist, k, metric, select_impl=None):
+    """The step loop of :func:`_probe_scan_search` over compacted scan
+    lists (``_probe_compact(..., ranks=True)``): ``n_live`` steps, each
+    merged into the running top-k by ``select_k``.  A query past its own
+    valid slots adds only (+inf, -1), which leave its running top-k as it
+    is."""
+    nq = q.shape[0]
     dt = torch.promote_types(q.dtype, torch.float32)
     run_d = torch.full((nq, k), float("inf"), dtype=dt, device=q.device)
     run_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
-    for j in range(int(n_live)):
+    for j in range(n_live):
         sl = slots[:, j]
         valid = sl >= 0
         dist, ids = step_dist(torch.where(valid, sl, 0).long(), prank[:, j].long())
@@ -659,23 +683,89 @@ def _pq_tables(q, centroids, codebooks, probes):
     return lut.reshape(nq, n_probe, M, ksub)
 
 
+def pq_query_bytes(nprobe: int, M: int, ksub: int, cap: int, kk: int, d: int,
+                   refine: bool) -> int:
+    """The most device bytes one query holds in a chunk of an IVF-PQ search
+    (4 a float32 or int32, 8 an int64), the largest of its three phases:
+
+    - building its tables (:func:`_pq_tables`): the residuals, gathered
+      centroids and squares, ``nprobe * d`` each; the batched product, the
+      norm term, the doubled product and the tables, ``nprobe * M * ksub``
+      each;
+    - a scan step with its tables alive: the table of the slot's probe,
+      the slot's codes as int32 and as int64, the gathered table values,
+      six ``cap``-wide rows (sums, ids, masks, distances), and two
+      generations of the running select over ``kk + cap`` keys (keys and
+      payloads concatenated, the sort's values and int64 positions);
+    - the re-rank (``refine``): the ``kk`` candidates' vectors, their
+      difference and its square, and the candidates' distances and ids.
+    """
+    table = 4 * nprobe * M * ksub
+    build = 4 * table + 3 * 4 * nprobe * d
+    step = (4 * M * ksub + (4 + 8 + 4) * M * cap + 6 * 4 * cap
+            + 2 * (8 + 12) * (kk + cap) + 8 * kk)
+    rerank = 3 * 4 * kk * d + 16 * kk if refine else 0
+    return max(build, table + step, rerank)
+
+
+def _pq_chunk_rows(nq: int, k: int, nprobe: int, per_query: int) -> int:
+    """Queries a chunk of an IVF-PQ search takes: the call's own probes
+    and answers come off :data:`PQ_BUDGET_BYTES`, the rest is shared by
+    the chunk's queries at ``per_query`` bytes each (at least one query),
+    and the call's chunks are as even as they can be."""
+    spare = PQ_BUDGET_BYTES - nq * (4 * nprobe + 8 * k)
+    rows = max(1, spare // per_query)
+    return max(1, ceildiv(nq, max(1, ceildiv(nq, rows))))
+
+
 def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, q, k, nprobe,
-                        metric, select_impl=None):
-    nq = q.shape[0]
-    with tracing.annotate("ivf_pq_search.tables"):
-        _, probes = select_k(expanded_sq_dists(q, centroids), min(nprobe, centroids.shape[0]),
-                             select_min=True, impl=select_impl, device=q.device)
-        lut_all = _pq_tables(q, centroids, codebooks, probes)
-    rows = torch.arange(nq, device=q.device)
+                        metric, refine=None, select_impl=None):
+    """The chunked search (module doc): ``k`` ADC candidates a query, or
+    with ``refine = (vectors, k_out)`` the ``k`` candidates re-ranked
+    exactly to ``k_out``."""
+    nq, d = q.shape
+    M, ksub = codebooks.shape[:2]
+    cap = slot_ids.shape[1]
+    k_out = k if refine is None else refine[1]
+    sqrt = metric in _SQRT_METRICS
+    with tracing.annotate("ivf_pq_search.probe"):
+        _, probes = select_k(expanded_sq_dists(q, centroids), nprobe, select_min=True,
+                             impl=select_impl, device=q.device)
+        live = (cent_slots[probes.long()] >= 0).sum(dim=(1, 2))
+    rows = _pq_chunk_rows(nq, k_out, nprobe,
+                          pq_query_bytes(nprobe, M, ksub, cap, k, d, refine is not None))
+    starts = range(0, nq, rows)
+    # one read of every chunk's step count: the chunks then queue unbroken
+    steps = torch.nn.functional.pad(live, (0, len(starts) * rows - nq)).reshape(
+        len(starts), rows).amax(dim=1).tolist()
+    dt = torch.promote_types(q.dtype, torch.float32)
+    out_d = torch.empty((nq, k_out), dtype=dt, device=q.device)
+    out_i = torch.empty((nq, k_out), dtype=torch.int32, device=q.device)
+    for s, n_live in zip(starts, steps):
+        qc, pc = q[s:s + rows], probes[s:s + rows]
+        with tracing.annotate("ivf_pq_search.tables"):
+            lut_all = _pq_tables(qc, centroids, codebooks, pc)
+        tracing.counter_inc(PQ_COUNTERS[0])
+        tracing.counter_inc(PQ_COUNTERS[1], n_live)
+        tracing.counter_inc(PQ_COUNTERS[2], lut_all.numel() * lut_all.element_size())
+        rowsel = torch.arange(qc.shape[0], device=q.device)
 
-    def step_dist(slx, pjx):
-        lut = lut_all[rows, pjx]                               # (nq, M, ksub)
-        codes = slot_codes[slx]                                # (nq, cap, M)
-        dist = torch.gather(lut, 2, codes.transpose(1, 2).long()).sum(dim=1)
-        return dist, slot_ids[slx]
+        def step_dist(slx, pjx):
+            lut = lut_all[rowsel, pjx]                         # (nq, M, ksub)
+            codes = slot_codes[slx]                            # (nq, cap, M)
+            dist = torch.gather(lut, 2, codes.transpose(1, 2).long()).sum(dim=1)
+            return dist, slot_ids[slx]
 
-    return _probe_scan_search(q, centroids, cent_slots, step_dist, k, nprobe, metric,
-                              probes=probes, select_impl=select_impl)
+        with tracing.annotate("ivf_pq_search.scan"):
+            slots, prank, _ = _probe_compact(qc, centroids, cent_slots, nprobe, pc, ranks=True)
+            dist, ids = _scan_steps(qc, slots, prank, n_live, step_dist, k, metric, select_impl)
+        del lut_all
+        if refine is not None:
+            with tracing.annotate("ivf_pq_search.refine"):
+                dist, ids = _refine_impl(refine[0], qc, ids, k_out, sqrt, select_impl)
+        out_d[s:s + rows] = dist
+        out_i[s:s + rows] = ids
+    return out_d, out_i
 
 
 def _refine_impl(vectors, q, cand_ids, k, sqrt, select_impl=None):
@@ -697,7 +787,9 @@ def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = No
     """ADC search of an IVF-PQ index; where the index holds its vectors and
     ``refine_ratio`` (default: the build's) is > 1, the top ``k *
     refine_ratio`` ADC candidates are re-ranked exactly; ``nprobe``,
-    ``delta``, ``select_impl`` and ``device`` as in :func:`ivf_flat_search`."""
+    ``delta``, ``select_impl`` and ``device`` as in :func:`ivf_flat_search`.
+    The queries go through in chunks under :data:`PQ_BUDGET_BYTES`
+    (module doc); a query's answer is the same whatever its chunk."""
     dev = resolve_device(device)
     q = as_tensor(queries, dev)
     expects(q.ndim == 2 and q.shape[1] == index.centroids.shape[1],
@@ -711,11 +803,8 @@ def ivf_pq_search(index: IVFPQIndex, queries, k: int, nprobe: Optional[int] = No
     arrays = [as_tensor(a, dev) for a in (index.centroids, index.codebooks, index.slot_codes,
                                           index.slot_ids, index.cent_slots)]
     out = _ivf_pq_search_impl(*arrays, q, k * ratio if refine else k, nprobe, metric,
+                              (as_tensor(index.vectors, dev), k) if refine else None,
                               select_impl)
-    if refine:
-        with tracing.annotate("ivf_pq_search.refine"):
-            out = _refine_impl(as_tensor(index.vectors, dev), q, out[1], k,
-                               metric in _SQRT_METRICS, select_impl)
     if delta is not None:
         out = _merge_delta(out, delta, q, k, metric, select_impl)
     return out

@@ -8,7 +8,9 @@ knn.hpp:90).  Dispatch is by legality, never by failure:
   smallest; for the largest the keys are negated going in and coming
   out, as the JAX ``top_k_rows(impl="pallas")`` does.
 - integer or float64 keys and k > 128 take a stable ``torch.sort``, as the JAX
-  package takes ``lax.top_k`` or a sort there.
+  package takes ``lax.top_k`` or a sort there; the sort runs in the trace
+  range ``select_k.sort`` (:data:`SORT_RANGE`) on every path that takes
+  it.
 
 Either way ties resolve to the smaller column, and the result is sorted
 best-first.  On a CPU tensor K2's wrapper takes its plain version.
@@ -45,7 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core import tuning
+from raft_tpu_torch.core import tracing, tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
@@ -58,6 +60,8 @@ _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 # in jaxlib's rule (approx_bins)
 APPROX_RECALL = 0.95
 _LANES = 128
+# the trace range around every stable sort that selects
+SORT_RANGE = "select_k.sort"
 
 
 def _resolve_impl(impl: Optional[str], *, n: int, k: int, dtype) -> str:
@@ -76,7 +80,8 @@ def _exact_min(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if keys.dtype in _KERNEL_DTYPES and k <= MAX_K:
         vals, idx = select_tile(keys, k)
         return vals.to(keys.dtype), idx.long()
-    vals, idx = torch.sort(keys, dim=1, stable=True)
+    with tracing.annotate(SORT_RANGE):
+        vals, idx = torch.sort(keys, dim=1, stable=True)
     return vals[:, :k], idx[:, :k]
 
 
@@ -168,7 +173,8 @@ def _select_cols(keys: torch.Tensor, k: int, select_min: bool,
     if impl == "kernel":
         vals, idx = select_tile(keys if select_min else -keys, k)
         return (vals if select_min else -vals).to(keys.dtype), idx.long()
-    vals, idx = torch.sort(keys, dim=1, descending=not select_min, stable=True)
+    with tracing.annotate(SORT_RANGE):
+        vals, idx = torch.sort(keys, dim=1, descending=not select_min, stable=True)
     return vals[:, :k], idx[:, :k]
 
 

@@ -148,7 +148,7 @@ def test_sources_import_no_jax():
     for path in list((ROOT / "raft_tpu_torch").rglob("*.py")) + [
             ROOT / "chip_smoke.py", ROOT / "tools" / "torch_autotune.py",
             ROOT / "tools" / "torch_loadgen.py", ROOT / "tools" / "torch_trace_report.py",
-            ROOT / "tools" / "torch_metrics_report.py"]:
+            ROOT / "tools" / "torch_metrics_report.py", ROOT / "tools" / "torch_ivfpq_sweep.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
 
