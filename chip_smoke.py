@@ -94,7 +94,12 @@ paths through the public entry points with ``device="cuda"``:
   distances held in float64 to the vectors the returned codes decode to,
   and the decoded vectors' own exact top-10 as the quantizer's ceiling;
   ``ivf_sq_1M``: QT_8bit of the residuals), recall@10 against brute
-  force and the index bytes; their
+  force and the index bytes; K7 (``ops/pq_scan.py``, the ADC scan both
+  searches take) against its plain version at ivf_pq_1M's shape (kk 40
+  and 10, and the served arm's 400) and at
+  the benchmark's ``sift1m_ivfpq`` shape (an M-64 index of the same
+  mixture, 10,000 queries at nprobe 50, kk 200), timed beside its
+  bounds, the plain version and a gather-and-sum yardstick; their
   ``ANNService`` arms under the ``serve_ann_1M`` traffic
   (``serve_ann_pq_1M``, ``serve_ann_sq_1M``: every response bitwise equal
   to its padded batch's search, ``compact()`` raising, each of 2,048
@@ -400,6 +405,20 @@ PQ_M, PQ_BITS, PQ_REFINE, QK = 16, 8, 4, 10
 # the ADC distances against the decoded vectors' own, in float64, of the
 # largest squared distance, on the first PQ_DECODE_ROWS queries
 PQ_DECODE_TOL, PQ_DECODE_ROWS = 1e-4, 256
+# K7 at the benchmark's sift1m_ivfpq shape (10,000 queries, nprobe 50, M 64
+# x 8 bits, k 100 x refine 2 = kk 200) on the path's mixture and nlist, and
+# at ivf_pq_1M's (the 1024 queries, nprobe 32, M 16, kk 40 and 10, and the
+# serve_ann_pq_1M arm's k 100 x refine 4 = kk 400); its
+# plain version runs in chunks of PQ_PLAIN_CHUNK queries (a query's tables
+# are 3.3 MB at the cell's shape), the library yardstick in chunks of
+# PQ_LIBRARY_CHUNK; ids agree as sets but for ADC ties of the kk-th within
+# PQ_TIE_RTOL, distances within PQ_DIST_RTOL of the row's largest; the
+# lookup bound at 32 shared-memory reads a clock an SM at the H100 SXM's
+# boost clock
+PQ_CELL_QUERIES, PQ_CELL_NPROBE, PQ_CELL_M, PQ_CELL_KK = 10_000, 50, 64, 200
+PQ_PLAIN_CHUNK, PQ_LIBRARY_CHUNK = 1000, 16
+PQ_TIE_RTOL, PQ_DIST_RTOL = 1e-6, 1e-5
+SM_CLOCK_HZ, SMEM_LOOKUPS_PER_CLOCK = 1.98e9, 32
 # the ball cover: 1,000,000 uniform lat/lon points (tests/test_ann.py:299-302)
 # with all-points k 8, and 1,000,000 x 3 uniform points (tests/test_ann.py:318-319)
 # with 65,536 queries at k 16; L = sqrt(m) landmarks; exactness on 1024 rows
@@ -1071,6 +1090,7 @@ def quantized_paths(X, q, bf_i, dev, reset, counts, m):
     torch.cuda.synchronize()
     launched = counts("ivf_pq_1M")
     assert launched["nn_tile"] > 0 and launched["select_tile"] > 0, launched
+    assert launched["pq_scan"] == 2, launched           # K7: one chunk a search
     for name, (d, i) in runs.items():
         assert d.shape == (n_q, QK) and i.dtype == torch.int32, name
         assert torch.isfinite(d).all() and i.min() >= 0 and i.max() < len(X), name
@@ -1139,6 +1159,119 @@ def quantized_paths(X, q, bf_i, dev, reset, counts, m):
         "index_bytes": index_bytes(sq),
         "codes_bytes": sq.slot_q.numel() * sq.slot_q.element_size()}
     return out, pq, sq, codebook
+
+
+def pq_compare(name, got, ref):
+    """K7's answers against its plain version's: the largest distance
+    error over its row's largest distance, the rows whose id sets differ
+    and those where a differing id is not an ADC tie of the kk-th; raises
+    past PQ_DIST_RTOL, on an id that is no tie, or where the two leave
+    different slots unfilled."""
+    gd, gi, rd, ri = (t.cpu() for t in (*got, *ref))
+    assert torch.equal(gi < 0, ri < 0), "%s: unfilled slots differ" % name
+    fin = ri >= 0
+    scale = rd.where(fin, 0.0).amax(dim=1, keepdim=True).clamp(min=1e-30)
+    err = float(((gd - rd).abs() / scale).where(fin, 0.0).max())
+    assert err <= PQ_DIST_RTOL, (name, err)
+    differ = 0
+    for r in range(len(gi)):
+        a, b = set(gi[r][gi[r] >= 0].tolist()), set(ri[r][ri[r] >= 0].tolist())
+        assert len(a) == int((gi[r] >= 0).sum()), "%s: row %d returns an id twice" % (name, r)
+        if a == b:
+            continue
+        differ += 1
+        kth = float(rd[r][fin[r]][-1])
+        for i in a ^ b:
+            dist = float(gd[r][gi[r] == i][0]) if i in a else float(rd[r][ri[r] == i][0])
+            assert abs(dist - kth) <= PQ_TIE_RTOL * kth, (name, r, i, dist, kth)
+    return {"max_rel_err": err, "rows_ids_differ": differ}
+
+
+def pq_scan_shape(name, pq, q, nprobe, kk, dev, m):
+    """K7 at one shape against its plain version, with its time, the
+    plain version's, the library yardstick's (the plain version's tables,
+    then each chunk's probed rows' table values gathered by their codes
+    at once, summed over M, and ``torch.topk``) and the bounds: FP32
+    operations and least bytes (``ops/cost.py:pq_scan_cost``), and the
+    table lookups at SMEM_LOOKUPS_PER_CLOCK a clock an SM."""
+    M, ksub, _ = pq.codebooks.shape
+    _, probes = m.select_k(m.expanded_sq_dists(q, pq.centroids), nprobe, select_min=True,
+                           device=dev)
+    codes = m.narrow_codes(pq.slot_codes)
+    args = (pq.centroids, pq.codebooks)
+    tail = (pq.slot_ids, pq.cent_slots)
+
+    def kernel():
+        return m.ivf_pq_scan(q, *args, codes, *tail, probes, kk)
+
+    def plain():
+        parts = [m.ivf_pq_scan_plain(q[c:c + PQ_PLAIN_CHUNK], *args, pq.slot_codes, *tail,
+                                     probes[c:c + PQ_PLAIN_CHUNK], kk)
+                 for c in range(0, len(q), PQ_PLAIN_CHUNK)]
+        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+
+    def library():
+        inf = float("inf")
+        for c in range(0, len(q), PQ_LIBRARY_CHUNK):
+            qc, pc = q[c:c + PQ_LIBRARY_CHUNK], probes[c:c + PQ_LIBRARY_CHUNK]
+            lut = m.pq_tables(qc, *args, pc)
+            slots, prank, _ = m.probe_compact(qc, pq.centroids, pq.cent_slots, nprobe, pc,
+                                              ranks=True)
+            sl = slots.clamp(min=0).long()
+            rows = torch.arange(len(qc), device=dev)[:, None]
+            vals = torch.gather(lut[rows, prank.long()], 3,
+                                pq.slot_codes[sl].transpose(2, 3).long()).sum(dim=2)
+            ids = torch.where((slots >= 0)[:, :, None], pq.slot_ids[sl], -1)
+            dist = torch.where(ids >= 0, vals, inf).reshape(len(qc), -1)
+            torch.topk(dist, min(kk, dist.shape[1]), dim=1, largest=False)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    out = pq_compare(name, got, plain())
+    ops, nbytes = m.scan_cost(pq.slot_ids, pq.cent_slots, probes, q.shape[1], ksub, M, kk)
+    lookups = ops - 2.0 * q.shape[1] * len(q) * nprobe * ksub
+    b, by = bound(ops, nbytes)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out.update({
+        "shape": "%d queries, nprobe %d, M %d x %d codewords, d %d, kk %d; %d rows scanned"
+                 % (len(q), nprobe, M, ksub, q.shape[1], kk, lookups // M),
+        "ms": time_ms(kernel, reps=5), "bound_ms": b, "bound_by": by,
+        "lookup_bound_ms": lookups / (SMEM_LOOKUPS_PER_CLOCK * n_sms * SM_CLOCK_HZ) * 1e3,
+        "plain_ms": time_ms(plain, reps=1),
+        "library_ms": time_ms(library, reps=1),
+        "library": "the plain version's tables, torch.gather of every probed row's table "
+                   "values by its codes and sum over M, %d queries at a time, torch.topk"
+                   % PQ_LIBRARY_CHUNK})
+    return out
+
+
+def pq_scan_row(X, pq, q_smoke, q_cell, dev, m):
+    """K7's row of the kernels line: at the benchmark's sift1m_ivfpq shape
+    (an index of M PQ_CELL_M built on the path's mixture, 10,000 queries)
+    and at ivf_pq_1M's: the served arm's kk 400 (K7's 512-key top list),
+    refined (kk 40) and unrefined (kk 10); and the search at the cell's
+    shape, its kernel and step counts."""
+    cell = m.ivf_pq_build(X, m.IVFPQParams(nlist=NLIST, nprobe=PQ_CELL_NPROBE, M=PQ_CELL_M,
+                                           n_bits=PQ_BITS, refine_ratio=2),
+                          m.D.L2SqrtExpanded, seed=SEED, train_rows=TRAIN_ROWS, device=dev)
+    row = {"name": "pq_scan", "route": "cuda", "source": "raft_tpu_torch/ops/csrc/pq_scan.cu",
+           "replaces": "none: raft_tpu/spatial/ann.py scans PQ codes in its XLA loop"}
+    row.update(pq_scan_shape("pq_scan at sift1m_ivfpq's shape", cell, q_cell, PQ_CELL_NPROBE,
+                             PQ_CELL_KK, dev, m))
+    for kk in (K * PQ_REFINE, QK * PQ_REFINE, QK):
+        row["ivf_pq_1M_kk%d" % kk] = pq_scan_shape("pq_scan at ivf_pq_1M's shape, kk %d" % kk,
+                                                  pq, q_smoke, NPROBE, kk, dev, m)
+    names = m.PQ_COUNTERS + (m.PQ_KERNEL_CHUNKS,)
+    before = [m.tracing.get_counter(c) for c in names]
+    launched = m.ivf_pq_scan.launches
+    search_ms = time_ms(lambda: m.ivf_pq_search(cell, q_cell, K, PQ_CELL_NPROBE, device=dev),
+                        reps=3)
+    counted = dict(zip(names, (m.tracing.get_counter(c) - b for c, b in zip(names, before))))
+    assert counted[m.PQ_KERNEL_CHUNKS] > 0 and counted[m.PQ_COUNTERS[1]] == 0, counted
+    row["cell_search"] = {"ms": search_ms, "queries_per_s": len(q_cell) / search_ms * 1e3,
+                          "counters": counted,
+                          "k7_launches": m.ivf_pq_scan.launches - launched}
+    return row
 
 
 def serve_quantized(kind, index, X, ann_load, dev, reset, counts, m):
@@ -1211,6 +1344,7 @@ def serve_quantized(kind, index, X, ann_load, dev, reset, counts, m):
     after_warmup = svc.kernel_libraries_after_warmup()
     svc.close()
     assert launched["select_tile"] > 0 and launched["knn_tile"] > 0, launched
+    assert kind != "pq" or launched["pq_scan"] > 0, launched  # K7 at kk 400
     assert after_warmup == {"builds": 0, "loads": 0}, after_warmup
     out.update({"launches": launched, "kernel_libraries_after_warmup": after_warmup,
                 "inserted": ANN_INSERT, "background_requests": len(bg)})
@@ -3432,6 +3566,7 @@ def main():
     from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
     from raft_tpu_torch.ops.pairwise_tile import (METRICS, pairwise_tile,
                                                   pairwise_tile_plain)
+    from raft_tpu_torch.ops import pq_scan
     from raft_tpu_torch.ops.select_tile import plan, select_tile, select_tile_plain, wide_chunks
     from raft_tpu_torch.serve import pad_rows
     from raft_tpu_torch.sparse import COO, CSR
@@ -3441,6 +3576,7 @@ def main():
     from raft_tpu_torch.sparse.hierarchy import extract_flattened_clusters, single_linkage
     from raft_tpu_torch.sparse.spectral import fit_embedding
     from raft_tpu_torch.spatial import ball_cover
+    from raft_tpu_torch.spatial import ann as ann_mod
     from raft_tpu_torch.spatial.ann import _pack_lists, _pack_lists_numpy, _probe_compact
     from raft_tpu_torch.spatial.ooc import _part_positions, ivf_flat_to_ooc
     from raft_tpu_torch.comms import HostComms, Mesh, faults, selftest
@@ -3456,7 +3592,8 @@ def main():
     D = DistanceType
     wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
                 "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
-                "ivf_tile": ivf_items, "knn_twophase": twophase_tiles}
+                "ivf_tile": ivf_items, "knn_twophase": twophase_tiles,
+                "pq_scan": pq_scan.ivf_pq_scan}
 
     def reset():
         for w in wrappers.values():
@@ -4290,13 +4427,26 @@ def main():
         brute_force_knn=brute_force_knn, flight=flight, LogicError=LogicError,
         DataCorruptionError=DataCorruptionError, rbc_build_index=rbc_build_index,
         rbc_knn_query=rbc_knn_query, rbc_all_knn_query=rbc_all_knn_query,
-        ball_cover=ball_cover)
+        ball_cover=ball_cover, select_k=ann_mod.select_k,
+        expanded_sq_dists=expanded_sq_dists, narrow_codes=pq_scan.narrow_codes,
+        ivf_pq_scan=pq_scan.ivf_pq_scan, ivf_pq_scan_plain=pq_scan.ivf_pq_scan_plain,
+        scan_cost=pq_scan.scan_cost, pq_tables=ann_mod._pq_tables, probe_compact=_probe_compact,
+        PQ_COUNTERS=ann_mod.PQ_COUNTERS, PQ_KERNEL_CHUNKS=ann_mod.PQ_KERNEL_CHUNKS,
+        tracing=tracing)
     _, bf10 = brute_force_knn(X, ivf_q, QK, D.L2SqrtExpanded, device=dev)
     qpaths, pq, sq, codebook = quantized_paths(X, ivf_q, bf10, dev, reset, counts, qmods)
     paths.update(qpaths)
     for name in qpaths:
         print("%s: %s" % (name, json.dumps(qpaths[name])), flush=True)
     paths["ivf_pq_1M"]["ivf_flat_index_bytes"] = index_bytes(ivf)
+    # K7 at the benchmark's IVF-PQ shape and at this path's (the kernels line)
+    # (its queries from a generator of their own: the later paths' draws stay as they were)
+    k7_gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    k7_q = centers[torch.randint(0, N_BLOBS, (PQ_CELL_QUERIES,), device=dev, generator=k7_gen)]
+    k7_q = k7_q + torch.randn(PQ_CELL_QUERIES, DIM, device=dev, generator=k7_gen) * BLOB_SPREAD
+    k7_row = pq_scan_row(X, pq, ivf_q, k7_q, dev, qmods)
+    del k7_q
+    print("pq_scan: %s" % json.dumps(k7_row), flush=True)
     for kind, qindex in (("pq", pq), ("sq", sq)):
         name = "serve_ann_%s_1M" % kind
         paths[name] = serve_quantized(kind, qindex, X, ann_load, dev, reset, counts, qmods)
@@ -4725,7 +4875,8 @@ def main():
                                                         cost.TENSOR_PASSES["default"])[0],
                 "bf16_library_ms": time_ms(library, reps=3), "bf16_library": library_form}
 
-    launches = {name: sum(p["launches"][name] for p in paths.values() if "launches" in p)
+    launches = {name: sum(p["launches"].get(name, 0) for p in paths.values()
+                          if isinstance(p.get("launches"), dict))
                 for name in wrappers}
     rows = []
 
@@ -5075,6 +5226,7 @@ def main():
     rows[-1]["bf16_phase1_ms"] = time_ms(lambda: twophase_tiles(index, queries, bn, "default"),
                                          reps=5)
     del q16, x16
+    rows.append(dict(k7_row, launches=launches["pq_scan"]))
 
     print(json.dumps({"card": card, "paths": paths}))
     print(json.dumps({"kernels": rows}))

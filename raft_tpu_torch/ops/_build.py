@@ -51,7 +51,7 @@ from raft_tpu_torch.core.error import RaftError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kernels"
 KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile",
-           "knn_twophase")
+           "knn_twophase", "pq_scan")
 # -split-compile=0 optimises a file's functions on all the host's
 # threads: K5 instantiates its unrolled tile 32 times (8 metrics, two
 # staging paths, with and without the epilog), and its build is the

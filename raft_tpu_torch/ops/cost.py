@@ -15,7 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 __all__ = ["K5_INSTR_PER_STEP", "TENSOR_PASSES", "knn_cost", "select_cost", "ivf_scan_cost",
-           "nn_cost", "pairwise_cost"]
+           "nn_cost", "pairwise_cost", "pq_scan_cost"]
 
 # FP32 instructions a step (one element pair) of K5's L1, L2Unexpanded and
 # Linf: a subtract and an absolute-add (or square-add, or max)
@@ -63,3 +63,13 @@ def pairwise_cost(m: int, n: int, d: int) -> Tuple[float, float]:
     """K5: :data:`K5_INSTR_PER_STEP` FP32 instructions an element pair of
     (m, d) x (n, d); both read, (m, n) float32 written."""
     return 1.0 * m * n * d * K5_INSTR_PER_STEP, 4.0 * ((m + n) * d + m * n)
+
+
+def pq_scan_cost(nq: int, d: int, ksub: int, M: int, nprobe: int, kk: int, rows_scanned: int,
+                 rows_distinct: int) -> Tuple[float, float]:
+    """K7: 2 x d FP32 operations for each (query, probe, codeword) table
+    entry and an add a code of the ``rows_scanned`` rows; the distinct
+    probed rows' uint8 codes and int32 ids read once (``rows_distinct``),
+    the queries read, (nq, kk) float32 and int32 written."""
+    return (2.0 * d * nq * nprobe * ksub + float(M) * rows_scanned,
+            rows_distinct * (M + 4.0) + 4.0 * nq * d + 8.0 * nq * kk)

@@ -65,23 +65,36 @@ searches thread it: ``"kernel"`` (K2) or ``"sort"``
 ties to the smaller column, so they give the same answers.  K3's own
 merge is part of its route and stays on K2.
 
-IVF-PQ and IVF-SQ always take the step scan, as the JAX package scans
-them with its XLA loop (no Pallas kernel): per step the running top-k
-and the step go through ``select_k`` (K2 where k <= 128, a stable sort
-above).  IVF-PQ builds its lookup tables ``(nq, nprobe, M, 2 ** n_bits)``
-once per probed list, before the scan, with one batched product, and
-each step reads one query's table of the slot's probe by its rank and
-gathers it by the slot's codes, summed over M (the JAX package's
-``"gather"`` ADC; its one-hot formulation suits the TPU's MXU, not the
-card).  The tables of a call are ``nprobe * M * 2 ** n_bits`` floats a
+IVF-PQ's ADC distance of a row is the sum over its M subspaces of a
+lookup table of the query and the row's list, read at the row's codes.
+On CUDA, wherever K7
+(:func:`raft_tpu_torch.ops.pq_scan.ivf_pq_scan`) takes the call (its
+legality rule, :func:`~raft_tpu_torch.ops.pq_scan.takes`: float32
+queries, M <= 64, at most 256 codewords, ``k * refine_ratio`` <= 512,
+the shared memory within Hopper's; the metrics are all L2), one launch a
+chunk builds each (query, probe) table in shared memory from the
+codebooks, reads the codes once as uint8 (narrowed from the index's
+int32 once a call) and keeps each query's running top-k on chip; no step
+counts are read.  Otherwise, which includes every CPU call, the search
+takes the step scan, as the JAX package scans PQ with its XLA loop (no
+Pallas kernel; :func:`~raft_tpu_torch.ops.pq_scan.ivf_pq_scan_plain`,
+K7's plain version): the tables ``(nq, nprobe, M, 2 ** n_bits)`` by one
+batched product before the scan, then one step a slot, which reads one
+query's table of the slot's probe by its rank and gathers it by the
+slot's codes, summed over M (the JAX package's ``"gather"`` ADC; its
+one-hot formulation suits the TPU's MXU, not the card), and merges it
+into the running top-k by ``select_k`` (K2 where k <= 128, a stable sort
+above).  The tables of a call are ``nprobe * M * 2 ** n_bits`` floats a
 query (3.3 MB at nprobe 50, M 64, 8 bits), so after one probe of the
 whole call the queries go through in chunks: a chunk's tables, their
-temporaries and its step transients (:func:`pq_query_bytes`) stay under
+temporaries and its step transients (:func:`pq_query_bytes`; on K7's
+route its candidates and the re-rank) stay under
 :data:`PQ_BUDGET_BYTES`, only one chunk's tables live at a time, and a
 chunk runs as many steps as its own busiest query needs.  The ranges
 ``ivf_pq_search.probe``, ``.tables``, ``.scan`` and ``.refine`` and the
-counters :data:`PQ_COUNTERS` trace it.  IVF-SQ dequantises the one slot
-of each query per step.
+counters :data:`PQ_COUNTERS` and :data:`PQ_KERNEL_CHUNKS` trace it (K7
+runs inside ``.scan``; ``.tables`` then runs nothing).  IVF-SQ always
+takes the step scan and dequantises the one slot of each query per step.
 
 Results are (distances, int32 ids) best-first, square-rooted for the
 L2Sqrt metrics, with (+inf, -1) where fewer than k rows were scanned.
@@ -108,6 +121,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import StageTimer, ceildiv, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.distance.pairwise import expanded_sq_dists
+from raft_tpu_torch.ops import pq_scan
 from raft_tpu_torch.ops.ivf_tile import MAX_K, fused_ivf_scan
 from raft_tpu_torch.spatial.select_k import select_k
 from raft_tpu_torch.spectral.kmeans import kmeans
@@ -123,6 +137,8 @@ PQ_BUDGET_BYTES = 8 << 30
 # counters of the IVF-PQ search (core.tracing): chunks searched, scan
 # steps launched, bytes of lookup tables built
 PQ_COUNTERS = ("ivf_pq_search.chunks", "ivf_pq_search.steps", "ivf_pq_search.table_bytes")
+# counter of the IVF-PQ search's chunks that K7 scanned
+PQ_KERNEL_CHUNKS = "ivf_pq_search.kernel_chunks"
 
 
 @dataclass
@@ -684,9 +700,12 @@ def _pq_tables(q, centroids, codebooks, probes):
 
 
 def pq_query_bytes(nprobe: int, M: int, ksub: int, cap: int, kk: int, d: int,
-                   refine: bool) -> int:
+                   refine: bool, kernel: bool = False) -> int:
     """The most device bytes one query holds in a chunk of an IVF-PQ search
-    (4 a float32 or int32, 8 an int64), the largest of its three phases:
+    (4 a float32 or int32, 8 an int64).  On K7's route (``kernel``) the
+    tables never leave the chip: the larger of the ``kk`` candidates K7
+    writes and the re-rank.  On the step scan's, the largest of its three
+    phases:
 
     - building its tables (:func:`_pq_tables`): the residuals, gathered
       centroids and squares, ``nprobe * d`` each; the batched product, the
@@ -705,6 +724,8 @@ def pq_query_bytes(nprobe: int, M: int, ksub: int, cap: int, kk: int, d: int,
     step = (4 * M * ksub + (4 + 8 + 4) * M * cap + 6 * 4 * cap
             + 2 * (8 + 12) * (kk + cap) + 8 * kk)
     rerank = 3 * 4 * kk * d + 16 * kk if refine else 0
+    if kernel:
+        return max(8 * kk, rerank)
     return max(build, table + step, rerank)
 
 
@@ -728,41 +749,47 @@ def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, 
     cap = slot_ids.shape[1]
     k_out = k if refine is None else refine[1]
     sqrt = metric in _SQRT_METRICS
+    kernel = metric in _L2_METRICS and pq_scan.takes(q, centroids, codebooks, k, nprobe,
+                                                     cent_slots.shape[1])
     with tracing.annotate("ivf_pq_search.probe"):
         _, probes = select_k(expanded_sq_dists(q, centroids), nprobe, select_min=True,
                              impl=select_impl, device=q.device)
-        live = (cent_slots[probes.long()] >= 0).sum(dim=(1, 2))
+        if not kernel:
+            live = (cent_slots[probes.long()] >= 0).sum(dim=(1, 2))
     rows = _pq_chunk_rows(nq, k_out, nprobe,
-                          pq_query_bytes(nprobe, M, ksub, cap, k, d, refine is not None))
+                          pq_query_bytes(nprobe, M, ksub, cap, k, d, refine is not None, kernel))
     starts = range(0, nq, rows)
-    # one read of every chunk's step count: the chunks then queue unbroken
-    steps = torch.nn.functional.pad(live, (0, len(starts) * rows - nq)).reshape(
-        len(starts), rows).amax(dim=1).tolist()
+    if kernel:
+        # K7 needs no step counts; the codes narrowed once a call
+        steps = [0] * len(starts)
+        with tracing.annotate("ivf_pq_search.scan"):
+            codes = pq_scan.narrow_codes(slot_codes)
+    else:
+        # one read of every chunk's step count: the chunks then queue unbroken
+        steps = torch.nn.functional.pad(live, (0, len(starts) * rows - nq)).reshape(
+            len(starts), rows).amax(dim=1).tolist()
+        codes = slot_codes
     dt = torch.promote_types(q.dtype, torch.float32)
     out_d = torch.empty((nq, k_out), dtype=dt, device=q.device)
     out_i = torch.empty((nq, k_out), dtype=torch.int32, device=q.device)
     for s, n_live in zip(starts, steps):
         qc, pc = q[s:s + rows], probes[s:s + rows]
-        with tracing.annotate("ivf_pq_search.tables"):
-            lut_all = _pq_tables(qc, centroids, codebooks, pc)
         tracing.counter_inc(PQ_COUNTERS[0])
         tracing.counter_inc(PQ_COUNTERS[1], n_live)
-        tracing.counter_inc(PQ_COUNTERS[2], lut_all.numel() * lut_all.element_size())
-        rowsel = torch.arange(qc.shape[0], device=q.device)
-
-        def step_dist(slx, pjx):
-            lut = lut_all[rowsel, pjx]                         # (nq, M, ksub)
-            codes = slot_codes[slx]                            # (nq, cap, M)
-            dist = torch.gather(lut, 2, codes.transpose(1, 2).long()).sum(dim=1)
-            return dist, slot_ids[slx]
-
-        with tracing.annotate("ivf_pq_search.scan"):
-            slots, prank, _ = _probe_compact(qc, centroids, cent_slots, nprobe, pc, ranks=True)
-            dist, ids = _scan_steps(qc, slots, prank, n_live, step_dist, k, metric, select_impl)
-        del lut_all
+        tracing.counter_inc(PQ_COUNTERS[2], qc.shape[0] * nprobe * M * ksub * dt.itemsize)
+        if kernel:
+            tracing.counter_inc(PQ_KERNEL_CHUNKS)
+            with tracing.annotate("ivf_pq_search.scan"):
+                dist, ids = pq_scan.ivf_pq_scan(qc, centroids, codebooks, codes, slot_ids,
+                                                cent_slots, pc, k)
+        else:
+            dist, ids = pq_scan.ivf_pq_scan_plain(qc, centroids, codebooks, codes, slot_ids,
+                                                  cent_slots, pc, k, n_live, select_impl)
         if refine is not None:
             with tracing.annotate("ivf_pq_search.refine"):
                 dist, ids = _refine_impl(refine[0], qc, ids, k_out, sqrt, select_impl)
+        elif sqrt:
+            dist = torch.sqrt(dist)
         out_d[s:s + rows] = dist
         out_i[s:s + rows] = ids
     return out_d, out_i

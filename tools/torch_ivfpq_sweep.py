@@ -15,7 +15,8 @@ the call took above the index and the queries (``max_memory_allocated``
 against the budget), the call's time by CUDA events (median of
 ``--calls`` after a warm-up), and whether its answers are bit for bit
 those of the first budget.  Then 300 of the queries cut into 1, 3 and 7
-chunks, compared bit for bit.  Prints the card and one JSON line each;
+chunks (at the chunk bytes of the route the search takes, K7's where it
+takes it), compared bit for bit.  Prints the card and one JSON line each;
 needs a CUDA card and imports nothing of JAX.
 """
 
@@ -35,6 +36,7 @@ from portbench import harness  # noqa: E402
 from portbench.frozen import datagen  # noqa: E402
 from raft_tpu_torch.core import tracing  # noqa: E402
 from raft_tpu_torch.distance.distance_type import DistanceType  # noqa: E402
+from raft_tpu_torch.ops import pq_scan  # noqa: E402
 from raft_tpu_torch.spatial import ann  # noqa: E402
 
 CONFIG = "portbench/configs/sift1m_ivfpq.json"
@@ -109,8 +111,11 @@ def main(argv=None) -> int:
         del out
     sub = q[:300]
     cap = int(index.slot_ids.shape[1])
+    kk = k * conf["refine_ratio"]
+    kernel = pq_scan.takes(sub, index.centroids, index.codebooks, kk, nprobe,
+                           index.cent_slots.shape[1])
     per = ann.pq_query_bytes(nprobe, index.codebooks.shape[0], index.codebooks.shape[1], cap,
-                             k * conf["refine_ratio"], conf["dim"], True)
+                             kk, conf["dim"], True, kernel)
     own = sub.shape[0] * (4 * nprobe + 8 * k)
     outs = {}
     for n in (1, 3, 7):
