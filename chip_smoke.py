@@ -304,6 +304,7 @@ check, a ``paths`` JSON line (launches and end-to-end milliseconds per
 path), a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 """
 
+import ast
 import contextlib
 import itertools
 import json
@@ -1263,14 +1264,15 @@ def pq_scan_row(X, pq, q_smoke, q_cell, dev, m):
                                                   pq, q_smoke, NPROBE, kk, dev, m)
     names = m.PQ_COUNTERS + (m.PQ_KERNEL_CHUNKS,)
     before = [m.tracing.get_counter(c) for c in names]
-    launched = m.ivf_pq_scan.launches
+    launched = m.inventory.snapshot()
     search_ms = time_ms(lambda: m.ivf_pq_search(cell, q_cell, K, PQ_CELL_NPROBE, device=dev),
                         reps=3)
     counted = dict(zip(names, (m.tracing.get_counter(c) - b for c, b in zip(names, before))))
     assert counted[m.PQ_KERNEL_CHUNKS] > 0 and counted[m.PQ_COUNTERS[1]] == 0, counted
     row["cell_search"] = {"ms": search_ms, "queries_per_s": len(q_cell) / search_ms * 1e3,
                           "counters": counted,
-                          "k7_launches": m.ivf_pq_scan.launches - launched}
+                          "k7_launches": sum(m.inventory.launches_since(launched)
+                                             .get("pq_scan", {}).values())}
     return row
 
 
@@ -3551,7 +3553,7 @@ def main():
                                 pairwise_distance, rbc_all_knn_query, rbc_build_index,
                                 rbc_knn_query)
     from raft_tpu_torch import linalg, spectral
-    from raft_tpu_torch.core import flight, native, precision, tracing
+    from raft_tpu_torch.core import flight, inventory, native, precision, tracing
     from raft_tpu_torch.core.error import DataCorruptionError
     from raft_tpu_torch.core.handle import Handle
     from raft_tpu_torch.core.metrics import default_registry
@@ -3590,22 +3592,23 @@ def main():
     # flight recorder: a ring that holds the whole run
     config.configure(flight_events="262144")
     D = DistanceType
-    wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile,
-                "pairwise_tile": pairwise_tile, "nn_tile": fused_nn_tile,
-                "ivf_tile": ivf_items, "knn_twophase": twophase_tiles,
-                "pq_scan": pq_scan.ivf_pq_scan}
+    # the kernels a path reports its launches of: the cost inventory's
+    # counts since the last reset()
+    wrappers = _build.KERNELS
+    since = {}
 
     def reset():
-        for w in wrappers.values():
-            w.launches = 0
-        select_tile.shapes.clear()
+        nonlocal since
+        since = inventory.snapshot()
 
     k2_shapes = {}    # path: K2's launches by (rows, width, k)
 
     def counts(path=None):
+        launched = inventory.launches_since(since)
         if path is not None:
-            k2_shapes[path] = dict(select_tile.shapes)
-        return {name: w.launches for name, w in wrappers.items()}
+            k2_shapes[path] = {ast.literal_eval(key): n
+                               for key, n in launched.get("select_tile", {}).items()}
+        return {name: sum(launched.get(name, {}).values()) for name in wrappers}
 
     card = card_line()
     print(card)
@@ -4432,7 +4435,7 @@ def main():
         ivf_pq_scan=pq_scan.ivf_pq_scan, ivf_pq_scan_plain=pq_scan.ivf_pq_scan_plain,
         scan_cost=pq_scan.scan_cost, pq_tables=ann_mod._pq_tables, probe_compact=_probe_compact,
         PQ_COUNTERS=ann_mod.PQ_COUNTERS, PQ_KERNEL_CHUNKS=ann_mod.PQ_KERNEL_CHUNKS,
-        tracing=tracing)
+        tracing=tracing, inventory=inventory)
     _, bf10 = brute_force_knn(X, ivf_q, QK, D.L2SqrtExpanded, device=dev)
     qpaths, pq, sq, codebook = quantized_paths(X, ivf_q, bf10, dev, reset, counts, qmods)
     paths.update(qpaths)

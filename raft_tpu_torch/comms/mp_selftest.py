@@ -160,9 +160,8 @@ def main(argv=None) -> int:
     from raft_tpu_torch.core.error import LogicError
     from raft_tpu_torch.distance.distance_type import DistanceType
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain, ivf_items
+    from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
     from raft_tpu_torch.ops.knn_tile import fused_knn_tile, knn_tile_plain
-    from raft_tpu_torch.ops.select_tile import select_tile
     from raft_tpu_torch.session import Comms, get_raft_comm_state, local_handle
     from raft_tpu_torch.spatial.mnmg_knn import (mnmg_ivf_flat_search, mnmg_knn,
                                                  resolve_group_size, shard_ivf_flat_index,
@@ -172,7 +171,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-    wrappers = {"knn_tile": fused_knn_tile, "select_tile": select_tile, "ivf_tile": ivf_items}
+    kernels = ("knn_tile", "select_tile", "ivf_tile")
     report = {"process_id": args.process_id, "num_processes": args.num_processes,
               "slots": args.slots, "device": str(dev),
               "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
@@ -251,15 +250,15 @@ def main(argv=None) -> int:
         one = Mesh([dev] * world, ("ranks",))     # the same slots in this one process
 
         def first_runs(run):
-            """Each merge's first search, the wrappers' counts set to 0
-            before: the kernels it launched (the main path's; the checks
-            against the plain versions come after)."""
-            for w in wrappers.values():
-                w.launches = 0
+            """Each merge's first search: the kernels it launched, from
+            the cost inventory (the main path's; the checks against the
+            plain versions come after)."""
+            before = inventory.snapshot()
             for merge in merges:
                 run(merge)
             sync()
-            return {name: w.launches for name, w in wrappers.items()}
+            launched = inventory.launches_since(before)
+            return {name: sum(launched.get(name, {}).values()) for name in kernels}
 
         if args.knn:
             n, d, nq, k = (int(v) for v in args.knn.split(","))

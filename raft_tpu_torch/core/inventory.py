@@ -4,12 +4,15 @@ and launches.
 Port of ``raft_tpu/core/inventory.py``.  The JAX inventory reads the
 compiler's ``cost_analysis()`` and ``memory_analysis()`` at
 ``profiled_jit``'s compile seam; the port has no compiler seam, and its
-counterpart is the kernel wrappers' launch seam.  Each wrapper in
+counterpart is the kernel wrappers' launch seam,
+:func:`raft_tpu_torch.ops._build.launch`, through which every wrapper in
 :mod:`raft_tpu_torch.ops` (K1 and K6 ``knn_tile.py``, K2
 ``select_tile.py``, K3 ``ivf_tile.py``, K4 ``nn_tile.py``, K5
-``pairwise_tile.py``) calls :func:`count_launch` at every launch on the
-card: the first launch of a ``(kernel, shape-key)`` records its cost,
-and later ones add to its ``launches``.  The operations and bytes are
+``pairwise_tile.py``, K7 ``pq_scan.py``) launches on the card.  It calls
+:func:`count_launch` at every launch: the first launch of a ``(kernel,
+shape-key)`` records its cost, and later ones add to its ``launches``,
+the port's one count of kernel launches (a reader takes the counts
+between two snapshots, :func:`launches_since`).  The operations and bytes are
 the analytic counts of :mod:`raft_tpu_torch.ops.cost`, the same that
 ``chip_smoke.py``'s bounds divide by the card's peaks, so the inventory
 and the kernel table cannot disagree.  The footprint is the arguments,
@@ -39,8 +42,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from raft_tpu_torch.core import metrics as _metrics
 
-__all__ = ["note_launch", "count_launch", "footprint", "snapshot", "summary", "reset",
-           "entry_count"]
+__all__ = ["note_launch", "count_launch", "footprint", "snapshot", "launches_since", "summary",
+           "reset", "entry_count"]
 
 _lock = threading.Lock()
 # kernel -> {key_repr: entry dict}
@@ -113,6 +116,18 @@ def snapshot() -> Dict[str, Dict[str, dict]]:
     with _lock:
         return {fn: {k: dict(e) for k, e in keys.items()}
                 for fn, keys in _entries.items()}
+
+
+def launches_since(before: Dict[str, Dict[str, dict]]) -> Dict[str, Dict[str, int]]:
+    """The launches counted since ``before`` (a :func:`snapshot`):
+    ``{kernel: {key_repr: launches}}``, shapes with none left out."""
+    out: Dict[str, Dict[str, int]] = {}
+    for fn, keys in snapshot().items():
+        for key, entry in keys.items():
+            n = entry["launches"] - before.get(fn, {}).get(key, {}).get("launches", 0)
+            if n:
+                out.setdefault(fn, {})[key] = n
+    return out
 
 
 def entry_count() -> int:

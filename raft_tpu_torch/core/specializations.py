@@ -14,7 +14,7 @@ port's built and loaded kernel library (:mod:`raft_tpu_torch.ops._build`):
   at a directory (default: ``build/raft_tpu_torch_kernels/`` at the root
   of the checkout); a library already loaded in this process stays
   loaded, one loaded afterwards comes from there;
-- **warmup** (:func:`warmup`) builds all six kernels at once (one
+- **warmup** (:func:`warmup`) builds all seven kernels at once (one
   ``nvcc`` each, :func:`raft_tpu_torch.ops._build.build`), loads them,
   and runs each specialization once on the card, so that the first
   request pays no build.  Nothing is compiled per shape, so

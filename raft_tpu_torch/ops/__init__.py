@@ -2,8 +2,9 @@
 
 Each wrapper follows the device of its tensors: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (built from ``csrc/`` at
-first use by :mod:`raft_tpu_torch.ops._build`) or raises.  Each wrapper
-counts its launches in a ``launches`` attribute.
+first use by :mod:`raft_tpu_torch.ops._build`) or raises.  Every launch
+goes through :func:`raft_tpu_torch.ops._build.launch`, which counts it
+in the cost inventory (:mod:`raft_tpu_torch.core.inventory`).
 
 - K1 :func:`~raft_tpu_torch.ops.knn_tile.fused_knn_tile`
 - K2 :func:`~raft_tpu_torch.ops.select_tile.select_tile`

@@ -27,6 +27,14 @@ a code other than 0.  :func:`entry` binds an entry point once per
 process (argument and result types set under the lock) and hands the
 same function back after.
 
+:func:`launch` is the one seam between the kernel wrappers of
+:mod:`raft_tpu_torch.ops` and their launchers (``<name>_launch``): it
+binds the launcher, takes the phase-timed build where
+:func:`raft_tpu_torch.core.tracing.kernel_phases` asks for it, launches
+on the device's current stream, raises on an error code, and counts the
+launch in the cost inventory (:mod:`raft_tpu_torch.core.inventory`),
+which is the port's one count of kernel launches.
+
 The first :func:`load` of a library is serialised by a lock, so a
 serving worker thread and a caller that reach it together build and load
 it once.  :func:`stats` counts the libraries compiled and loaded in this
@@ -38,14 +46,18 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Sequence
 
+import torch
+
+from raft_tpu_torch.core import inventory, tracing
 from raft_tpu_torch.core.error import RaftError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -156,7 +168,7 @@ def load(name: str, phases: bool = False) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, symbol: str, argtypes: Sequence, restype, phases: bool = False):
+def entry(name: str, symbol: str, argtypes: Iterable, restype, phases: bool = False):
     """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
     and result types set, bound once per process (the library is built
     and loaded first if needed).  With ``phases``, the function of the
@@ -197,3 +209,31 @@ def check(code: int, what: str) -> None:
     if code != 0:
         raise RaftError("%s: CUDA error %d at launch" % (what, code),
                         collect_stack=False)
+
+
+def launch(name: str, device: torch.device, args: Sequence, what: str, key,
+           costs: Callable) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` (its entry point
+    ``<name>_launch``) on ``device``'s current stream.
+
+    ``args`` are the entry point's arguments before the stream: a tensor
+    passes its device pointer (``c_void_p``), a float a ``c_float``, an
+    int a ``c_int``.  While :func:`raft_tpu_torch.core.tracing.kernel_phases`
+    is open on this thread, a kernel of :data:`PHASE_KERNELS` takes its
+    phase-timed build, the counter buffer after the stream.  A code other
+    than 0 raises, naming ``what``; a launch that returns 0 is counted in
+    the cost inventory as ``name`` at shape ``key``, ``costs()`` giving
+    its ``(flops, bytes, footprint_bytes)`` at a new key
+    (:func:`raft_tpu_torch.core.inventory.count_launch`)."""
+    timed = tracing.phase_launch(device) if name in PHASE_KERNELS else None
+    # lazy: :func:`entry` reads the types only where it binds the entry point
+    argtypes = itertools.chain((ctypes.c_void_p if isinstance(a, torch.Tensor) else
+                                ctypes.c_float if isinstance(a, float) else ctypes.c_int
+                                for a in args), [ctypes.c_void_p])
+    fn = entry(name, name + "_launch", argtypes, ctypes.c_int, timed is not None)
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        values.append(torch.cuda.current_stream().cuda_stream)
+        code = fn(*values) if timed is None else timed.run(fn, *values)
+    check(code, what)
+    inventory.count_launch(name, key, costs)

@@ -66,7 +66,7 @@ from raft_tpu_torch.core import precision as _precision
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.utils import ceildiv
 from raft_tpu_torch.ops import _build, cost
-from raft_tpu_torch.ops.knn_tile import DEPTH_UNIT, pad_depth
+from raft_tpu_torch.ops.knn_tile import DEPTH_UNIT, pad_depth, prepare_rows
 from raft_tpu_torch.ops.select_tile import select_tile
 
 MAX_K = 128
@@ -193,32 +193,22 @@ def ivf_items(queries: torch.Tensor, store: torch.Tensor, norms: torch.Tensor,
     :func:`ivf_items_plain`."""
     if queries.device.type == "cpu":
         return ivf_items_plain(queries, store, norms, ids, work, cap, k, n_out, accum_bf16)
-    fn = _entry()
+    _build.load("ivf_tile")     # built or loaded before any work on the device
     dev = queries.device
-    dp = ceildiv(queries.shape[1], DEPTH_UNIT) * DEPTH_UNIT
-    qn = (queries * queries).sum(dim=1)
+    q, qn = prepare_rows(queries)
+    dp = q.shape[1]
     x = pad_depth(store.contiguous(), dp)
-    q = pad_depth(queries.contiguous(), dp)
     args = [t.contiguous() for t in (norms, ids, work.items, work.n_items, work.out_rows)]
     out_d = torch.full((n_out, k), float("inf"), dtype=torch.float32, device=dev)
     out_i = torch.full((n_out, k), -1, dtype=torch.int32, device=dev)
-    timed = tracing.phase_launch(dev)
-    with torch.cuda.device(dev):
-        launch = (q.data_ptr(), qn.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in args],
-                  q.shape[0], work.n_steps, x.shape[0], dp, cap, work.items.shape[0], work.n_q, k,
-                  int(bool(accum_bf16)), out_d.data_ptr(), out_i.data_ptr(),
-                  torch.cuda.current_stream().cuda_stream)
-        code = fn(*launch) if timed is None else timed.run(_entry(phases=True), *launch)
-    _build.check(code, "ivf_items")
-    ivf_items.launches += 1
-    inventory.count_launch(
-        "ivf_tile", (q.shape[0], n_out, x.shape[0], dp, cap, k, bool(accum_bf16)), lambda: (
-            *item_cost(ids, work, cap, queries.shape[0], queries.shape[1], k, n_out),
-            inventory.footprint((q, qn, x, *args), (out_d, out_i))))
+    _build.launch("ivf_tile", dev, (q, qn, x, *args, q.shape[0], work.n_steps, x.shape[0], dp,
+                                    cap, work.items.shape[0], work.n_q, k, int(bool(accum_bf16)),
+                                    out_d, out_i),
+                  "ivf_items", (q.shape[0], n_out, x.shape[0], dp, cap, k, bool(accum_bf16)),
+                  lambda: (*item_cost(ids, work, cap, queries.shape[0], queries.shape[1], k,
+                                      n_out),
+                           inventory.footprint((q, qn, x, *args), (out_d, out_i))))
     return out_d, out_i
-
-
-ivf_items.launches = 0
 
 
 def item_cost(ids: torch.Tensor, work: ScanWork, cap: int, nq: int, d: int, k: int,
@@ -320,9 +310,3 @@ def _scan_chunk(queries, store, slots, cap, k, n_q, accum_bf16):
     with tracing.annotate("fused_ivf_scan.merge"):
         out_d, pos = select_tile(part_d.view(nq, n_steps * k), k)
         return out_d, torch.gather(part_i.view(nq, n_steps * k), 1, pos.long())
-
-
-def _entry(phases: bool = False):
-    return _build.entry("ivf_tile", "ivf_tile_launch",
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int, phases)

@@ -205,19 +205,23 @@ def _sms(dev: torch.device) -> int:
 
 def prepare_operands(index: torch.Tensor, queries: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(index, queries, qn, xn)`` as the kernels take them: contiguous
-    rows, 16-byte aligned, with a depth that is a multiple of 8, and the
-    squared norms of the rows.  A strided tensor is made contiguous; where
-    the depth is not a multiple of 8 or the rows are not 16-byte aligned,
-    a zero-padded copy is made: zero columns leave every dot product
-    unchanged, and the norms are taken on the unpadded rows.  The main
-    path (contiguous, depth 128) copies nothing."""
-    index = index.contiguous()
-    queries = queries.contiguous()
-    qn = (queries * queries).sum(dim=1)
-    xn = (index * index).sum(dim=1)
-    dp = ceildiv(index.shape[1], DEPTH_UNIT) * DEPTH_UNIT
-    return pad_depth(index, dp), pad_depth(queries, dp), qn, xn
+    """``(index, queries, qn, xn)`` as the kernels take them: both
+    through :func:`prepare_rows`."""
+    queries, qn = prepare_rows(queries)
+    index, xn = prepare_rows(index)
+    return index, queries, qn, xn
+
+
+def prepare_rows(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rows, norms)``: ``t`` (rows, d) as the tile kernels take it,
+    contiguous rows, 16-byte aligned, with a depth that is a multiple of
+    8, and the squared norms of its rows.  A strided tensor is made
+    contiguous; where the depth is not a multiple of 8 or the rows are
+    not 16-byte aligned, a zero-padded copy is made: zero columns leave
+    every dot product unchanged, and the norms are taken on the unpadded
+    rows.  The main path (contiguous, depth 128) copies nothing."""
+    t = t.contiguous()
+    return pad_depth(t, ceildiv(t.shape[1], DEPTH_UNIT) * DEPTH_UNIT), (t * t).sum(dim=1)
 
 
 def pad_depth(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -254,7 +258,7 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
             "fused_knn_tile: index and queries on different devices")
     if index.device.type == "cpu":
         return knn_tile_plain(index, queries, k, precision)
-    _entry()    # the kernel's library, built or loaded before any work on the device
+    _build.load("knn_tile")     # built or loaded before any work on the device
     dev = index.device
     if nq == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
@@ -262,11 +266,7 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
     expects(d > 0, "fused_knn_tile: zero depth")
     index, queries, qn, xn = prepare_operands(index, queries)
     rows = split_rows(nq, n, _sms(dev), block_q(index.shape[1]), k)
-    part_d, part_i = split_partials(index, queries, qn, xn, k, rows, precision)
-    inventory.count_launch("knn_tile", (nq, n, index.shape[1], k, precision), lambda: (
-        *cost.knn_cost(nq, n, d, k),
-        inventory.footprint((queries, index, qn, xn), (part_d, part_i),
-                            smem_bytes(index.shape[1], k))))
+    part_d, part_i = split_partials(index, queries, qn, xn, k, rows, precision, d)
     if part_d.shape[1] == k:
         return part_d, part_i
     out_d, pos = select_tile(part_d, k)
@@ -274,35 +274,26 @@ def fused_knn_tile(index: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def split_partials(index: torch.Tensor, queries: torch.Tensor, qn: torch.Tensor,
-                   xn: torch.Tensor, k: int, rows: int, precision: str = "highest"
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   xn: torch.Tensor, k: int, rows: int, precision: str = "highest",
+                   d: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K1 on operands as :func:`prepare_operands` gives
     them, ``rows`` index rows a split (a multiple of ``BLOCK_N``): each
-    split's top-k, (nq, splits * k) float32 and int32, split by split."""
+    split's top-k, (nq, splits * k) float32 and int32, split by split.
+    ``d`` is the depth before padding, which the inventory's operation
+    count takes (the operands' depth where None)."""
     n, dp = index.shape
     nq, dev = queries.shape[0], index.device
     splits = ceildiv(n, rows)
     part_d = torch.empty((nq, splits * k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, splits * k), dtype=torch.int32, device=dev)
-    timed = tracing.phase_launch(dev)
-    with torch.cuda.device(dev):
-        args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n, dp,
-                k, rows, int(precision == "default"), part_d.data_ptr(), part_i.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        code = _entry()(*args) if timed is None else timed.run(_entry(phases=True), *args)
-    _build.check(code, "fused_knn_tile")
-    fused_knn_tile.launches += 1
+    _build.launch("knn_tile", dev, (queries, index, qn, xn, nq, n, dp, k, rows,
+                                    int(precision == "default"), part_d, part_i),
+                  "fused_knn_tile", (nq, n, dp, k, precision), lambda: (
+                      *cost.knn_cost(nq, n, dp if d is None else d, k),
+                      inventory.footprint((queries, index, qn, xn), (part_d, part_i),
+                                          smem_bytes(dp, k))))
     count_waves(WAVE_COUNTERS, ceildiv(nq, block_q(dp)) * splits, _sms(dev))
     return part_d, part_i
-
-
-fused_knn_tile.launches = 0
-
-
-def _entry(phases: bool = False):
-    return _build.entry("knn_tile", "knn_tile_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int, phases)
 
 
 def block_q(d: int) -> int:
@@ -382,7 +373,7 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor, bn: int,
     queries = as_float32(queries, "twophase_tiles")
     if index.device.type == "cpu":
         return twophase_tiles_plain(index, queries, bn, precision)
-    fn = _twophase_entry()
+    _build.load("knn_twophase")     # built or loaded before any work on the device
     dev = index.device
     n, d = index.shape
     nq = queries.shape[0]
@@ -393,26 +384,18 @@ def twophase_tiles(index: torch.Tensor, queries: torch.Tensor, bn: int,
         return part_d, part_i
     expects(d > 0, "twophase_tiles: zero depth")
     index, queries, qn, xn = prepare_operands(index, queries)
-    q_tiles, sms = ceildiv(nq, block_q(index.shape[1])), _sms(dev)
+    dp = index.shape[1]
+    q_tiles, sms = ceildiv(nq, block_q(dp)), _sms(dev)
     per, blocks = index_blocks(q_tiles, ceildiv(n, bn), sms, TWOPHASE_PAD,
                                bn // BLOCK_N)
-    timed = tracing.phase_launch(dev)
-    with torch.cuda.device(dev):
-        args = (queries.data_ptr(), index.data_ptr(), qn.data_ptr(), xn.data_ptr(), nq, n,
-                index.shape[1], bn, per, int(precision == "default"), part_d.data_ptr(),
-                part_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        code = fn(*args) if timed is None else timed.run(_twophase_entry(phases=True), *args)
-    _build.check(code, "twophase_tiles")
-    twophase_tiles.launches += 1
+    _build.launch("knn_twophase", dev, (queries, index, qn, xn, nq, n, dp, bn, per,
+                                        int(precision == "default"), part_d, part_i),
+                  "twophase_tiles", (nq, n, dp, bn, precision), lambda: (
+                      *cost.knn_cost(nq, n, d, width),
+                      inventory.footprint((queries, index, qn, xn), (part_d, part_i),
+                                          smem_bytes(dp, TWOPHASE_PAD))))
     count_waves(TWOPHASE_WAVE_COUNTERS, q_tiles * blocks, sms)
-    inventory.count_launch("knn_twophase", (nq, n, index.shape[1], bn, precision), lambda: (
-        *cost.knn_cost(nq, n, d, width),
-        inventory.footprint((queries, index, qn, xn), (part_d, part_i),
-                            smem_bytes(index.shape[1], TWOPHASE_PAD))))
     return part_d, part_i
-
-
-twophase_tiles.launches = 0
 
 
 def _check_twophase(index, queries, k, precision, merge_select_impl):
@@ -481,7 +464,10 @@ def fused_knn_twophase(index: torch.Tensor, queries: torch.Tensor, k: int,
     return _twophase_merge(part_d, part_i, k, n, select)
 
 
-def _twophase_entry(phases: bool = False):
+def _twophase_entry():
+    """K6's launcher bound as :func:`raft_tpu_torch.ops._build.launch`
+    binds it, for a caller that sets its tiles a block itself (the
+    benchmark's card test of K6's runs)."""
     return _build.entry("knn_twophase", "knn_twophase_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int, phases)
+                        ctypes.c_int)

@@ -22,12 +22,11 @@ minimum and its 128 -> 1 reduction in XLA have no counterpart, and its
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core import inventory, tracing
+from raft_tpu_torch.core import inventory
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _build, cost
 from raft_tpu_torch.ops.knn_tile import as_float32, prepare_operands, products
@@ -82,30 +81,15 @@ def fused_nn_tile(x: torch.Tensor, y: torch.Tensor,
     expects(x.device == y.device, "fused_nn_tile: x and y on different devices")
     if x.device.type == "cpu":
         return nn_tile_plain(x, y, precision)
-    fn = _entry()
+    _build.load("nn_tile")      # built or loaded before any work on the device
     out_v = torch.empty((m,), dtype=torch.float32, device=x.device)
     out_i = torch.empty((m,), dtype=torch.int32, device=x.device)
     if m == 0:
         return out_v, out_i
     expects(d > 0, "fused_nn_tile: zero depth")
     y, x, xn, yn = prepare_operands(y, x)
-    timed = tracing.phase_launch(x.device)
-    with torch.cuda.device(x.device):
-        args = (x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, x.shape[1],
-                int(precision == "default"), out_v.data_ptr(), out_i.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        code = fn(*args) if timed is None else timed.run(_entry(phases=True), *args)
-    _build.check(code, "fused_nn_tile")
-    fused_nn_tile.launches += 1
-    inventory.count_launch("nn_tile", (m, n, x.shape[1], precision), lambda: (
-        *cost.nn_cost(m, n, d), inventory.footprint((x, y, xn, yn), (out_v, out_i))))
+    _build.launch("nn_tile", x.device, (x, y, xn, yn, m, n, x.shape[1],
+                                        int(precision == "default"), out_v, out_i),
+                  "fused_nn_tile", (m, n, x.shape[1], precision), lambda: (
+                      *cost.nn_cost(m, n, d), inventory.footprint((x, y, xn, yn), (out_v, out_i))))
     return out_v, out_i
-
-
-fused_nn_tile.launches = 0
-
-
-def _entry(phases: bool = False):
-    return _build.entry("nn_tile", "nn_tile_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
-                        ctypes.c_int, phases)

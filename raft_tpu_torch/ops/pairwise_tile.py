@@ -21,8 +21,6 @@ adds (or maxes) those partials over column tiles and applies
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.core import inventory
@@ -113,7 +111,7 @@ def pairwise_tile(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
     expects(x.device == y.device, "pairwise_tile: x and y on different devices")
     if x.device.type == "cpu":
         return pairwise_tile_plain(x, y, metric, p, epilog)
-    fn = _entry()
+    _build.load("pairwise_tile")    # built or loaded before any work on the device
     x = x.to(torch.float32).contiguous()
     y = y.to(torch.float32).contiguous()
     m, d = x.shape
@@ -122,22 +120,8 @@ def pairwise_tile(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
     if m == 0 or n == 0:
         return out
     expects(d > 0, "pairwise_tile: zero depth")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), m, n, d, int(metric), float(p), int(epilog),
-                  out.data_ptr(), stream)
-    _build.check(code, "pairwise_tile")
-    pairwise_tile.launches += 1
-    inventory.count_launch("pairwise_tile", (m, n, d, int(metric), bool(epilog)), lambda: (
-        *cost.pairwise_cost(m, n, d), inventory.footprint((x, y), (out,))))
+    _build.launch("pairwise_tile", x.device,
+                  (x, y, m, n, d, int(metric), float(p), int(epilog), out), "pairwise_tile",
+                  (m, n, d, int(metric), bool(epilog)), lambda: (
+                      *cost.pairwise_cost(m, n, d), inventory.footprint((x, y), (out,))))
     return out
-
-
-pairwise_tile.launches = 0
-
-
-def _entry():
-    return _build.entry("pairwise_tile", "pairwise_tile_launch",
-                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)

@@ -34,7 +34,6 @@ rounding and ids up to ADC ties.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -145,6 +144,7 @@ def ivf_pq_scan(queries: torch.Tensor, centroids: torch.Tensor, codebooks: torch
         S, cap = slot_ids.shape
         return ivf_pq_scan_plain(queries, centroids, codebooks, codes.reshape(S, cap, -1),
                                  slot_ids, cent_slots, probes, kk)
+    _build.load("pq_scan")      # built or loaded before any work on the device
     nq, d = queries.shape
     M, ksub, dsub = codebooks.shape
     S, cap = slot_ids.shape
@@ -172,21 +172,12 @@ def ivf_pq_scan(queries: torch.Tensor, centroids: torch.Tensor, codebooks: torch
     args = [t.contiguous() for t in (queries, centroids, codebooks, codes, slot_ids, cent_slots,
                                      probes)]
     next_query = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = _entry()(*[t.data_ptr() for t in args], nq, d, M, ksub, dsub, cap, max_slots,
-                        nlist, nprobe, kk, codes.shape[1], next_query.data_ptr(),
-                        out_d.data_ptr(), out_i.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "ivf_pq_scan")
-    ivf_pq_scan.launches += 1
-    inventory.count_launch(
-        "pq_scan", (nq, d, M, ksub, nprobe, kk, S, cap), lambda: (
-            *scan_cost(slot_ids, cent_slots, probes, d, ksub, M, kk),
-            inventory.footprint(args, (out_d, out_i))))
+    _build.launch("pq_scan", dev, (*args, nq, d, M, ksub, dsub, cap, max_slots, nlist, nprobe, kk,
+                                   codes.shape[1], next_query, out_d, out_i),
+                  "ivf_pq_scan", (nq, d, M, ksub, nprobe, kk, S, cap), lambda: (
+                      *scan_cost(slot_ids, cent_slots, probes, d, ksub, M, kk),
+                      inventory.footprint(args, (out_d, out_i))))
     return out_d, out_i
-
-
-ivf_pq_scan.launches = 0
 
 
 def scan_cost(slot_ids: torch.Tensor, cent_slots: torch.Tensor, probes: torch.Tensor, d: int,
@@ -200,10 +191,3 @@ def scan_cost(slot_ids: torch.Tensor, cent_slots: torch.Tensor, probes: torch.Te
     probed = probes.long()
     return cost.pq_scan_cost(probes.shape[0], d, ksub, M, probes.shape[1], kk,
                              int(per_list[probed].sum()), int(per_list[torch.unique(probed)].sum()))
-
-
-def _entry():
-    return _build.entry("pq_scan", "pq_scan_launch",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4,
-                        ctypes.c_int)
-

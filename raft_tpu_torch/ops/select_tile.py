@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from typing import Tuple
 
 import torch
@@ -97,32 +96,21 @@ def select_tile(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
             "select_tile: float keys required, got %s", keys.dtype)
     if keys.device.type == "cpu":
         return select_tile_plain(keys, k)
-    launch = _build.entry("select_tile", "select_tile_launch",
-                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                          + [ctypes.c_void_p] * 4, ctypes.c_int)
+    _build.load("select_tile")  # built or loaded before any work on the device
     keys = keys.to(torch.float32).contiguous()
     out_k = torch.empty((m, k), dtype=torch.float32, device=keys.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=keys.device)
     if m == 0:
         return out_k, out_i
     with torch.cuda.device(keys.device):
-        # the wide route's bounds, counts and candidates
+        # the wide route's bounds, counts and candidates, sized for the device's SMs
         scratch = torch.empty(_scratch_bytes(keys.device.index, m, w, k), dtype=torch.uint8,
                               device=keys.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        code = launch(keys.data_ptr(), m, w, k, out_k.data_ptr(), out_i.data_ptr(),
-                      scratch.data_ptr(), stream)
-    _build.check(code, "select_tile")
-    select_tile.launches += 1
-    select_tile.shapes[(m, w, k)] += 1
-    inventory.count_launch("select_tile", (m, w, k), lambda: (
-        *cost.select_cost(m, w, k), inventory.footprint((keys,), (out_k, out_i), scratch.numel())))
+    _build.launch("select_tile", keys.device, (keys, m, w, k, out_k, out_i, scratch),
+                  "select_tile", (m, w, k), lambda: (
+                      *cost.select_cost(m, w, k),
+                      inventory.footprint((keys,), (out_k, out_i), scratch.numel())))
     return out_k, out_i
-
-
-select_tile.launches = 0
-# launches by (rows, width, k): the merges and probes of a path differ in shape
-select_tile.shapes = Counter()
 
 
 def plan(m: int, w: int, k: int) -> int:

@@ -1,11 +1,13 @@
 """The phase counters of the fused tile kernel, on the CPU: the reduction of
 raw counter buffers to ``kernel_phases()``'s table, the collector over CPU
 tensors (nothing counted, answers unchanged), the timed build's library
-name, the buffer layout against ``ops/csrc/knn_tile.cuh``, and the
-program's trace ranges under ``core.tracing``'s switch.  The timed
+name, the buffer layout against ``ops/csrc/knn_tile.cuh``, the launch
+seam's choice of the timed entry (a fake launcher on a fake card), and
+the program's trace ranges under ``core.tracing``'s switch.  The timed
 instances themselves run only on a card
 (``portbench/tests/test_portbench_phases_card.py``)."""
 
+import contextlib
 import ctypes
 import hashlib
 import re
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import inventory, tracing
+from raft_tpu_torch.core.error import RaftError
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan
 from raft_tpu_torch.ops.knn_tile import fused_knn_tile, twophase_tiles
@@ -202,6 +205,65 @@ def test_timed_entry_takes_the_buffer_last(monkeypatch):
     assert plain is not timed
     assert plain.argtypes == [ctypes.c_int]
     assert timed.argtypes == [ctypes.c_int, ctypes.c_void_p]
+
+
+class _HostLaunch(tracing.PhaseLaunch):
+    """A timed launch's record without a card: a host counter buffer and
+    events that record nothing."""
+
+    def __init__(self, device):
+        self.counts = torch.zeros(tracing.PHASE_WORDS, dtype=torch.int64)
+        self.start = self.end = types.SimpleNamespace(record=lambda: None,
+                                                      elapsed_time=lambda end: 0.0)
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_the_launch_seam_times_only_the_tile_kernels(name, monkeypatch):
+    # each kernel's launcher faked; the seam binds it, appends the stream,
+    # takes the timed entry inside kernel_phases() only for PHASE_KERNELS,
+    # counts each launch in the inventory, and raises on an error code
+    calls, code = [], [0]
+
+    class _Launcher:
+        def __init__(self, phases):
+            self.phases = phases
+
+        def __call__(self, *args):
+            calls.append((self.phases, args))
+            return code[0]
+
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "load", lambda n, phases=False: types.SimpleNamespace(
+        **{n + "_launch": _Launcher(phases)}))
+    monkeypatch.setattr(tracing, "PhaseLaunch", _HostLaunch)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
+    monkeypatch.setattr(inventory, "_entries", {})
+    card, buf = torch.device("cuda", 0), torch.zeros(3)
+
+    def launch():
+        _build.launch(name, card, (buf, 5, 2.5), "the_wrapper", (5, "highest"),
+                      lambda: (10.0, 20.0, (12.0, 0.0, 0.0)))
+
+    launch()
+    with tracing.kernel_phases() as table:
+        launch()
+        assert len(tracing._phase_state.launches) == (name in _build.PHASE_KERNELS)
+    assert table == {}
+    timed = name in _build.PHASE_KERNELS
+    assert [phases for phases, _ in calls] == [False, timed]
+    assert calls[0][1] == (buf.data_ptr(), 5, 2.5, 7)
+    assert calls[1][1][:4] == calls[0][1] and len(calls[1][1]) == 4 + timed
+    fn = _build._entries[(name, name + "_launch", False)]
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    entry = inventory.snapshot()[name][repr((5, "highest"))]
+    assert (entry["launches"], entry["flops"], entry["argument_bytes"]) == (2, 10.0, 12.0)
+    code[0] = 700
+    with pytest.raises(RaftError, match="the_wrapper: CUDA error 700 at launch"):
+        launch()
+    assert inventory.snapshot()[name][repr((5, "highest"))]["launches"] == 2
 
 
 # ---------------------------------------------------------------------- #

@@ -152,9 +152,11 @@ def test_counters_count_a_launch_blocks_and_wave_slots(monkeypatch):
     import contextlib
     import types
 
-    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.core import inventory, tracing
+    from raft_tpu_torch.ops import _build
     launched = []
-    monkeypatch.setattr(knn_tile, "_entry", lambda phases=False: lambda *a: launched.append(a) or 0)
+    monkeypatch.setattr(_build, "entry", lambda *a, **kw: lambda *args: launched.append(args) or 0)
+    monkeypatch.setattr(inventory, "_entries", {})
     monkeypatch.setattr(knn_tile, "block_q", lambda d: 64)
     monkeypatch.setattr(knn_tile, "_sms", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())

@@ -37,8 +37,9 @@ from raft_tpu_torch.serve import BucketPolicy, MicroBatcher, ServeWorker
 from raft_tpu_torch.fleet import Fleet
 from raft_tpu_torch.core.utils import Pow2, align, ceildiv, round_down_safe, round_up_safe
 from raft_tpu_torch.distance.distance_type import DistanceType
-from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain, ivf_items
+from raft_tpu_torch.core import inventory
+from raft_tpu_torch.ops import _build, pq_scan
+from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, fused_ivf_scan_plain
 from raft_tpu_torch.ops.knn_tile import (fused_knn_tile, fused_knn_twophase, knn_tile_plain,
                                          twophase_tiles, twophase_tiles_plain)
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile, nn_tile_plain
@@ -297,10 +298,6 @@ def _no_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
 
 
-WRAPPERS = (fused_knn_tile, select_tile, pairwise_tile, fused_nn_tile, ivf_items,
-            twophase_tiles)
-
-
 def _ivf_args(g):
     sv = torch.randn(5, 12, 8, generator=g)
     si = torch.arange(60, dtype=torch.int32).reshape(5, 12)
@@ -308,22 +305,39 @@ def _ivf_args(g):
     return sv, (sv * sv).sum(-1), si, slots
 
 
+def _pq_args(g):
+    """K7's operands for 7 queries of depth 8: 4 lists over 6 slots of 5
+    rows (two vacant), 4 subspaces of 16 codewords, codes narrowed to 16
+    bytes a row, 2 probes a query."""
+    ids = torch.arange(30, dtype=torch.int32).reshape(6, 5)
+    ids[2, 3:] = -1
+    codes = torch.randint(0, 16, (6, 5, 4), generator=g)
+    cent_slots = torch.tensor([[0, 1], [2, -1], [3, 4], [5, -1]], dtype=torch.int32)
+    probes = torch.tensor([[0, 2], [1, 3], [2, 1]], dtype=torch.int32).repeat(3, 1)[:7]
+    return (torch.randn(4, 8, generator=g), torch.randn(4, 16, 2, generator=g),
+            pq_scan.narrow_codes(codes), ids, cent_slots, probes)
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     _no_build(monkeypatch)
-    before = [w.launches for w in WRAPPERS]
+    before = inventory.snapshot()
     g = torch.Generator().manual_seed(0)
     x, q = torch.randn(300, 8, generator=g), torch.randn(7, 8, generator=g)
     ivf = _ivf_args(g)
+    cents, books, codes, ids, cent_slots, probes = _pq_args(g)
     for got, want in [(fused_knn_tile(x, q, 5), knn_tile_plain(x, q, 5)),
                       (select_tile(x, 5), select_tile_plain(x, 5)),
                       (fused_nn_tile(q, x), nn_tile_plain(q, x)),
                       (fused_ivf_scan(q, *ivf, 5), fused_ivf_scan_plain(q, *ivf, 5)),
-                      (twophase_tiles(x, q, 256), twophase_tiles_plain(x, q, 256))]:
+                      (twophase_tiles(x, q, 256), twophase_tiles_plain(x, q, 256)),
+                      (pq_scan.ivf_pq_scan(q, cents, books, codes, ids, cent_slots, probes, 5),
+                       pq_scan.ivf_pq_scan_plain(q, cents, books, codes.view(6, 5, -1), ids,
+                                                 cent_slots, probes, 5))]:
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         assert torch.equal(got[1], want[1])
     torch.testing.assert_close(pairwise_tile(q, x, DistanceType.L1),
                                pairwise_tile_plain(q, x, DistanceType.L1), rtol=0, atol=0)
-    assert [w.launches for w in WRAPPERS] == before
+    assert inventory.snapshot() == before
 
 
 def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
@@ -338,10 +352,12 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch, tmp_path):
     sn = torch.empty((5, 12), device="meta")
     si = torch.empty((5, 12), dtype=torch.int32, device="meta")
     slots = torch.empty((7, 3), dtype=torch.int32, device="meta")
+    pq = [t.to("meta") for t in _pq_args(torch.Generator().manual_seed(0))]
     calls = [lambda: fused_knn_tile(x, q, 5), lambda: select_tile(x, 5),
              lambda: pairwise_tile(q, x, DistanceType.L1), lambda: fused_nn_tile(q, x),
              lambda: fused_ivf_scan(q, sv, sn, si, slots, 5),
-             lambda: twophase_tiles(x, q, 256), lambda: fused_knn_twophase(x, q, 5)]
+             lambda: twophase_tiles(x, q, 256), lambda: fused_knn_twophase(x, q, 5),
+             lambda: pq_scan.ivf_pq_scan(q, *pq, 5)]
     for call in calls:
         with pytest.raises(RaftError, match="nvcc failed"):
             call()

@@ -19,7 +19,7 @@ raising.
 import pytest
 import torch
 
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import inventory, tracing
 from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build, cost, pq_scan
@@ -227,11 +227,11 @@ def test_kernel_matches_plain(card, card_indexes, shape, kk, nprobe):
     index = indexes[shape]
     probes = _probes(index, q, nprobe)
     args = (q, index.centroids, index.codebooks)
-    before = pq_scan.ivf_pq_scan.launches
+    before = inventory.snapshot()
     got = pq_scan.ivf_pq_scan(*args, pq_scan.narrow_codes(index.slot_codes), index.slot_ids,
                               index.cent_slots, probes, kk)
     torch.cuda.synchronize()
-    assert pq_scan.ivf_pq_scan.launches == before + 1
+    assert sum(inventory.launches_since(before)["pq_scan"].values()) == 1
     ref = pq_scan.ivf_pq_scan_plain(*args, index.slot_codes, index.slot_ids, index.cent_slots,
                                     probes, kk)
     _assert_matches_plain(got, ref)

@@ -63,6 +63,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from raft_tpu_torch import (ANNService, IVFFlatParams, approx_knn_search,  # noqa: E402
                             ivf_flat_build, ivf_flat_search)
+from raft_tpu_torch.core import inventory  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
 from raft_tpu_torch.ops.ivf_tile import fused_ivf_scan, ivf_items, scan_work_list  # noqa: E402
 from raft_tpu_torch.ops.nn_tile import fused_nn_tile  # noqa: E402
@@ -182,11 +183,12 @@ def main():
 
     index, first_ms = wall_ms(build)            # loads the kernels
     _, build_ms = wall_ms(build)
-    fused_nn_tile.launches = 0
+    before = inventory.snapshot()
     window, busy, top, stages = traced(build, out / "build.json")
     # K4 runs every k-means assignment: the first, then one per Lloyd iteration
     print(json.dumps({"path": "ivf_build_1M", "first_ms": first_ms, "ms": build_ms,
-                      "lloyd_iters": fused_nn_tile.launches - 1,
+                      "lloyd_iters": sum(inventory.launches_since(before)
+                                         .get("nn_tile", {}).values()) - 1,
                       "traced_ms": window, "device_busy_ms": busy,
                       "device_idle_share": 1.0 - busy / window,
                       "stages_traced": stages, "top_kernels": top}))
