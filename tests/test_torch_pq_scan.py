@@ -3,18 +3,30 @@
 On the CPU: the legality rule (which shapes route to the kernel), the
 search's route glue with the rule forced (the kernel's place taken by
 the plain version, which a CPU tensor gets), the narrowed codes, the
-kernel route's chunk bytes and the counters' names.
+kernel route's chunk bytes, the counters' names, and the table's bank
+rule at code rows of 16, 32 and 64 bytes: ``csrc/pq_layout.cuh``, the
+kernel's own layout functions, compiled on the host with ``g++`` (at
+every step of the scan a warp's 32 lanes read 32 banks and each lane
+sums each subspace of its row once; the build's stores and codebook
+reads fall in 32 banks, and its reads stay below M whatever M is).
 
 On the card (marked ``card``; this file imports no JAX, so run it there
 with ``python -m pytest tests/test_torch_pq_scan.py -m card
 --noconftest``): the kernel against its plain version on indexes with
 uneven lists and vacant rows, at M 64 (2 dimensions a subspace), M 16
-(8), M 32 and M 8 with 4-bit codes, kk 10, 40, 200 and 512, and with
-probes that hold fewer rows than kk; the search bitwise the same in 1, 3
-and 16 chunks; the launch and chunk counts; the shared-memory limit of
-the legality rule at its edge; and a call the kernel does not take
-raising.
+(8), M 32 and M 8 with 4-bit codes at d 128, and at fewer subspaces
+than the code row is wide (M 48 and 24 of 2 dimensions, M 12 and 8 of
+8), kk 10, 40, 200, 400 and 512, and with probes that hold fewer rows
+than kk; on lists whose rows straddle
+slot boundaries at every lane offset, with vacant rows, at M 64, 32 and
+16; the search bitwise the same in 1, 3 and 16 chunks; the launch and
+chunk counts; the shared-memory limit of the legality rule at its edge;
+and a call the kernel does not take raising.
 """
+
+import json
+import shutil
+import subprocess
 
 import pytest
 import torch
@@ -25,6 +37,7 @@ from raft_tpu_torch.distance.distance_type import DistanceType
 from raft_tpu_torch.ops import _build, cost, pq_scan
 from raft_tpu_torch.spatial import ann
 
+BANKS = 32  # shared-memory banks of 4 bytes
 
 @pytest.fixture
 def card():
@@ -65,6 +78,141 @@ def test_pq_counters_keep_their_names():
                                "ivf_pq_search.table_bytes")
     assert ann.PQ_KERNEL_CHUNKS == "ivf_pq_search.kernel_chunks"
     assert ann.PQ_KERNEL_CHUNKS not in ann.PQ_COUNTERS
+
+
+# --------------------------------------------------------------------- #
+# the table's layout and each lane's walk over it (the bank rule), from
+# the kernel's own csrc/pq_layout.cuh built on the host
+# --------------------------------------------------------------------- #
+_LAYOUT_DUMP = r"""
+#include <cstdio>
+#include "pq_layout.cuh"
+using namespace raft_tpu_torch::pq_layout;
+template <int NCH>
+void dump() {
+  const int width = 16 * NCH;
+  std::printf("{\"width\": %d, \"copies\": %d, \"column\": [", width, kCopies<NCH>);
+  for (int m = 0; m < width; ++m)
+    for (int c = 0; c < kCopies<NCH>; ++c)
+      std::printf("%s%s%d%s", m || c ? ", " : "", c ? "" : "[", table_column<NCH>(m, c),
+                  c + 1 == kCopies<NCH> ? "]" : "");
+  std::printf("], \"subspace\": [");
+  for (int col = 0; col < kColumns; ++col)
+    std::printf("%s%d", col ? ", " : "", column_subspace<NCH>(col));
+  std::printf("], \"walk\": [");
+  for (int lane = 0; lane < 32; ++lane)
+    for (int p = 0; p < width; ++p)
+      std::printf("%s%s[%d, %d]%s", lane || p ? ", " : "", p ? "" : "[", walk_byte<NCH>(p, lane),
+                  table_column<NCH>(p, 0) ^ lane, p + 1 == width ? "]" : "");
+  std::printf("], \"build\": [");
+  for (int lane = 0; lane < 32; ++lane)
+    std::printf("%s[%d, %d]", lane ? ", " : "", build_subspace<NCH>(lane, false),
+                build_subspace<NCH>(lane, true));
+  std::printf("], \"reads\": [");
+  for (int M = 1; M <= width; ++M)
+    for (int lane = 0; lane < 32; ++lane)
+      std::printf("%s%s[%d, %d]%s", M > 1 || lane ? ", " : "", lane ? "" : "[",
+                  build_reads<NCH>(lane, false, M), build_reads<NCH>(lane, true, M),
+                  lane == 31 ? "]" : "");
+  std::printf("]}\n");
+}
+int main() {
+  dump<1>();
+  dump<2>();
+  dump<4>();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory):
+    """What ``csrc/pq_layout.cuh`` says for each code width: the copies,
+    ``column[m][c]``, ``subspace[col]``, ``walk[lane][step]`` (the byte
+    of its row and the column a lane reads), ``build[lane]`` (the
+    subspaces a build lane stores, its own and its sibling's) and
+    ``reads[M - 1][lane]`` (the subspaces whose codebooks it reads)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine")
+    d = tmp_path_factory.mktemp("pq_layout")
+    (d / "dump.cpp").write_text(_LAYOUT_DUMP)
+    subprocess.run([gxx, "-std=c++17", "-I", str(_build.CSRC), "-o", str(d / "dump"),
+                    str(d / "dump.cpp")], check=True, capture_output=True)
+    out = subprocess.run([str(d / "dump")], check=True, capture_output=True, text=True).stdout
+    return {lay["width"]: lay for lay in map(json.loads, out.splitlines())}
+
+
+@pytest.mark.parametrize("width,copies", [(16, 2), (32, 1), (64, 1)])
+def test_table_columns_are_distinct(layouts, width, copies):
+    layout = layouts[width]
+    assert layout["copies"] == copies
+    cols = [col for row in layout["column"] for col in row]
+    assert len(cols) == width * copies == len(set(cols))
+    assert all(0 <= col < pq_scan.TABLE_FLOATS // 256 for col in cols)
+    assert all(layout["subspace"][col] == m for m, row in enumerate(layout["column"])
+               for col in row)
+
+
+@pytest.mark.parametrize("width", pq_scan.CODE_BYTES)
+def test_every_step_reads_32_banks(layouts, width):
+    walk = layouts[width]["walk"]
+    for step in range(width):
+        assert len({walk[lane][step][1] % BANKS for lane in range(32)}) == 32, step
+
+
+@pytest.mark.parametrize("width", pq_scan.CODE_BYTES)
+@pytest.mark.parametrize("lane", range(32))
+def test_lane_reads_each_subspace_once(layouts, width, lane):
+    """Lane ``lane`` sums every byte of its row once, each from the column
+    of that byte's subspace, all in one copy."""
+    layout = layouts[width]
+    walk = layout["walk"][lane]
+    assert sorted(byte for byte, _ in walk) == list(range(width))
+    assert all(layout["subspace"][col] == byte for byte, col in walk)
+    copy = {c: k for row in layout["column"] for k, c in enumerate(row)}
+    assert len({copy[col] for _, col in walk}) == 1
+
+
+@pytest.mark.parametrize("width", pq_scan.CODE_BYTES)
+def test_build_stores_and_reads_32_banks(layouts, width):
+    """The build (``csrc/pq_scan.cu:build_table``): lane l takes column l,
+    and column l + 32 where a row has 64 columns, its subspace and copy,
+    and codeword l + t mod 32 of a block at step t < 32 / copies; each
+    entry goes to every copy.  Each store and each codebook read of a warp
+    falls in 32 banks, and every (column, codeword) of the block is
+    written once."""
+    layout = layouts[width]
+    copies, column = layout["copies"], layout["column"]
+    owner = {col: (m, c) for m, row in enumerate(column) for c, col in enumerate(row)}
+    homes = [[lane + 32 * h for lane in range(32)] for h in range(len(owner) // 32)]
+    written = {}
+    for cols in homes:
+        for t in range(32 // copies):
+            assert len({(lane + t) % 32 for lane in range(32)}) == 32
+            for k in range(copies):
+                banks = set()
+                for lane, col in enumerate(cols):
+                    m, c = owner[col]
+                    at = (column[m][c ^ k], (lane + t) % 32)
+                    written[at] = written.get(at, 0) + 1
+                    banks.add(at[0] % BANKS)
+                assert len(banks) == 32
+    assert len(written) == len(owner) * 32 and set(written.values()) == {1}
+
+
+@pytest.mark.parametrize("width", pq_scan.CODE_BYTES)
+def test_build_reads_no_subspace_past_M(layouts, width):
+    """Whatever M a row of ``width`` bytes holds, a build lane reads the
+    residual and codebook of its own subspace and its sibling's where
+    they are below M, and of subspace 0 where not, so no read leaves the
+    codebooks; and the lanes store every subspace."""
+    layout = layouts[width]
+    build = layout["build"]
+    assert all(layout["subspace"][lane] == own for lane, (own, _) in enumerate(build))
+    assert {m for pair in build for m in pair} == set(range(width))
+    for M, reads in enumerate(layout["reads"], start=1):
+        for (own, sib), (r_own, r_sib) in zip(build, reads):
+            assert r_own == (own if own < M else 0) and r_sib == (sib if sib < M else 0)
 
 
 @pytest.mark.parametrize("M,width", [(8, 16), (16, 16), (24, 32), (64, 64)])
@@ -167,27 +315,36 @@ def _mixture(n, d, dev, seed):
     return torch.cat([x, far]), centres, g
 
 
-# (M, bits) at d 128: the cell's subspaces of 2 dimensions and chip_smoke's
-# of 8 (the kernel's unrolled table builds), and two shapes of its generic
-# build: 32-byte code rows, and 4-bit codes in rows padded to 16 bytes
-SHAPES = {"M64": (64, 8), "M16": (16, 8), "M32": (32, 8), "M8x4bit": (8, 4)}
+# (M, bits, d): at d 128 the cell's subspaces of 2 dimensions and
+# chip_smoke's of 8 (the kernel's unrolled table builds), and two shapes of
+# its generic build: 32-byte code rows, and 4-bit codes in rows padded to
+# 16 bytes; then the unrolled builds at fewer subspaces than the code row
+# is wide, whose lanes past M store nothing (M 48 at d 96 is deep-96's
+# pq_dim in raft-ann-bench)
+SHAPES = {"M64": (64, 8, 128), "M16": (16, 8, 128), "M32": (32, 8, 128), "M8x4bit": (8, 4, 128),
+          "M48d96": (48, 8, 96), "M24d48": (24, 8, 48), "M12d96": (12, 8, 96),
+          "M8d64": (8, 8, 64)}
 
 
 @pytest.fixture(scope="module")
 def card_indexes():
+    """Each shape's index and the queries of its width."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card on this machine")
     dev = torch.device("cuda")
-    x, centres, g = _mixture(40_000, 128, dev, 5)
-    q = centres[torch.randint(40, (300,), device=dev, generator=g)] + 0.5 * torch.randn(
-        300, 128, device=dev, generator=g)
-    q = torch.cat([q, 20.0 + 0.1 * torch.randn(4, 128, device=dev, generator=g)])
+    data = {}
+    for d in sorted({d for _, _, d in SHAPES.values()}):
+        x, centres, g = _mixture(40_000, d, dev, 5)
+        q = centres[torch.randint(40, (300,), device=dev, generator=g)] + 0.5 * torch.randn(
+            300, d, device=dev, generator=g)
+        data[d] = x, torch.cat([q, 20.0 + 0.1 * torch.randn(4, d, device=dev, generator=g)])
     out = {}
-    for name, (M, bits) in SHAPES.items():
+    for name, (M, bits, d) in SHAPES.items():
         params = ann.IVFPQParams(nlist=96, nprobe=8, M=M, n_bits=bits, refine_ratio=2)
+        x, q = data[d]
         out[name] = ann.ivf_pq_build(x, params, DistanceType.L2SqrtExpanded, seed=7,
-                                     device=dev)
-    return out, q
+                                     device=dev), q
+    return out
 
 
 def _probes(index, q, nprobe):
@@ -220,11 +377,10 @@ def _assert_matches_plain(got, ref, rtol_d=1e-5, rtol_tie=1e-6):
 
 @pytest.mark.card
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("kk", [10, 40, 200, 512])
+@pytest.mark.parametrize("kk", [10, 40, 200, 400, 512])
 @pytest.mark.parametrize("nprobe", [1, 8])
 def test_kernel_matches_plain(card, card_indexes, shape, kk, nprobe):
-    indexes, q = card_indexes
-    index = indexes[shape]
+    index, q = card_indexes[shape]
     probes = _probes(index, q, nprobe)
     args = (q, index.centroids, index.codebooks)
     before = inventory.snapshot()
@@ -241,11 +397,44 @@ def test_kernel_matches_plain(card, card_indexes, shape, kk, nprobe):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("M", [64, 32, 16])
+@pytest.mark.parametrize("kk", [10, 40, 200, 400])
+def test_kernel_matches_plain_across_slot_boundaries(card, M, kk):
+    """Lists of slots that are not neighbours in the store, 40 rows a slot
+    (so a warp's 32 rows straddle two slots, and its lanes' rows sit at
+    every offset of a slot), vacant rows inside slots and at their ends,
+    and every query probing the three lists in its own order; 2, 4 and 8
+    dimensions a subspace (the unrolled builds and the generic one)."""
+    g = torch.Generator(device=card).manual_seed(1000 * M + kk)
+    d, ksub, cap, S = 128, 256, 40, 7
+    cent_slots = torch.tensor([[5, 2, 6], [0, 3, -1], [1, 4, -1]], dtype=torch.int32,
+                              device=card)
+    pos = torch.arange(cap, device=card)
+    vacant = (pos % 9 == 4).expand(S, cap).clone()
+    vacant[[2, 4], cap - 6:] = True
+    ids = torch.arange(S * cap, dtype=torch.int32, device=card).reshape(S, cap)
+    ids = torch.where(vacant, -1, ids)
+    codes = torch.randint(0, ksub, (S, cap, M), generator=g, device=card, dtype=torch.int32)
+    centroids = torch.randn(3, d, generator=g, device=card)
+    codebooks = 0.5 * torch.randn(M, ksub, d // M, generator=g, device=card)
+    q = torch.randn(48, d, generator=g, device=card)
+    probes = torch.stack([torch.tensor([0, 1, 2]).roll(i) for i in range(len(q))]).to(
+        device=card, dtype=torch.int32)
+    got = pq_scan.ivf_pq_scan(q, centroids, codebooks, pq_scan.narrow_codes(codes), ids,
+                              cent_slots, probes, kk)
+    ref = pq_scan.ivf_pq_scan_plain(q, centroids, codebooks, codes, ids, cent_slots, probes,
+                                    kk)
+    torch.cuda.synchronize()
+    _assert_matches_plain(got, ref)
+    filled = min(kk, int((ids[cent_slots[cent_slots >= 0].long()] >= 0).sum()))
+    assert bool((got[1][:, :filled] >= 0).all()) and bool((got[1][:, filled:] < 0).all())
+
+
+@pytest.mark.card
 @pytest.mark.parametrize("M", [64, 16])
 @pytest.mark.parametrize("refine_ratio", [1, 2])
 def test_search_bitwise_whatever_the_chunks(card, card_indexes, M, refine_ratio, monkeypatch):
-    indexes, q = card_indexes
-    index, k, nprobe = indexes["M%d" % M], 100, 8
+    (index, q), k, nprobe = card_indexes["M%d" % M], 100, 8
     kk = k * refine_ratio
     per = ann.pq_query_bytes(nprobe, M, 256, index.slot_ids.shape[1], kk, 128,
                              refine_ratio > 1, kernel=True)
@@ -269,8 +458,7 @@ def test_shared_memory_limit(card, card_indexes):
     """At the most probe slots the rule admits the kernel launches and
     answers as with the index's own slot table (the columns added are
     -1); one column more and it raises."""
-    indexes, q = card_indexes
-    index = indexes["M64"]
+    index, q = card_indexes["M64"]
     probes = _probes(index, q, 8)
     nlist, max_slots = index.cent_slots.shape
     widest = max(w for w in range(max_slots, 4096)
@@ -290,8 +478,7 @@ def test_shared_memory_limit(card, card_indexes):
 
 @pytest.mark.card
 def test_call_the_kernel_does_not_take_raises(card, card_indexes):
-    indexes, q = card_indexes
-    index = indexes["M64"]
+    index, q = card_indexes["M64"]
     probes = _probes(index, q, 8)
     codes = pq_scan.narrow_codes(index.slot_codes)
     with pytest.raises(LogicError):
