@@ -99,7 +99,10 @@ paths through the public entry points with ``device="cuda"``:
   and 10, and the served arm's 400) and at
   the benchmark's ``sift1m_ivfpq`` shape (an M-64 index of the same
   mixture, 10,000 queries at nprobe 50, kk 200), timed beside its
-  bounds, the plain version and a gather-and-sum yardstick; their
+  bounds, the plain version and a gather-and-sum yardstick; K7's wide
+  route the same way at the benchmark's ``gist1m_ivfpq`` shape (1M x 960
+  rows of the same recipe, M 96 x 8 bits, 1,000 queries at nprobe 50, kk
+  200), with the search's chunks all on it; their
   ``ANNService`` arms under the ``serve_ann_1M`` traffic
   (``serve_ann_pq_1M``, ``serve_ann_sq_1M``: every response bitwise equal
   to its padded batch's search, ``compact()`` raising, each of 2,048
@@ -417,6 +420,13 @@ PQ_DECODE_TOL, PQ_DECODE_ROWS = 1e-4, 256
 # lookup bound at 32 shared-memory reads a clock an SM at the H100 SXM's
 # boost clock
 PQ_CELL_QUERIES, PQ_CELL_NPROBE, PQ_CELL_M, PQ_CELL_KK = 10_000, 50, 64, 200
+# K7's wide route at the benchmark's gist1m_ivfpq shape: 1M rows of the
+# IVF-Flat path's mixture recipe at depth 960, nlist 1024 (the coarse
+# k-means on TRAIN_ROWS), M 96 x 8 bits (10 dimensions a subspace), 1,000
+# queries, nprobe 50, kk 200; its plain version in chunks of
+# PQ_WIDE_PLAIN_CHUNK queries (a query's tables are 4.9 MB)
+PQ_WIDE_ROWS, PQ_WIDE_DIM, PQ_WIDE_M, PQ_WIDE_QUERIES = 1_000_000, 960, 96, 1000
+PQ_WIDE_PLAIN_CHUNK = 200
 PQ_PLAIN_CHUNK, PQ_LIBRARY_CHUNK = 1000, 16
 PQ_TIE_RTOL, PQ_DIST_RTOL = 1e-6, 1e-5
 SM_CLOCK_HZ, SMEM_LOOKUPS_PER_CLOCK = 1.98e9, 32
@@ -1188,27 +1198,32 @@ def pq_compare(name, got, ref):
     return {"max_rel_err": err, "rows_ids_differ": differ}
 
 
-def pq_scan_shape(name, pq, q, nprobe, kk, dev, m):
-    """K7 at one shape against its plain version, with its time, the
-    plain version's, the library yardstick's (the plain version's tables,
-    then each chunk's probed rows' table values gathered by their codes
-    at once, summed over M, and ``torch.topk``) and the bounds: FP32
-    operations and least bytes (``ops/cost.py:pq_scan_cost``), and the
-    table lookups at SMEM_LOOKUPS_PER_CLOCK a clock an SM."""
+def pq_scan_shape(name, pq, q, nprobe, kk, dev, m, wide=False, plain_chunk=PQ_PLAIN_CHUNK):
+    """K7 (its wide route with ``wide``) at one shape against its plain
+    version, with its time, the plain version's, the library yardstick's
+    (the plain version's tables, then each chunk's probed rows' table
+    values gathered by their codes at once, summed over M, and
+    ``torch.topk``) and the bounds: FP32 operations and least bytes
+    (``ops/cost.py:pq_scan_cost``), and the table lookups at
+    SMEM_LOOKUPS_PER_CLOCK a clock an SM."""
     M, ksub, _ = pq.codebooks.shape
     _, probes = m.select_k(m.expanded_sq_dists(q, pq.centroids), nprobe, select_min=True,
                            device=dev)
-    codes = m.narrow_codes(pq.slot_codes)
+    codes = m.narrow_codes(pq.slot_codes, wide)
     args = (pq.centroids, pq.codebooks)
     tail = (pq.slot_ids, pq.cent_slots)
+    if wide:    # the list terms are the index's, made once before the timing
+        terms = m.wide_terms(*args)
 
     def kernel():
+        if wide:
+            return m.ivf_pq_scan_wide(q, *args, codes, terms, *tail, probes, kk)
         return m.ivf_pq_scan(q, *args, codes, *tail, probes, kk)
 
     def plain():
-        parts = [m.ivf_pq_scan_plain(q[c:c + PQ_PLAIN_CHUNK], *args, pq.slot_codes, *tail,
-                                     probes[c:c + PQ_PLAIN_CHUNK], kk)
-                 for c in range(0, len(q), PQ_PLAIN_CHUNK)]
+        parts = [m.ivf_pq_scan_plain(q[c:c + plain_chunk], *args, pq.slot_codes, *tail,
+                                     probes[c:c + plain_chunk], kk)
+                 for c in range(0, len(q), plain_chunk)]
         return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
 
     def library():
@@ -1273,6 +1288,53 @@ def pq_scan_row(X, pq, q_smoke, q_cell, dev, m):
                           "counters": counted,
                           "k7_launches": sum(m.inventory.launches_since(launched)
                                              .get("pq_scan", {}).values())}
+    return row
+
+
+def pq_scan_wide_row(dev, m):
+    """The wide route's row of the kernels line, at the benchmark's
+    gist1m_ivfpq shape (PQ_WIDE_*): an index of 1M x 960 rows of the
+    IVF-Flat path's mixture recipe, K7's wide route against its plain
+    version, and the search at that shape, its chunk counts and launches
+    (every chunk on the wide route, none on K7)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    centers = torch.randn(N_BLOBS, PQ_WIDE_DIM, device=dev, generator=gen) * 4.0
+    blob = torch.randint(0, N_BLOBS, (PQ_WIDE_ROWS + PQ_WIDE_QUERIES,), device=dev,
+                         generator=gen)
+    rows = centers[blob] + torch.randn(len(blob), PQ_WIDE_DIM, device=dev,
+                                       generator=gen) * BLOB_SPREAD
+    x, q = rows[:PQ_WIDE_ROWS], rows[PQ_WIDE_ROWS:]
+    del blob, centers
+    t0 = time.perf_counter()
+    index = m.ivf_pq_build(x, m.IVFPQParams(nlist=NLIST, nprobe=PQ_CELL_NPROBE, M=PQ_WIDE_M,
+                                            n_bits=PQ_BITS, refine_ratio=2),
+                           m.D.L2SqrtExpanded, seed=SEED, train_rows=TRAIN_ROWS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    row = {"name": "pq_scan_wide", "route": "cuda",
+           "source": "raft_tpu_torch/ops/csrc/pq_scan_wide.cu",
+           "replaces": "none: raft_tpu/spatial/ann.py scans PQ codes in its XLA loop",
+           "build_s": build_s}
+    first = m.inventory.snapshot()
+    row.update(pq_scan_shape("pq_scan_wide at gist1m_ivfpq's shape", index, q, PQ_CELL_NPROBE,
+                             PQ_CELL_KK, dev, m, wide=True, plain_chunk=PQ_WIDE_PLAIN_CHUNK))
+    names = m.PQ_COUNTERS + (m.PQ_KERNEL_CHUNKS, m.PQ_WIDE_CHUNKS)
+    before = [m.tracing.get_counter(c) for c in names]
+    launched = m.inventory.snapshot()
+    search_ms = time_ms(lambda: m.ivf_pq_search(index, q, K, PQ_CELL_NPROBE, device=dev),
+                        reps=5)
+    counted = dict(zip(names, (m.tracing.get_counter(c) - b for c, b in zip(names, before))))
+    chunks = counted[m.PQ_COUNTERS[0]]
+    assert chunks > 0 and counted[m.PQ_KERNEL_CHUNKS] == counted[m.PQ_WIDE_CHUNKS] == chunks, \
+        counted
+    by_kernel = m.inventory.launches_since(launched)
+    assert "pq_scan" not in by_kernel, by_kernel
+    row["cell_search"] = {"ms": search_ms, "queries_per_s": len(q) / search_ms * 1e3,
+                          "counters": counted,
+                          "wide_launches": sum(by_kernel["pq_scan_wide"].values())}
+    row["launches"] = sum(m.inventory.launches_since(first)["pq_scan_wide"].values())
+    del index, x, q, rows
+    torch.cuda.empty_cache()
     return row
 
 
@@ -4433,9 +4495,11 @@ def main():
         ball_cover=ball_cover, select_k=ann_mod.select_k,
         expanded_sq_dists=expanded_sq_dists, narrow_codes=pq_scan.narrow_codes,
         ivf_pq_scan=pq_scan.ivf_pq_scan, ivf_pq_scan_plain=pq_scan.ivf_pq_scan_plain,
+        ivf_pq_scan_wide=pq_scan.ivf_pq_scan_wide,
+        wide_terms=pq_scan.wide_terms,
         scan_cost=pq_scan.scan_cost, pq_tables=ann_mod._pq_tables, probe_compact=_probe_compact,
         PQ_COUNTERS=ann_mod.PQ_COUNTERS, PQ_KERNEL_CHUNKS=ann_mod.PQ_KERNEL_CHUNKS,
-        tracing=tracing, inventory=inventory)
+        PQ_WIDE_CHUNKS=ann_mod.PQ_WIDE_CHUNKS, tracing=tracing, inventory=inventory)
     _, bf10 = brute_force_knn(X, ivf_q, QK, D.L2SqrtExpanded, device=dev)
     qpaths, pq, sq, codebook = quantized_paths(X, ivf_q, bf10, dev, reset, counts, qmods)
     paths.update(qpaths)
@@ -4450,6 +4514,9 @@ def main():
     k7_row = pq_scan_row(X, pq, ivf_q, k7_q, dev, qmods)
     del k7_q
     print("pq_scan: %s" % json.dumps(k7_row), flush=True)
+    # its wide route at the benchmark's gist1m_ivfpq shape (an index of its own)
+    k7_wide_row = pq_scan_wide_row(dev, qmods)
+    print("pq_scan_wide: %s" % json.dumps(k7_wide_row), flush=True)
     for kind, qindex in (("pq", pq), ("sq", sq)):
         name = "serve_ann_%s_1M" % kind
         paths[name] = serve_quantized(kind, qindex, X, ann_load, dev, reset, counts, qmods)
@@ -5230,6 +5297,7 @@ def main():
                                          reps=5)
     del q16, x16
     rows.append(dict(k7_row, launches=launches["pq_scan"]))
+    rows.append(k7_wide_row)
 
     print(json.dumps({"card": card, "paths": paths}))
     print(json.dumps({"kernels": rows}))

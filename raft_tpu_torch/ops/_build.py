@@ -53,7 +53,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -63,7 +63,7 @@ from raft_tpu_torch.core.error import RaftError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch_kernels"
 KERNELS = ("knn_tile", "select_tile", "pairwise_tile", "nn_tile", "ivf_tile",
-           "knn_twophase", "pq_scan")
+           "knn_twophase", "pq_scan", "pq_scan_wide")
 # -split-compile=0 optimises a file's functions on all the host's
 # threads: K5 instantiates its unrolled tile 32 times (8 metrics, two
 # staging paths, with and without the epilog), and its build is the
@@ -212,9 +212,10 @@ def check(code: int, what: str) -> None:
 
 
 def launch(name: str, device: torch.device, args: Sequence, what: str, key,
-           costs: Callable) -> None:
+           costs: Callable, kernel: Optional[str] = None) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` (its entry point
-    ``<name>_launch``) on ``device``'s current stream.
+    ``<kernel>_launch``, ``kernel`` being ``name`` unless the library
+    holds more than one) on ``device``'s current stream.
 
     ``args`` are the entry point's arguments before the stream: a tensor
     passes its device pointer (``c_void_p``), a float a ``c_float``, an
@@ -222,18 +223,19 @@ def launch(name: str, device: torch.device, args: Sequence, what: str, key,
     is open on this thread, a kernel of :data:`PHASE_KERNELS` takes its
     phase-timed build, the counter buffer after the stream.  A code other
     than 0 raises, naming ``what``; a launch that returns 0 is counted in
-    the cost inventory as ``name`` at shape ``key``, ``costs()`` giving
+    the cost inventory as ``kernel`` at shape ``key``, ``costs()`` giving
     its ``(flops, bytes, footprint_bytes)`` at a new key
     (:func:`raft_tpu_torch.core.inventory.count_launch`)."""
+    kernel = kernel or name
     timed = tracing.phase_launch(device) if name in PHASE_KERNELS else None
     # lazy: :func:`entry` reads the types only where it binds the entry point
     argtypes = itertools.chain((ctypes.c_void_p if isinstance(a, torch.Tensor) else
                                 ctypes.c_float if isinstance(a, float) else ctypes.c_int
                                 for a in args), [ctypes.c_void_p])
-    fn = entry(name, name + "_launch", argtypes, ctypes.c_int, timed is not None)
+    fn = entry(name, kernel + "_launch", argtypes, ctypes.c_int, timed is not None)
     values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         values.append(torch.cuda.current_stream().cuda_stream)
         code = fn(*values) if timed is None else timed.run(fn, *values)
     check(code, what)
-    inventory.count_launch(name, key, costs)
+    inventory.count_launch(kernel, key, costs)

@@ -1,5 +1,6 @@
 // K7's ADC table layout and each lane's walk over it (pq_scan.cu), for
-// code rows of NCH 16-byte chunks (16, 32 or 64 bytes).  Plain C++ with
+// code rows of NCH 16-byte chunks (16, 32 or 64 bytes), and the wide
+// route's (pq_scan_wide.cu, rows of 32, 64 or 96 bytes; below).  Plain C++ with
 // no CUDA dependency, so that the host can compile it too: the CPU tests
 // (tests/test_torch_pq_scan.py) build it with g++ and check the bank rule
 // on these functions, the ones the kernel calls.
@@ -87,6 +88,23 @@ PQ_HD constexpr int build_subspace(int lane, bool sibling) {
 template <int NCH>
 PQ_HD constexpr int build_reads(int lane, bool sibling, int M) {
   return build_subspace<NCH>(lane, sibling) < M ? build_subspace<NCH>(lane, sibling) : 0;
+}
+
+// The wide route (pq_scan_wide.cu): code rows of 32, 64 or 96 bytes, a
+// table row of as many floats, one a subspace.  Each 32-byte group g of a
+// row is laid out as a 32-byte row above, offset by 32 g: subspace m's
+// column is wide_column(m), whose bank is that of table_column<2>(m mod
+// 32), and at step p lane l reads column wide_walk_column(p, l), the
+// subspace wide_subspace(that column), which is the byte wide_walk_byte(p,
+// l) of its row (group p / 32, loaded and walked as NCH 2 walks a row).
+// So every step reads 32 banks, and each lane sums each subspace once.
+PQ_HD constexpr int wide_column(int m) { return (m & ~31) | table_column<2>(m & 31, 0); }
+PQ_HD constexpr int wide_subspace(int col) { return (col & ~31) | column_subspace<2>(col & 31); }
+PQ_HD constexpr int wide_walk_column(int p, int lane) {
+  return (p & ~31) | (table_column<2>(p & 31, 0) ^ lane);
+}
+PQ_HD constexpr int wide_walk_byte(int p, int lane) {
+  return (p & ~31) | walk_byte<2>(p & 31, lane);
 }
 
 }  // namespace pq_layout

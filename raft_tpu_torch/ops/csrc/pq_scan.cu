@@ -11,6 +11,14 @@
 // to the smaller id; vacant rows (id < 0) are skipped and unfilled results
 // are (+inf, -1).
 //
+// What it takes (ops/pq_scan.py:fits): code rows of 16, 32 or 64 bytes (M
+// <= 64), d <= 512 (a thread a dimension of the query), at most 256
+// codewords, and the whole codebook (d x ksub floats) in shared memory
+// beside the table, the sort area and each probe's slots, which at 256
+// codewords holds d to 145 at most.  Wider rows and larger codebooks take
+// the wide route (pq_scan_wide.cu: M <= 96, any d); what neither takes,
+// the step scan.
+//
 // What bounds it on an H100: at the sift1m_ivfpq cell (10,000 queries,
 // nprobe 50 of 1,024 lists, M 64 subspaces of 2 dimensions, 256 codewords,
 // kk 200) a query scans about 55,000 rows, so a call makes up to 35 G table
@@ -75,6 +83,7 @@
 #include <stdint.h>
 
 #include "pq_layout.cuh"
+#include "pq_scan.cuh"
 
 namespace raft_tpu_torch {
 namespace {
@@ -84,49 +93,7 @@ using pq_layout::kColumns;
 using pq_layout::kCopies;
 using pq_layout::table_column;
 
-constexpr int kThreads = 512;
 constexpr int kCodewords = 256;  // the codewords a subspace has at most
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kFiller = 0xffffffffffffffffull;
-
-__device__ __forceinline__ unsigned long long make_key(float d, int id) {
-  return (unsigned long long)__float_as_uint(d) << 32 | (unsigned)id;
-}
-
-// The sort area: the top list [0, KC), then the buffer of candidates,
-// which takes a segment of a probe's rows without a merge: a list's rows
-// go through in segments of whole rounds that fit it.
-constexpr int kArea = 2048;
-template <int KC>
-struct Sel {
-  static constexpr int kRoom = kArea - KC;
-  static constexpr int kSegment = kRoom / kThreads * kThreads;
-};
-
-// Bitonic sort of keys[0, n) ascending, n a power of two; every thread
-// of the block calls it.  A warp's compare-exchanges at strides up to 32
-// stay inside 64-key blocks of its own, so those stages need only the
-// warp's barrier (the last stage of each size ends with the block's).
-__device__ void sort_keys(unsigned long long* keys, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (n >> 1); t += kThreads) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = keys[lo], b = keys[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      if (stride >= 64 || stride == 1) {
-        __syncthreads();
-      } else {
-        __syncwarp();
-      }
-    }
-  }
-}
 
 // The walk of a lane over its row (pq_layout.cuh: the table's layout, and
 // at step p the column table_column<NCH>(p, 0) ^ lane, 32 banks a warp).
@@ -150,19 +117,6 @@ struct Lane {
 #pragma unroll
     for (int i = 0; i < 4; ++i) sel[i] = 0x4404u | (unsigned)((i ^ lane) & 3) << 4;
   }
-};
-
-// One row a thread: its id (-1 where the round has no row for it) and its
-// codes, zero where it has none.
-template <int NCH>
-struct Row {
-  int id;
-  uint4 c[NCH];
-};
-
-struct Probe {
-  const int* slots;  // the list's slots (max_slots, -1 padded)
-  int rows;          // its valid slots x cap
 };
 
 // The row's codes are loaded chunk ^ ch first: chunk slot ch holds the

@@ -67,34 +67,43 @@ merge is part of its route and stays on K2.
 
 IVF-PQ's ADC distance of a row is the sum over its M subspaces of a
 lookup table of the query and the row's list, read at the row's codes.
-On CUDA, wherever K7
-(:func:`raft_tpu_torch.ops.pq_scan.ivf_pq_scan`) takes the call (its
-legality rule, :func:`~raft_tpu_torch.ops.pq_scan.takes`: float32
-queries, M <= 64, at most 256 codewords, ``k * refine_ratio`` <= 512,
-the shared memory within Hopper's; the metrics are all L2), one launch a
-chunk builds each (query, probe) table in shared memory from the
-codebooks, reads the codes once as uint8 (narrowed from the index's
-int32 once a call) and keeps each query's running top-k on chip; no step
-counts are read.  Otherwise, which includes every CPU call, the search
-takes the step scan, as the JAX package scans PQ with its XLA loop (no
-Pallas kernel; :func:`~raft_tpu_torch.ops.pq_scan.ivf_pq_scan_plain`,
-K7's plain version): the tables ``(nq, nprobe, M, 2 ** n_bits)`` by one
-batched product before the scan, then one step a slot, which reads one
-query's table of the slot's probe by its rank and gathers it by the
+On CUDA, with float32 queries, an L2 metric and ``k * refine_ratio`` <=
+512, the search takes one of two kernel routes where it fits
+(:mod:`raft_tpu_torch.ops.pq_scan` says which shapes each takes): K7
+(:func:`~raft_tpu_torch.ops.pq_scan.ivf_pq_scan`, legality rule
+:func:`~raft_tpu_torch.ops.pq_scan.takes`: M <= 64, the whole codebook
+in shared memory), which builds each (query, probe) table in shared
+memory from the codebooks; else its wide route
+(:func:`~raft_tpu_torch.ops.pq_scan.ivf_pq_scan_wide`,
+:func:`~raft_tpu_torch.ops.pq_scan.takes_wide`: M <= 96, any depth),
+which builds it from list terms made once an index and query terms made
+once a query.  Either reads the codes once as uint8, narrowed from the
+index's int32 (by K7's route once a call; by the wide route, with its
+list terms, at an index's first wide search, and kept while the index's
+device tensors live unchanged: :func:`_wide_operands`), and keeps each
+query's running top-k on chip, one launch a chunk; no step counts are
+read.  Otherwise, which includes every CPU call, the search takes the
+step scan, as the JAX package scans PQ with its XLA loop (no Pallas
+kernel; :func:`~raft_tpu_torch.ops.pq_scan.ivf_pq_scan_plain`, the
+kernels' plain version): the tables ``(nq, nprobe, M, 2 ** n_bits)`` by
+one batched product before the scan, then one step a slot, which reads
+one query's table of the slot's probe by its rank and gathers it by the
 slot's codes, summed over M (the JAX package's ``"gather"`` ADC; its
 one-hot formulation suits the TPU's MXU, not the card), and merges it
 into the running top-k by ``select_k`` (K2 where k <= 128, a stable sort
 above).  The tables of a call are ``nprobe * M * 2 ** n_bits`` floats a
 query (3.3 MB at nprobe 50, M 64, 8 bits), so after one probe of the
 whole call the queries go through in chunks: a chunk's tables, their
-temporaries and its step transients (:func:`pq_query_bytes`; on K7's
+temporaries and its step transients (:func:`pq_query_bytes`; on a kernel
 route its candidates and the re-rank) stay under
 :data:`PQ_BUDGET_BYTES`, only one chunk's tables live at a time, and a
 chunk runs as many steps as its own busiest query needs.  The ranges
 ``ivf_pq_search.probe``, ``.tables``, ``.scan`` and ``.refine`` and the
-counters :data:`PQ_COUNTERS` and :data:`PQ_KERNEL_CHUNKS` trace it (K7
-runs inside ``.scan``; ``.tables`` then runs nothing).  IVF-SQ always
-takes the step scan and dequantises the one slot of each query per step.
+counters :data:`PQ_COUNTERS`, :data:`PQ_KERNEL_CHUNKS`,
+:data:`PQ_WIDE_CHUNKS` and :data:`PQ_TABLE_READS` trace it (both kernel
+routes run inside ``.scan``; ``.tables`` then runs nothing).  IVF-SQ
+always takes the step scan and dequantises the one slot of each query
+per step.
 
 Results are (distances, int32 ids) best-first, square-rooted for the
 L2Sqrt metrics, with (+inf, -1) where fewer than k rows were scanned.
@@ -114,6 +123,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from raft_tpu_torch.core import native, precision, tracing, tuning
 from raft_tpu_torch.core.device import as_tensor, resolve_device
@@ -137,8 +147,15 @@ PQ_BUDGET_BYTES = 8 << 30
 # counters of the IVF-PQ search (core.tracing): chunks searched, scan
 # steps launched, bytes of lookup tables built
 PQ_COUNTERS = ("ivf_pq_search.chunks", "ivf_pq_search.steps", "ivf_pq_search.table_bytes")
-# counter of the IVF-PQ search's chunks that K7 scanned
+# counter of the IVF-PQ search's chunks that a kernel route (K7 or its
+# wide route) scanned
 PQ_KERNEL_CHUNKS = "ivf_pq_search.kernel_chunks"
+# counter of the chunks that the wide route scanned
+PQ_WIDE_CHUNKS = "ivf_pq_search.wide_chunks"
+# counters of the wide route's table construction: the device-memory bytes
+# it reads, a model from the launch geometry (pq_scan.wide_table_read_bytes),
+# and the queries of those chunks
+PQ_TABLE_READS = ("ivf_pq_search.table_read_bytes", "ivf_pq_search.table_read_queries")
 
 
 @dataclass
@@ -702,10 +719,10 @@ def _pq_tables(q, centroids, codebooks, probes):
 def pq_query_bytes(nprobe: int, M: int, ksub: int, cap: int, kk: int, d: int,
                    refine: bool, kernel: bool = False) -> int:
     """The most device bytes one query holds in a chunk of an IVF-PQ search
-    (4 a float32 or int32, 8 an int64).  On K7's route (``kernel``) the
-    tables never leave the chip: the larger of the ``kk`` candidates K7
-    writes and the re-rank.  On the step scan's, the largest of its three
-    phases:
+    (4 a float32 or int32, 8 an int64).  On a kernel route (``kernel``:
+    K7 or its wide route) the tables never leave the chip: the larger of
+    the ``kk`` candidates the kernel writes and the re-rank.  On the step
+    scan's, the largest of its three phases:
 
     - building its tables (:func:`_pq_tables`): the residuals, gathered
       centroids and squares, ``nprobe * d`` each; the batched product, the
@@ -739,6 +756,49 @@ def _pq_chunk_rows(nq: int, k: int, nprobe: int, per_query: int) -> int:
     return max(1, ceildiv(nq, max(1, ceildiv(nq, rows))))
 
 
+def _pq_probe_dists(q, centroids):
+    """The squared distances the IVF-PQ probe selects from: the expanded
+    form in float64, rounded to the queries' float type.  The float32
+    form's rounding grows as about sqrt(d) x 6e-8 of |q|^2 + |c|^2, so at
+    gist-960's depth a query could probe a list that lies past the 50th
+    by more than 1e-6 of that scale."""
+    return expanded_sq_dists(q.double(), centroids.double()).to(
+        torch.promote_types(q.dtype, torch.float32))
+
+
+# the wide route's operands that depend on the index alone, made at its
+# first wide search and kept while its device tensors live, keyed by its
+# codes: (centroids, codebooks, the three tensors' versions, the codes
+# chunk-major, the list terms)
+_WIDE_OPERANDS = WeakIdKeyDictionary()
+
+
+def _wide_operands(centroids, codebooks, slot_codes):
+    """The wide route's codes (``pq_scan.narrow_codes`` with ``wide``)
+    and list terms (``pq_scan.wide_terms``) of an index, made again
+    where its centroids, codebooks or codes are other tensors or were
+    written since."""
+    versions = (centroids._version, codebooks._version, slot_codes._version)
+    kept = _WIDE_OPERANDS.get(slot_codes)
+    if kept is None or kept[0] is not centroids or kept[1] is not codebooks or kept[2] != versions:
+        kept = (centroids, codebooks, versions, pq_scan.narrow_codes(slot_codes, wide=True),
+                pq_scan.wide_terms(centroids, codebooks))
+        _WIDE_OPERANDS[slot_codes] = kept
+    return kept[3:]
+
+
+def _pq_route(q, centroids, codebooks, k, nprobe, max_slots, metric) -> str:
+    """``"kernel"`` (K7), ``"wide"`` (its wide route) or ``"step"`` (the
+    step scan): the first route whose legality rule takes the call."""
+    if metric not in _L2_METRICS:
+        return "step"
+    if pq_scan.takes(q, centroids, codebooks, k, nprobe, max_slots):
+        return "kernel"
+    if pq_scan.takes_wide(q, centroids, codebooks, k, nprobe, max_slots):
+        return "wide"
+    return "step"
+
+
 def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, q, k, nprobe,
                         metric, refine=None, select_impl=None):
     """The chunked search (module doc): ``k`` ADC candidates a query, or
@@ -746,13 +806,14 @@ def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, 
     exactly to ``k_out``."""
     nq, d = q.shape
     M, ksub = codebooks.shape[:2]
+    max_slots = cent_slots.shape[1]
     cap = slot_ids.shape[1]
     k_out = k if refine is None else refine[1]
     sqrt = metric in _SQRT_METRICS
-    kernel = metric in _L2_METRICS and pq_scan.takes(q, centroids, codebooks, k, nprobe,
-                                                     cent_slots.shape[1])
+    route = _pq_route(q, centroids, codebooks, k, nprobe, max_slots, metric)
+    kernel, wide = route != "step", route == "wide"
     with tracing.annotate("ivf_pq_search.probe"):
-        _, probes = select_k(expanded_sq_dists(q, centroids), nprobe, select_min=True,
+        _, probes = select_k(_pq_probe_dists(q, centroids), nprobe, select_min=True,
                              impl=select_impl, device=q.device)
         if not kernel:
             live = (cent_slots[probes.long()] >= 0).sum(dim=(1, 2))
@@ -760,10 +821,14 @@ def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, 
                           pq_query_bytes(nprobe, M, ksub, cap, k, d, refine is not None, kernel))
     starts = range(0, nq, rows)
     if kernel:
-        # K7 needs no step counts; the codes narrowed once a call
+        # the kernels need no step counts; K7's codes narrowed once a
+        # call, the wide route's codes and terms once an index
         steps = [0] * len(starts)
         with tracing.annotate("ivf_pq_search.scan"):
-            codes = pq_scan.narrow_codes(slot_codes)
+            if wide:
+                codes, terms = _wide_operands(centroids, codebooks, slot_codes)
+            else:
+                codes = pq_scan.narrow_codes(slot_codes)
     else:
         # one read of every chunk's step count: the chunks then queue unbroken
         steps = torch.nn.functional.pad(live, (0, len(starts) * rows - nq)).reshape(
@@ -779,9 +844,18 @@ def _ivf_pq_search_impl(centroids, codebooks, slot_codes, slot_ids, cent_slots, 
         tracing.counter_inc(PQ_COUNTERS[2], qc.shape[0] * nprobe * M * ksub * dt.itemsize)
         if kernel:
             tracing.counter_inc(PQ_KERNEL_CHUNKS)
+            if wide:
+                tracing.counter_inc(PQ_WIDE_CHUNKS)
+                tracing.counter_inc(PQ_TABLE_READS[0], pq_scan.wide_table_read_bytes(
+                    qc.shape[0], d, ksub, M, nprobe))
+                tracing.counter_inc(PQ_TABLE_READS[1], qc.shape[0])
             with tracing.annotate("ivf_pq_search.scan"):
-                dist, ids = pq_scan.ivf_pq_scan(qc, centroids, codebooks, codes, slot_ids,
-                                                cent_slots, pc, k)
+                if wide:
+                    dist, ids = pq_scan.ivf_pq_scan_wide(qc, centroids, codebooks, codes, terms,
+                                                         slot_ids, cent_slots, pc, k)
+                else:
+                    dist, ids = pq_scan.ivf_pq_scan(qc, centroids, codebooks, codes, slot_ids,
+                                                    cent_slots, pc, k)
         else:
             dist, ids = pq_scan.ivf_pq_scan_plain(qc, centroids, codebooks, codes, slot_ids,
                                                   cent_slots, pc, k, n_live, select_impl)
